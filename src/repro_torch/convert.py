@@ -1,0 +1,31 @@
+"""Carry weights and sampler state into the port from plain numpy arrays.
+
+The tests build the JAX package's objects, take ``np.asarray`` of their
+leaves and hand them here; the port never sees a JAX array.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.lda import LDAState
+from repro_torch.core.rtlda import RTLDAModel
+
+
+def _t(x, dtype, dev) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=dtype)).to(dev)
+
+
+def lda_state_from_numpy(phi, psi, z, alpha, beta, device) -> LDAState:
+    dev = resolve_device(device)
+    return LDAState(phi=_t(phi, np.int32, dev), psi=_t(psi, np.int32, dev),
+                    z=_t(z, np.int32, dev), alpha=_t(alpha, np.float32, dev),
+                    beta=_t(beta, np.float32, dev))
+
+
+def rtlda_model_from_numpy(pvk, alpha, r_topic, r_value, device) -> RTLDAModel:
+    dev = resolve_device(device)
+    return RTLDAModel(pvk=_t(pvk, np.float32, dev), alpha=_t(alpha, np.float32, dev),
+                      r_topic=_t(r_topic, np.int32, dev),
+                      r_value=_t(r_value, np.float32, dev))

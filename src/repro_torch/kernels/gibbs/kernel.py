@@ -1,0 +1,72 @@
+"""ctypes wrapper of the CUDA Gibbs/RT-LDA argmax kernel (``csrc/gibbs_argmax.cu``).
+
+Replaces the TPU kernel ``repro.kernels.gibbs.kernel.gibbs_argmax_pallas``.
+The library is built at the first launch (``repro_torch.kernels.load``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch import kernels as kernels_mod
+
+_fn = None
+
+
+def _launcher():
+    global _fn
+    if _fn is None:
+        fn = kernels_mod.load("gibbs_argmax").gibbs_argmax_launch
+        p = ctypes.c_void_p
+        fn.argtypes = [p, p, ctypes.c_longlong, p, p, p, p, ctypes.c_uint32,
+                       ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                       ctypes.c_int, p, p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check(name, x, dtype, shape, device):
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def gibbs_argmax_cuda(phi_rows, psi_rows, theta_rows, alpha, beta, token_uid,
+                      seed: int, vocab_size: int,
+                      temperature: float = 1.0) -> torch.Tensor:
+    """Launch the kernel on the current stream. Same contract as ``ref.gibbs_argmax_ref``:
+    phi/theta [T, K] f32, psi [T, K] or [K] f32, alpha [K] f32, beta a
+    one-element f32 tensor, token_uid [T] int64 holding uint32 values → [T] int32.
+    """
+    T, K = phi_rows.shape
+    dev = phi_rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"gibbs_argmax_cuda needs CUDA tensors, got {dev}")
+    if not 0 < K < 2 ** 31 or not 0 <= vocab_size < 2 ** 24:
+        raise ValueError(f"K={K} or vocab_size={vocab_size} out of range")
+    _check("phi_rows", phi_rows, torch.float32, (T, K), dev)
+    _check("theta_rows", theta_rows, torch.float32, (T, K), dev)
+    _check("psi_rows", psi_rows, torch.float32,
+           (K,) if psi_rows.dim() == 1 else (T, K), dev)
+    _check("alpha", alpha, torch.float32, (K,), dev)
+    _check("beta", beta.reshape(1), torch.float32, (1,), dev)
+    _check("token_uid", token_uid, torch.int64, (T,), dev)
+    out = torch.empty(T, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _launcher()(
+            phi_rows.data_ptr(), psi_rows.data_ptr(),
+            0 if psi_rows.dim() == 1 else K, theta_rows.data_ptr(),
+            alpha.data_ptr(), beta.data_ptr(), token_uid.data_ptr(),
+            int(seed) & 0xFFFF_FFFF, float(vocab_size), float(temperature),
+            T, K, out.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"gibbs_argmax kernel launch failed: CUDA error {err}")
+    return out
