@@ -80,25 +80,10 @@ def gibbs_inputs(T, K, psi_row, seed):
     return phi, psi, theta, alpha, torch.tensor(0.01, device="cuda"), uid
 
 
-def scores_at(args, seed, V, temperature, cols):
-    """The plain version's score of row t at column cols[t] (same elementwise
-    ops as ``gibbs_argmax_ref``, on gathered elements)."""
-    from repro_torch.core import prng
-    phi, psi, theta, alpha, beta, uid = args
-    rows = torch.arange(phi.shape[0], device="cuda")
-    cols = cols.long()
-    ps = psi[cols] if psi.dim() == 1 else psi[rows, cols]
-    s = torch.log(phi[rows, cols] + beta) - torch.log(ps + V * beta) \
-        + torch.log(theta[rows, cols] + alpha[cols])
-    if temperature > 0:
-        s = s + float(temperature) * prng.gumbel(seed, uid, cols)
-    return s
-
-
 def kernel_phase():
     from repro_torch.kernels.gibbs import ops
     from repro_torch.kernels.gibbs.kernel import gibbs_argmax_cuda
-    from repro_torch.kernels.gibbs.ref import gibbs_argmax_ref
+    from repro_torch.kernels.gibbs.ref import gibbs_argmax_ref, gibbs_scores
 
     seed, V = 42, FULL["vocab"]
     max_err, total_bad = 0.0, 0
@@ -111,7 +96,10 @@ def kernel_phase():
                 torch.cuda.synchronize()
                 if not bool(((zk >= 0) & (zk < K)).all()):
                     raise AssertionError(f"kernel index out of range at T={T} K={K}")
-                sk, sp = scores_at(args, seed, V, tau, zk), scores_at(args, seed, V, tau, zp)
+                scores = gibbs_scores(*args, seed, V, tau)    # the plain version's
+                sk = scores.gather(1, zk.long()[:, None])[:, 0]
+                sp = scores.gather(1, zp.long()[:, None])[:, 0]
+                del scores
                 gap = (sp - sk).abs()
                 ulp = torch.nextafter(torch.maximum(sp.abs(), sk.abs()),
                                       torch.tensor(float("inf"), device="cuda"))
@@ -147,7 +135,8 @@ def kernel_phase():
 def device_breakdown(label, fn, top=8):
     """Device time by kernel over one run of ``fn`` (torch.profiler), and the
     device's busy share of that window. Auxiliary: a profiler that cannot
-    trace the card is reported, not fatal."""
+    trace the card is reported and ``fn`` runs untraced; a failure of ``fn``
+    itself is fatal."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -155,17 +144,19 @@ def device_breakdown(label, fn, top=8):
         with profile(activities=activities):     # the tracer's start-up stays out
             torch.ones(1, device="cuda").add_(1)   # of the measured window
             torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=activities) as prof:
-            fn()
-            torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                       for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                      reverse=True)
     except Exception as exc:    # noqa: BLE001 — the breakdown is optional
         log(f"[profile] {label}: not available ({exc!r})")
+        fn()
+        torch.cuda.synchronize()
         return
+    t0 = time.perf_counter()
+    with profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                  reverse=True)
     busy = sum(r[0] for r in rows)
     log(f"[profile] {label}: window {wall_ms:.3f} ms (profiled), device busy {busy:.3f} ms "
         f"= {busy / wall_ms:.3f} of it, idle {1 - busy / wall_ms:.3f}")
@@ -218,7 +209,7 @@ def full_width_phase():
     for e in range(FULL["epochs"]):
         t0 = time.perf_counter()
         state = gibbs.gibbs_epoch(state, wi_t, di_t, D, V, seed=e * 31 + 7,
-                                  block_size=FULL["block"], use_kernel=True)
+                                  block_size=FULL["block"])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         log(f"[full] epoch {e}: {dt:.4f} s, {corpus.n_tokens / dt:.1f} tokens/s "
@@ -270,7 +261,7 @@ def full_width_phase():
 
     # where the time goes: one more epoch and one more batch, under the profiler
     device_breakdown("epoch", lambda: gibbs.gibbs_epoch(
-        state, wi_t, di_t, D, V, seed=99, block_size=FULL["block"], use_kernel=True))
+        state, wi_t, di_t, D, V, seed=99, block_size=FULL["block"]))
     q, _ = query_batch(corpus, 0, FULL["batch"], FULL["bucket"])
     device_breakdown("serve batch", lambda: serve(model, q, 7))
     del model, state
@@ -295,23 +286,17 @@ def small_phase():
     z0 = np.zeros(len(wi), np.int32)
     z0[valid] = np.random.default_rng(0).integers(0, K, int(valid.sum()))
     states, models = {}, {}
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        for name in ("cuda", "cpu"):
-            st = lda.init_state(wi[valid], K, V, z0=z0[valid], device=name)
-            st = lda.LDAState(st.phi, st.psi, torch.from_numpy(z0).to(name), st.alpha,
-                              st.beta)
-            w_t, d_t = torch.from_numpy(wi).to(name), torch.from_numpy(di).to(name)
-            for e in range(SMALL["epochs"]):
-                st = gibbs.gibbs_epoch(st, w_t, d_t, corpus.n_docs, V, seed=e * 31 + 7,
-                                       block_size=512, use_kernel=True)
-            states[name] = st
-            models[name] = rtlda.build_model(st.phi, st.beta, st.alpha, device=name)
-        q, _ = query_batch(corpus, 0, 256, 8)
-        pkd = {n: make_serving_fn(device=n)(models[n], q, 3)[0].cpu() for n in models}
-    finally:
-        torch.set_num_threads(threads)
+    for name in ("cuda", "cpu"):
+        st = lda.init_state(wi[valid], K, V, z0=z0[valid], device=name)
+        st = lda.LDAState(st.phi, st.psi, torch.from_numpy(z0).to(name), st.alpha, st.beta)
+        w_t, d_t = torch.from_numpy(wi).to(name), torch.from_numpy(di).to(name)
+        for e in range(SMALL["epochs"]):
+            st = gibbs.gibbs_epoch(st, w_t, d_t, corpus.n_docs, V, seed=e * 31 + 7,
+                                   block_size=512)
+        states[name] = st
+        models[name] = rtlda.build_model(st.phi, st.beta, st.alpha, device=name)
+    q, _ = query_batch(corpus, 0, 256, 8)
+    pkd = {n: make_serving_fn(device=n)(models[n], q, 3)[0].cpu() for n in models}
     for f in ("z", "phi", "psi"):
         a, b = getattr(states["cuda"], f).cpu(), getattr(states["cpu"], f)
         if not torch.equal(a, b):

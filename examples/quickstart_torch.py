@@ -45,7 +45,7 @@ def main(device="cuda"):
 
     for it in range(40):
         state = gibbs.gibbs_epoch(state, wi, di, corpus.n_docs, corpus.vocab_size,
-                                  seed=it * 31 + 7, block_size=512, use_kernel=True)
+                                  seed=it * 31 + 7, block_size=512)
         if it >= 20:  # asymmetric prior optimization (paper §3.3)
             omega = dedup.topic_count_histogram(di, state.z, valid, corpus.n_docs, K)
             alpha = dedup.optimize_alpha(state.alpha, omega, dl, n_iters=5)

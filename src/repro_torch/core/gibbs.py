@@ -17,7 +17,6 @@ import torch
 
 from repro_torch.core.lda import LDAState, doc_topic_counts
 from repro_torch.kernels.gibbs import ops as gibbs_ops
-from repro_torch.kernels.gibbs.ref import gibbs_argmax_ref
 
 _M32 = 0xFFFF_FFFF
 
@@ -50,21 +49,19 @@ def _add_at(x, index, value):
 
 
 def sample_block(phi, psi, theta, z, w, dloc, token_uid, alpha, beta, seed: int,
-                 vocab_size: int, temperature: float = 1.0,
-                 use_kernel: bool = False) -> Tuple[torch.Tensor, ...]:
+                 vocab_size: int, temperature: float = 1.0) -> Tuple[torch.Tensor, ...]:
     """One Gumbel-max Gibbs sweep over a token block.
 
     ``phi`` [V, K], ``psi`` [K], ``theta`` [D_blk, K] int32 are updated in place;
     ``z``, ``w``, ``dloc`` [T] int; ``token_uid`` [T] int64 RNG counters.
-    ``use_kernel`` routes the draw through ``ops.gibbs_argmax`` (the CUDA
-    kernel for CUDA tensors), else the plain version. ``vocab_size`` is the
-    global V of the smoothing constant V·β. Returns (z_new, phi, psi, theta).
+    The draw goes through ``ops.gibbs_argmax``: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors. ``vocab_size`` is the global
+    V of the smoothing constant V·β. Returns (z_new, phi, psi, theta).
     """
     w, dloc, z = w.long(), dloc.long(), z.long()
     phi_rows, psi_rows, theta_rows = _self_excluded(phi, psi, theta, w, dloc, z)
-    draw = gibbs_ops.gibbs_argmax if use_kernel else gibbs_argmax_ref
-    z_new = draw(phi_rows, psi_rows, theta_rows, alpha, beta, token_uid,
-                 seed, vocab_size, temperature)
+    z_new = gibbs_ops.gibbs_argmax(phi_rows, psi_rows, theta_rows, alpha, beta,
+                                   token_uid, seed, vocab_size, temperature)
     zn = z_new.long()
     one = torch.ones_like(z, dtype=torch.int32)
     _add_at(phi, (w, z), -one)
@@ -77,8 +74,7 @@ def sample_block(phi, psi, theta, z, w, dloc, token_uid, alpha, beta, seed: int,
 
 
 def gibbs_epoch(state: LDAState, word_ids, doc_ids, n_docs: int, vocab_size: int,
-                seed: int, n_sweeps: int = 1, block_size: int = 8192,
-                use_kernel: bool = False) -> LDAState:
+                seed: int, n_sweeps: int = 1, block_size: int = 8192) -> LDAState:
     """Full single-device Gibbs pass: a loop over fixed-size token blocks.
 
     The corpus must be padded to a multiple of ``block_size`` with
@@ -107,7 +103,7 @@ def gibbs_epoch(state: LDAState, word_ids, doc_ids, n_docs: int, vocab_size: int
             d_safe = torch.where(valid, d, 0)
             z_raw, phi, psi, theta = sample_block(
                 phi, psi, theta, zb, w_safe, d_safe, token_uid[blk],
-                state.alpha, state.beta, sweep_seed, vocab_size, 1.0, use_kernel)
+                state.alpha, state.beta, sweep_seed, vocab_size, 1.0)
             # roll back the sentinels' updates: +1 where sample_block took one
             # off (z), −1 where it added one (the raw draw)
             zr = z_raw.long()
@@ -140,8 +136,8 @@ def fold_in(phi, psi, alpha, beta, word_ids, doc_ids, z0, n_docs: int,
     for s in range(n_sweeps):
         theta_rows = theta[doc_ids].to(torch.float32)
         theta_rows[rows, z.long()] -= 1.0
-        z_new = gibbs_argmax_ref(phi_rows, psi_f, theta_rows, alpha, beta, token_uid,
-                                 ((int(seed) & _M32) + s) & _M32, vocab_size, 1.0)
+        z_new = gibbs_ops.gibbs_argmax(phi_rows, psi_f, theta_rows, alpha, beta, token_uid,
+                                       ((int(seed) & _M32) + s) & _M32, vocab_size, 1.0)
         one = torch.ones_like(z_new)
         _add_at(theta, (doc_ids, z.long()), -one)
         _add_at(theta, (doc_ids, z_new.long()), one)

@@ -35,5 +35,5 @@ def quick_train(topics: int, vocab: int, train_iters: int = 25,
     state = lda.LDAState(state.phi, state.psi, z, state.alpha, state.beta)
     for it in range(train_iters):
         state = gibbs.gibbs_epoch(state, wi, di, corpus.n_docs, vocab,
-                                  seed=it * 13 + 1, block_size=512, use_kernel=True)
+                                  seed=it * 13 + 1, block_size=512)
     return corpus, state

@@ -12,7 +12,7 @@ import torch
 from repro_torch.core import prng
 
 
-def gibbs_argmax_ref(
+def gibbs_scores(
     phi_rows: torch.Tensor,    # [T, K] f32 — self-excluded phi[w_t] rows
     psi_rows: torch.Tensor,    # [T, K] f32 plane, or one [K] row
     theta_rows: torch.Tensor,  # [T, K] f32 — self-excluded theta[d_t] rows
@@ -23,6 +23,7 @@ def gibbs_argmax_ref(
     vocab_size: int,
     temperature: float = 1.0,
 ) -> torch.Tensor:
+    """The [T, K] f32 score plane whose row argmax is the draw."""
     K = phi_rows.shape[1]
     vb = vocab_size * beta
     logits = (
@@ -34,4 +35,12 @@ def gibbs_argmax_ref(
         k = torch.arange(K, dtype=torch.int64, device=phi_rows.device)
         g = prng.gumbel(int(seed), token_uid.to(torch.int64)[:, None], k[None, :])
         logits = logits + float(temperature) * g
-    return torch.argmax(logits, dim=1).to(torch.int32)
+    return logits
+
+
+def gibbs_argmax_ref(phi_rows, psi_rows, theta_rows, alpha, beta, token_uid, seed,
+                     vocab_size: int, temperature: float = 1.0) -> torch.Tensor:
+    """[T] int32: the row argmax of ``gibbs_scores`` on the same arguments."""
+    scores = gibbs_scores(phi_rows, psi_rows, theta_rows, alpha, beta, token_uid, seed,
+                          vocab_size, temperature)
+    return torch.argmax(scores, dim=1).to(torch.int32)

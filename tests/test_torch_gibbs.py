@@ -44,20 +44,22 @@ def _assert_same(ts, js):
                                       np.asarray(getattr(js, name)), err_msg=name)
 
 
-@pytest.mark.parametrize("use_kernel", [False, True])
-def test_sample_block_matches(setup, use_kernel):
+@pytest.mark.parametrize("jax_use_kernel", [False, True])
+def test_sample_block_matches(setup, jax_use_kernel):
+    """The port's block sweep against JAX's, with JAX drawing through its
+    plain version or through its Pallas kernel (interpret mode on the CPU)."""
     corpus, wi, di, valid, js = setup
     T = BLOCK
     theta = jlda.doc_topic_counts(jnp.array(di), js.z, corpus.n_docs, K)
     uid = np.arange(T, dtype=np.uint32) + np.uint32(100)
     jz, jphi, jpsi, jth = jgibbs.sample_block(
         js.phi, js.psi, theta, js.z[:T], jnp.array(wi[:T]), jnp.array(di[:T]),
-        jnp.array(uid), js.alpha, js.beta, jnp.uint32(11), V, 1.0, use_kernel)
+        jnp.array(uid), js.alpha, js.beta, jnp.uint32(11), V, 1.0, jax_use_kernel)
     ts = _port(js)
     tth = torch.from_numpy(np.array(theta))
     tz, tphi, tpsi, tth = tgibbs.sample_block(
         ts.phi, ts.psi, tth, ts.z[:T], torch.from_numpy(wi[:T]), torch.from_numpy(di[:T]),
-        torch.from_numpy(uid.astype(np.int64)), ts.alpha, ts.beta, 11, V, 1.0, use_kernel)
+        torch.from_numpy(uid.astype(np.int64)), ts.alpha, ts.beta, 11, V, 1.0)
     for a, b in [(tz, jz), (tphi, jphi), (tpsi, jpsi), (tth, jth)]:
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
@@ -73,7 +75,7 @@ def test_gibbs_epochs_match(setup, seed, n_sweeps, epochs):
                                 seed=jnp.uint32(seed + e), n_sweeps=n_sweeps,
                                 block_size=BLOCK)
         ts = tgibbs.gibbs_epoch(ts, twi, tdi, corpus.n_docs, V, seed=seed + e,
-                                n_sweeps=n_sweeps, block_size=BLOCK, use_kernel=True)
+                                n_sweeps=n_sweeps, block_size=BLOCK)
         _assert_same(ts, js)
     real = tlda.LDAState(ts.phi, ts.psi, ts.z[torch.from_numpy(valid)], ts.alpha, ts.beta)
     tlda.check_invariants(real, twi[torch.from_numpy(valid)])

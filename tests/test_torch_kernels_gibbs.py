@@ -14,10 +14,9 @@ import pytest
 import torch
 
 from _torch_port import one_torch_thread as _one_torch_thread  # noqa: F401  (autouse)
-from repro_torch.core import prng
 from repro_torch.kernels.gibbs import ops
 from repro_torch.kernels.gibbs.kernel import gibbs_argmax_cuda
-from repro_torch.kernels.gibbs.ref import gibbs_argmax_ref
+from repro_torch.kernels.gibbs.ref import gibbs_argmax_ref, gibbs_scores
 
 pytestmark = pytest.mark.port
 
@@ -57,12 +56,8 @@ def _torch_args(phi, psi, theta, alpha, uid, beta, device="cpu"):
 
 def _scores(phi, psi, theta, alpha, uid, beta, seed, V, temperature):
     """The score plane of the plain version, for judging near-ties."""
-    p, s, th, a, b, u = _torch_args(phi, psi, theta, alpha, uid, beta)
-    logits = torch.log(p + b) - torch.log(s + V * b) + torch.log(th + a[None, :])
-    if temperature > 0:
-        k = torch.arange(p.shape[1], dtype=torch.int64)
-        logits = logits + temperature * prng.gumbel(seed, u[:, None], k[None, :])
-    return logits.numpy()
+    return gibbs_scores(*_torch_args(phi, psi, theta, alpha, uid, beta), seed, V,
+                        temperature).numpy()
 
 
 @pytest.fixture(scope="module")
