@@ -11,6 +11,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.lda import LDAState
 from repro_torch.core.rtlda import RTLDAModel
+from repro_torch.core.sparse import AliasTables
 
 
 def _t(x, dtype, dev) -> torch.Tensor:
@@ -29,3 +30,19 @@ def rtlda_model_from_numpy(pvk, alpha, r_topic, r_value, device) -> RTLDAModel:
     return RTLDAModel(pvk=_t(pvk, np.float32, dev), alpha=_t(alpha, np.float32, dev),
                       r_topic=_t(r_topic, np.int32, dev),
                       r_value=_t(r_value, np.float32, dev))
+
+
+def alias_tables_from_numpy(wq, wp, wa, ap, aa, device) -> AliasTables:
+    """Alias tables (e.g. the JAX package's ``sparse.AliasTables`` leaves)."""
+    dev = resolve_device(device)
+    return AliasTables(wq=_t(wq, np.float32, dev), wp=_t(wp, np.float32, dev),
+                       wa=_t(wa, np.int32, dev), ap=_t(ap, np.float32, dev),
+                       aa=_t(aa, np.int32, dev))
+
+
+def ring_state_from_numpy(phi, psi, word_local, doc_local, uid, z, device):
+    """The ring epoch's (phi, psi, word_local, doc_local, uid, z), e.g. from
+    the JAX package's ``distributed.device_arrays``; uid becomes int64."""
+    dev = resolve_device(device)
+    return (_t(phi, np.int32, dev), _t(psi, np.int32, dev), _t(word_local, np.int32, dev),
+            _t(doc_local, np.int32, dev), _t(uid, np.int64, dev), _t(z, np.int32, dev))

@@ -1,0 +1,107 @@
+"""ctypes wrappers of the CUDA alias-table build (``csrc/alias_build.cu``) and
+MH probe (``csrc/mh_resample.cu``).
+
+They replace the TPU kernels ``repro.kernels.alias.kernel.alias_build_pallas``
+and ``mh_resample_pallas``. Each library is built at its first launch
+(``repro_torch.kernels.load``). The wrappers check their tensors, allocate the
+outputs, launch on the current stream and raise if the launch fails.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch import kernels as kernels_mod
+from repro_torch.kernels import check_arg
+
+_fns = {}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _launcher(name: str, argtypes):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(kernels_mod.load(name), f"{name}_launch")
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def _need_cuda(name: str, x: torch.Tensor) -> torch.device:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {x.device}")
+    return x.device
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def alias_build_cuda(wn, order, ns, out=None):
+    """Launch the Walker sweep: wn [R, K] f32, order [R, K] int32, ns [R] int32
+    (from ``ops._prepare``) → (prob [R, K] f32, alias [R, K] int32), written
+    into ``out`` when given. Same contract as ``ref.build_alias_ref``."""
+    dev = _need_cuda("alias_build_cuda", wn)
+    R, K = wn.shape
+    if not 0 < K < 2 ** 31:
+        raise ValueError(f"K={K} out of range")
+    check_arg("wn", wn, torch.float32, (R, K), dev)
+    check_arg("order", order, torch.int32, (R, K), dev)
+    check_arg("ns", ns, torch.int32, (R,), dev)
+    if out is None:
+        out = (torch.empty((R, K), dtype=torch.float32, device=dev),
+               torch.empty((R, K), dtype=torch.int32, device=dev))
+    prob, alias = out
+    check_arg("prob", prob, torch.float32, (R, K), dev)
+    check_arg("alias", alias, torch.int32, (R, K), dev)
+    fn = _launcher("alias_build", [_P, _P, _P, _I, _I, _P, _P, _P])
+    with torch.cuda.device(dev):
+        err = fn(wn.data_ptr(), order.data_ptr(), ns.data_ptr(), R, K,
+                 prob.data_ptr(), alias.data_ptr(), _stream(dev))
+    if err:
+        raise RuntimeError(f"alias_build kernel launch failed: CUDA error {err}")
+    return prob, alias
+
+
+def mh_resample_cuda(phi, psi, doc_topic, doc_count, wq, wp, wa, alpha, ap, aa,
+                     w, d, z, uid, seed2: int, beta, alpha_sum,
+                     vocab_size: int, n_mh: int) -> torch.Tensor:
+    """Launch the MH probe, one thread per token → z_new [T] int32.
+
+    Same contract as ``ref.mh_resample_ref``, with int32 w/d/z, int64 uid
+    holding uint32 values, and ``beta``/``alpha_sum`` 0-dim f32 tensors on
+    the card.
+    """
+    dev = _need_cuda("mh_resample_cuda", phi)
+    rows, K = phi.shape
+    D, cap = doc_topic.shape
+    T = w.shape[0]
+    if not (0 < K < 2 ** 24 and 0 <= vocab_size < 2 ** 24 and 0 <= n_mh < 2 ** 29):
+        raise ValueError(f"K={K}, vocab_size={vocab_size} or n_mh={n_mh} out of range")
+    for name, x, dtype, shape in (
+            ("phi", phi, torch.int32, (rows, K)), ("psi", psi, torch.int32, (K,)),
+            ("doc_topic", doc_topic, torch.int32, (D, cap)),
+            ("doc_count", doc_count, torch.int32, (D, cap)),
+            ("wq", wq, torch.float32, (rows, K)), ("wp", wp, torch.float32, (rows, K)),
+            ("wa", wa, torch.int32, (rows, K)), ("alpha", alpha, torch.float32, (K,)),
+            ("ap", ap, torch.float32, (K,)), ("aa", aa, torch.int32, (K,)),
+            ("w", w, torch.int32, (T,)), ("d", d, torch.int32, (T,)),
+            ("z", z, torch.int32, (T,)), ("uid", uid, torch.int64, (T,)),
+            ("beta", beta, torch.float32, ()), ("alpha_sum", alpha_sum, torch.float32, ())):
+        check_arg(name, x, dtype, shape, dev)
+    out = torch.empty(T, dtype=torch.int32, device=dev)
+    fn = _launcher("mh_resample", [_P] * 14 + [ctypes.c_uint32, _P, _P, ctypes.c_float,
+                                               _I, _I, _I, _I, _P, _P])
+    with torch.cuda.device(dev):
+        err = fn(phi.data_ptr(), psi.data_ptr(), doc_topic.data_ptr(),
+                 doc_count.data_ptr(), wq.data_ptr(), wp.data_ptr(), wa.data_ptr(),
+                 alpha.data_ptr(), ap.data_ptr(), aa.data_ptr(), w.data_ptr(),
+                 d.data_ptr(), z.data_ptr(), uid.data_ptr(), int(seed2) & 0xFFFF_FFFF,
+                 beta.data_ptr(), alpha_sum.data_ptr(), float(vocab_size), n_mh, T, K,
+                 cap, out.data_ptr(), _stream(dev))
+    if err:
+        raise RuntimeError(f"mh_resample kernel launch failed: CUDA error {err}")
+    return out

@@ -10,6 +10,7 @@ import ctypes
 import torch
 
 from repro_torch import kernels as kernels_mod
+from repro_torch.kernels import check_arg
 
 _fn = None
 
@@ -27,17 +28,6 @@ def _launcher():
     return _fn
 
 
-def _check(name, x, dtype, shape, device):
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
 def gibbs_argmax_cuda(phi_rows, psi_rows, theta_rows, alpha, beta, token_uid,
                       seed: int, vocab_size: int,
                       temperature: float = 1.0) -> torch.Tensor:
@@ -51,13 +41,13 @@ def gibbs_argmax_cuda(phi_rows, psi_rows, theta_rows, alpha, beta, token_uid,
         raise ValueError(f"gibbs_argmax_cuda needs CUDA tensors, got {dev}")
     if not 0 < K < 2 ** 31 or not 0 <= vocab_size < 2 ** 24:
         raise ValueError(f"K={K} or vocab_size={vocab_size} out of range")
-    _check("phi_rows", phi_rows, torch.float32, (T, K), dev)
-    _check("theta_rows", theta_rows, torch.float32, (T, K), dev)
-    _check("psi_rows", psi_rows, torch.float32,
-           (K,) if psi_rows.dim() == 1 else (T, K), dev)
-    _check("alpha", alpha, torch.float32, (K,), dev)
-    _check("beta", beta.reshape(1), torch.float32, (1,), dev)
-    _check("token_uid", token_uid, torch.int64, (T,), dev)
+    check_arg("phi_rows", phi_rows, torch.float32, (T, K), dev)
+    check_arg("theta_rows", theta_rows, torch.float32, (T, K), dev)
+    check_arg("psi_rows", psi_rows, torch.float32,
+              (K,) if psi_rows.dim() == 1 else (T, K), dev)
+    check_arg("alpha", alpha, torch.float32, (K,), dev)
+    check_arg("beta", beta.reshape(1), torch.float32, (1,), dev)
+    check_arg("token_uid", token_uid, torch.int64, (T,), dev)
     out = torch.empty(T, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
