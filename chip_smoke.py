@@ -20,10 +20,19 @@ card whole):
 Small phases at quickstart scale run the O(K²V) de-duplication and hold the
 card's whole dense loop and alias loop against the same loops on the CPU.
 
+Then the recsys serving path at full width: dlrm-mlperf (the 187,767,552 ×
+128 bf16 embedding table of the MLPerf Criteo-1TB config, nothing cut) with
+the ``embedding_bag`` kernel checked at the bulk batch's gather, 200 timed
+serve_p99 batches of 512 (p50/p99), 3 serve_bulk batches of 262,144
+(samples/s), xdeepfm, din and autoint one serve_p99 batch each, and
+retrieval_scores over 10⁶ candidates; a small loop holds the four small
+recsys configs on the card against the CPU.
+
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits nonzero on any failure,
 and when there is no CUDA card.
 """
+import gc
 import json
 import os
 import subprocess
@@ -55,6 +64,9 @@ SMALL = dict(n_topics=16, vocab=400, n_docs=1500, gen_topics=12, epochs=25)
 # the alias-MH cell: FULL's shard tiled into fresh docs, one package per epoch
 ALIAS = dict(tiles=40, epochs=6, agg_every=3, n_mh=4, batches=2, batch=1024, bucket=8)
 ALIAS_SMALL = dict(epochs=6, agg_every=3, n_mh=4)
+# the recsys serving cells: batch shapes of repro/configs/base.py RECSYS_SHAPES
+RECSYS = dict(seed=0, p99_batch=512, p99_warmup=20, p99_batches=200, bulk_batch=262_144,
+              bulk_batches=3, n_candidates=1_000_000)
 
 
 def log(msg):
@@ -148,9 +160,10 @@ def kernel_phase():
 # ------------------------------------------------------------ full-width phase
 def device_breakdown(label, fn, top=8):
     """Device time by kernel over one run of ``fn`` (torch.profiler), and the
-    device's busy share of that window. Auxiliary: a profiler that cannot
-    trace the card is reported and ``fn`` runs untraced; a failure of ``fn``
-    itself is fatal."""
+    device's busy share of that window; returns the rows (ms, launches,
+    kernel name), all of them. Auxiliary: a profiler that cannot trace the
+    card is reported, ``fn`` runs untraced and no rows come back; a failure
+    of ``fn`` itself is fatal."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -162,7 +175,7 @@ def device_breakdown(label, fn, top=8):
         log(f"[profile] {label}: not available ({exc!r})")
         fn()
         torch.cuda.synchronize()
-        return
+        return []
     t0 = time.perf_counter()
     with profile(activities=activities) as prof:
         fn()
@@ -176,6 +189,7 @@ def device_breakdown(label, fn, top=8):
         f"= {busy / wall_ms:.3f} of it, idle {1 - busy / wall_ms:.3f}")
     for ms, n, name in rows[:top]:
         log(f"[profile]   {ms:10.3f} ms {n:5d}x {100 * ms / busy:5.1f}%  {name[:80]}")
+    return rows
 
 
 def query_batch(corpus, lo, n, bucket):
@@ -689,6 +703,331 @@ def alias_small_phase():
         f"{cfg.package_len}: card == CPU for z, Φ, Ψ and the pairs")
 
 
+# ------------------------------------------------------- embedding_bag kernel
+BAG_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def check_bag(table, ids, w, combiner, label):
+    """embedding_bag kernel against its plain version on the card; returns the
+    largest |kernel − plain|. A bag of one row with weight 1 must be equal bit
+    for bit; otherwise within 1e-5 (f32) or 2e-2 (bf16), the JAX kernel
+    test's limits. The bf16 plain version rounds the weights to bf16 and the
+    kernel keeps them in f32, so weighted bf16 bags are held (a) against the
+    plain version with weights that are bf16 values, within 2e-2, and (b)
+    with the raw weights against the plain version in f32 on the same row
+    values, within the kernel's one rounding to bf16 (2⁻⁸ relative) + 1e-5."""
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_padded_ref
+    bf16 = table.dtype == torch.bfloat16
+    w_plain = w.to(torch.bfloat16).float() if (w is not None and bf16) else w
+    out = embedding_bag_cuda(table, ids, w_plain, combiner)
+    plain = embedding_bag_padded_ref(table, ids, w_plain, combiner)
+    err = float((out.float() - plain.float()).abs().max()) if out.numel() else 0.0
+    if ids.shape[1] == 1 and w is None:
+        if not torch.equal(out, plain):
+            raise AssertionError(f"embedding_bag {label}: a bag of one is not the row "
+                                 f"bit for bit ({int((out != plain).sum())} entries)")
+    else:
+        tol = BAG_TOL[table.dtype]
+        if not torch.allclose(out.float(), plain.float(), rtol=tol, atol=tol):
+            raise AssertionError(f"embedding_bag {label}: |kernel − plain| {err} beyond "
+                                 f"rtol = atol = {tol}")
+    if w is not None and bf16:
+        B, F = ids.shape
+        rows = table[ids.reshape(-1).long()].float()            # the row values, in f32
+        local = torch.arange(B * F, device=ids.device, dtype=torch.int32).reshape(B, F)
+        exact = embedding_bag_padded_ref(rows, local, w, combiner)
+        out = embedding_bag_cuda(table, ids, w, combiner).float()
+        if not torch.allclose(out, exact, rtol=2 ** -8 + 1e-5, atol=1e-5):
+            raise AssertionError(f"embedding_bag {label}: raw weights off the f32 sum by "
+                                 f"{float((out - exact).abs().max())}")
+    return err
+
+
+def bag_kernel_phase():
+    """embedding_bag at random shapes (D the model's and the tests' widths,
+    F 1 / 3 / 26, f32 and bf16, sum and mean, weights and none, zero-weight
+    padding) against its plain version; the full-width DLRM gather is checked
+    in ``recsys_phase``, on the model's own table."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    errs, n = [], 0
+    for D in (8, 10, 16, 18, 128, 512):
+        for F in (1, 3, 26):
+            for dtype in (torch.float32, torch.bfloat16):
+                B = int(torch.randint(1, 300, (1,), generator=g, device="cuda"))
+                V = int(torch.randint(50, 100_000, (1,), generator=g, device="cuda"))
+                table = torch.randn((V, D), generator=g, device="cuda").to(dtype)
+                ids = torch.randint(0, V, (B, F), generator=g, device="cuda",
+                                    dtype=torch.int32)
+                w = torch.rand((B, F), generator=g, device="cuda") * 1.9 + 0.1
+                w[::2, -1] = 0.0                                   # zero-weight padding
+                w[torch.rand((B, F), generator=g, device="cuda") < 0.1] = 0.0
+                for combiner in ("sum", "mean"):
+                    for weights in (None, w):
+                        errs.append(check_bag(table, ids, weights, combiner,
+                                              f"B={B} F={F} V={V} D={D} {dtype} {combiner} "
+                                              f"{'weighted' if weights is not None else 'ones'}"))
+                        n += 1
+    log(f"[bag-kernel] {n} random cases (D 8…512, F 1/3/26, f32/bf16, sum/mean, weights "
+        f"and none): bags of one bit for bit, the rest within the limits; max |kernel − "
+        f"plain| {max(errs):.6g}")
+    return max(errs)
+
+
+def bag_full_width(table, spec, ids):
+    """The kernel at the DLRM serving shape on the full table: the bulk
+    batch's 262,144 × 26 ids as bags of one (``lookup``) and as one weighted
+    bag per row (``multi_hot_lookup``), checked and timed beside the plain
+    version and PyTorch's own call (a yardstick, never on the path)."""
+    import torch.nn.functional as nnf
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_padded_ref
+    from repro_torch.models.recsys import _flat_ids
+
+    flat = _flat_ids(spec, ids)                                # [B, F] global rows
+    B, F = flat.shape
+    D = table.shape[1]
+    one = flat.reshape(-1, 1)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    w = torch.rand((B, F), generator=g, device="cuda")
+    e1 = check_bag(table, one, None, "sum", f"full width, {B * F} bags of one, V={table.shape[0]}")
+    e2 = check_bag(table, flat, w, "sum", f"full width, {B} bags of {F}, weighted")
+    e3 = check_bag(table, flat, None, "sum", f"full width, {B} bags of {F}, ones")
+    esz = table.element_size()
+    res = {}
+    w_lib = w.to(table.dtype)                  # PyTorch's call takes the table's dtype
+    cases = (("lookup", one, None, lambda: nnf.embedding(one[:, 0], table),
+              2 * B * F * D * esz + B * F * 4),
+             ("multi_hot", flat, w,
+              lambda: nnf.embedding_bag(flat, table, mode="sum", per_sample_weights=w_lib),
+              B * F * D * esz + B * D * esz + 2 * B * F * 4))
+    for label, i, ww, library, nbytes in cases:
+        ms = timed_ms(lambda: embedding_bag_cuda(table, i, ww), reps=20)
+        plain_ms = timed_ms(lambda: embedding_bag_padded_ref(table, i, ww), reps=5, warmup=1)
+        library_ms = timed_ms(library, reps=20)
+        bound_ms, bound_by = bound(nbytes, 2 * B * F * D)
+        log(f"[bag-kernel] full width {label} ({B} × {F} ids, D={D}, {table.dtype}): "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+            f"bound_ms={bound_ms:.4f} ({bound_by}) share_of_bound={bound_ms / ms:.4f}")
+        res[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+    # the serve_p99 batch's gather: 512 × 26 bags of one, most of the path's launches
+    small = one[:RECSYS["p99_batch"] * F].contiguous()
+    ms = timed_ms(lambda: embedding_bag_cuda(table, small), reps=50)
+    bound_ms, bound_by = bound(2 * small.numel() * D * esz + small.numel() * 4,
+                               2 * small.numel() * D)
+    log(f"[bag-kernel] serve_p99 lookup ({RECSYS['p99_batch']} × {F} ids): kernel_ms={ms:.4f} "
+        f"bound_ms={bound_ms:.4f} ({bound_by})")
+    return max(e1, e2, e3), res
+
+
+# ------------------------------------------------------------ recsys phase
+def recsys_inputs(arch, cfg, B, g):
+    """Seeded serving inputs of ``arch`` on the card: ids uniform per field
+    in [0, vocab_f), dense features N(0, 1); DIN histories -1-padded."""
+    def field_ids(sizes):
+        u = torch.rand((B, len(sizes)), generator=g, device="cuda", dtype=torch.float64)
+        v = torch.tensor(sizes, dtype=torch.float64, device="cuda")
+        return (u * v).floor().to(torch.int32)
+    if arch == "din":
+        S = cfg.seq_len
+        hist = torch.randint(0, cfg.n_items, (B, S), generator=g, device="cuda",
+                             dtype=torch.int32)
+        length = torch.randint(1, S + 1, (B, 1), generator=g, device="cuda")
+        hist[torch.arange(S, device="cuda")[None, :] >= length] = -1
+        return (torch.randint(0, cfg.n_items, (B,), generator=g, device="cuda",
+                              dtype=torch.int32), hist,
+                torch.randint(0, cfg.context_vocab, (B, cfg.n_context), generator=g,
+                              device="cuda", dtype=torch.int32))
+    ids = field_ids(cfg.embedding.vocab_sizes)
+    if arch == "dlrm-mlperf":
+        return torch.randn((B, cfg.n_dense), generator=g, device="cuda"), ids
+    return (ids,)
+
+
+def serve_check(out, B, label):
+    if out.shape != (B,) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{label}: output of shape {tuple(out.shape)}, or not finite")
+
+
+def recsys_phase():
+    """dlrm-mlperf at full width (the 187,767,552 × 128 bf16 table, nothing
+    cut) serving serve_p99 and serve_bulk batches; xdeepfm, din and autoint
+    at full width one serve_p99 batch each; retrieval_scores at
+    retrieval_cand."""
+    from repro_torch.configs import recsys_archs as ra
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.models import recsys as rec
+
+    R = RECSYS
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ra.DLRM
+    t0 = time.perf_counter()
+    params = rec.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+                             torch.bfloat16)
+    torch.cuda.synchronize()
+    table = params["table"]
+    log(f"[recsys] dlrm-mlperf params: table {tuple(table.shape)} {table.dtype} "
+        f"({table.numel() * table.element_size() / 1e9:.2f} GB), drawn in "
+        f"{time.perf_counter() - t0:.2f} s; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    g = torch.Generator(device="cuda").manual_seed(R["seed"])
+    p99_in = [recsys_inputs("dlrm-mlperf", cfg, R["p99_batch"], g)
+              for _ in range(R["p99_warmup"] + R["p99_batches"])]
+    bulk_in = [recsys_inputs("dlrm-mlperf", cfg, R["bulk_batch"], g)
+               for _ in range(1 + R["bulk_batches"])]
+    bag_err, bag = bag_full_width(table, cfg.embedding, bulk_in[0][1])
+    torch.cuda.empty_cache()
+
+    others = {}
+    for arch, ocfg in (("xdeepfm", ra.XDEEPFM), ("din", ra.DIN), ("autoint", ra.AUTOINT)):
+        op = rec.init_params(ocfg, torch.Generator(device="cuda").manual_seed(1), "cuda",
+                             torch.bfloat16)
+        others[arch] = (ocfg, op, [recsys_inputs(arch, ocfg, R["p99_batch"], g)
+                                   for _ in range(2)])
+    cand = torch.randn((R["n_candidates"], cfg.embedding.dim), generator=g, device="cuda")
+    query = torch.randn((1, cfg.embedding.dim), generator=g, device="cuda")
+    forwards = {"xdeepfm": rec.xdeepfm_forward, "din": rec.din_forward,
+                "autoint": rec.autoint_forward}
+    torch.cuda.synchronize()
+    setup_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path: counts from 0, serve p99 → serve bulk → other archs → retrieval ----
+    ops.launches = 0
+    p99 = []
+    for i, (dense, sparse) in enumerate(p99_in):
+        t0 = time.perf_counter()
+        out = rec.dlrm_forward(cfg, params, dense, sparse)
+        torch.cuda.synchronize()
+        if i >= R["p99_warmup"]:
+            p99.append((time.perf_counter() - t0) * 1e3)
+        serve_check(out, R["p99_batch"], "dlrm serve_p99")
+    bulk = []
+    for i, (dense, sparse) in enumerate(bulk_in):
+        t0 = time.perf_counter()
+        out = rec.dlrm_forward(cfg, params, dense, sparse)
+        torch.cuda.synchronize()
+        if i:
+            bulk.append(time.perf_counter() - t0)
+        serve_check(out, R["bulk_batch"], "dlrm serve_bulk")
+    del out
+    other_ms = {}
+    for arch, (ocfg, op, batches) in others.items():
+        for i, args in enumerate(batches):              # a warm-up batch, then the timed one
+            t0 = time.perf_counter()
+            out = forwards[arch](ocfg, op, *args)
+            torch.cuda.synchronize()
+            other_ms[arch] = (time.perf_counter() - t0) * 1e3
+            serve_check(out, R["p99_batch"], f"{arch} serve_p99")
+    t0 = time.perf_counter()
+    top_s, top_i = rec.retrieval_scores(query, cand, top_k=100)
+    torch.cuda.synchronize()
+    retrieval_ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.launches
+    # ---- end of the main path ----
+
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_forward = len(p99_in) + len(bulk_in) + 2 * 2        # xdeepfm, autoint; din has no bag
+    if launches != n_forward:
+        raise AssertionError(f"embedding_bag launched {launches} times, expected {n_forward}")
+    p50, p99v = np.percentile(p99, 50), np.percentile(p99, 99)
+    bulk_rate = R["bulk_batch"] * len(bulk) / sum(bulk)
+    log(f"[recsys] dlrm-mlperf serve_p99: {len(p99)} batches of {R['p99_batch']} after "
+        f"{R['p99_warmup']} warm-up: p50 {p50:.4f} ms, p99 {p99v:.4f} ms, max {max(p99):.4f} ms "
+        f"per batch (host clock + synchronize)")
+    log(f"[recsys] dlrm-mlperf serve_bulk: {len(bulk)} batches of {R['bulk_batch']}: s "
+        f"{[round(t, 5) for t in bulk]}; {bulk_rate:.1f} samples/s; "
+        f"{ra._dlrm_flops(R['bulk_batch']) / np.median(bulk) / 1e12:.3f} TFLOP/s "
+        f"of model FLOPs")
+    flops = {"xdeepfm": ra._xdeepfm_flops, "din": ra._din_flops,
+             "autoint": ra._autoint_flops}
+    log(f"[recsys] full width, one serve_p99 batch after a warm-up: "
+        + ", ".join(f"{a} {ms:.4f} ms ({flops[a](R['p99_batch']) / ms / 1e9:.4f} TFLOP/s "
+                    f"of model FLOPs)" for a, ms in other_ms.items())
+        + f"; retrieval_cand (1 × {R['n_candidates']} candidates, top-100) {retrieval_ms:.4f} ms")
+    log(f"[recsys] launches embedding_bag={launches} (expected {n_forward}); "
+        f"max_memory_allocated={peak:.2f} GiB on the main path, {setup_peak:.2f} GiB in "
+        f"the set-up (params drawn chunk by chunk, the full-width kernel checks)")
+
+    # what comes out is right: at each shape the main path gives the kernel
+    # (the bulk gather is checked in ``bag_full_width``) the kernel equals its
+    # plain version bit for bit, and each forward with the plain lookup (a
+    # gather) gives the same logits bit for bit; the streamed top-k is the
+    # top-k of the whole score plane
+    gather = lambda t, s, i: t[rec._flat_ids(s, i).long()]
+    dense, sparse = p99_in[0]
+    bag_err = max(bag_err, check_bag(table, rec._flat_ids(cfg.embedding, sparse).reshape(-1, 1),
+                                     None, "sum", "dlrm serve_p99 gather"))
+    if not torch.equal(rec.dlrm_forward(cfg, params, dense, sparse, table_lookup=gather),
+                       rec.dlrm_forward(cfg, params, dense, sparse)):
+        raise AssertionError("dlrm forward: kernel lookup and plain gather disagree")
+    for arch in ("xdeepfm", "autoint"):
+        ocfg, op, batches = others[arch]
+        ids = batches[-1][0]                                 # the timed batch
+        bag_err = max(bag_err, check_bag(op["table"],
+                                         rec._flat_ids(ocfg.embedding, ids).reshape(-1, 1),
+                                         None, "sum", f"{arch} serve_p99 gather"))
+        if not torch.equal(forwards[arch](ocfg, op, ids, table_lookup=gather),
+                           forwards[arch](ocfg, op, ids)):
+            raise AssertionError(f"{arch} forward: kernel lookup and plain gather disagree")
+    full = (query @ cand.T)[0]
+    ref_s, ref_i = torch.sort(full, descending=True, stable=True)
+    ref_s, ref_i = ref_s[:100], ref_i[:100]
+    # an id may differ from the whole plane's only at a near-tie of scores
+    ids_ok = (top_i[0] == ref_i) | torch.isclose(full[top_i[0].long()], ref_s, rtol=1e-5)
+    if not torch.allclose(top_s[0], ref_s, rtol=1e-5, atol=1e-5) or not bool(ids_ok.all()):
+        raise AssertionError("retrieval_scores is not the top-100 of the score plane")
+    log(f"[recsys] checks: the kernel equals its plain version bit for bit on the gathers "
+        f"of dlrm serve_p99 (512 × 26, D=128), xdeepfm (512 × 39, D=10) and autoint "
+        f"(512 × 39, D=16); the kernel-lookup forward equals the plain-gather forward bit "
+        f"for bit for all three; retrieval top-100 equals the full plane's (max score "
+        f"{float(top_s[0, 0]):.4f})")
+
+    device_breakdown("recsys bulk batch", lambda: rec.dlrm_forward(cfg, params, *bulk_in[0]))
+    rows = device_breakdown("recsys serve_p99 batch",
+                            lambda: rec.dlrm_forward(cfg, params, *p99_in[1]))
+    bag_rows = [(ms, n) for ms, n, name in rows if "embedding_bag_kernel" in name]
+    if bag_rows:
+        bag["serve_p99_device_ms"] = sum(r[0] for r in bag_rows) / sum(r[1] for r in bag_rows)
+        log(f"[recsys] embedding_bag at the serve_p99 gather (512 × 26 bags of one): "
+            f"{bag['serve_p99_device_ms']:.4f} ms of device time per launch (profiler)")
+    log(f"[recsys] max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(main path, checks and profile)")
+    del params, table, others, cand, p99_in, bulk_in
+    torch.cuda.empty_cache()
+    return launches, bag_err, bag
+
+
+def recsys_small_phase():
+    """The four small_recsys() configs: the card's forwards (kernel lookups)
+    against the same forwards on the CPU (plain lookups) with the same
+    parameters and inputs, f32 and bf16 tables, within rtol = atol = 1e-5
+    (the f32 products summed in another order on each side)."""
+    from repro_torch.configs import recsys_archs as ra
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.models import recsys as rec
+
+    forwards = {"dlrm-mlperf": rec.dlrm_forward, "xdeepfm": rec.xdeepfm_forward,
+                "din": rec.din_forward, "autoint": rec.autoint_forward}
+    worst = 0.0
+    before = ops.launches
+    for arch, cfg in ra.small_recsys().items():
+        for dtype in (torch.float32, torch.bfloat16):
+            params = rec.init_params(cfg, torch.Generator().manual_seed(5), "cpu", dtype)
+            g = torch.Generator(device="cuda").manual_seed(6)
+            args = [a.cpu() for a in recsys_inputs(arch, cfg, 64, g)]
+            out = {dev: forwards[arch](cfg, {k: v.to(dev) for k, v in params.items()},
+                                       *(a.to(dev) for a in args)).cpu()
+                   for dev in ("cuda", "cpu")}
+            if not torch.allclose(out["cuda"], out["cpu"], rtol=1e-5, atol=1e-5):
+                raise AssertionError(f"small {arch} {dtype}: card and CPU differ by "
+                                     f"{float((out['cuda'] - out['cpu']).abs().max())}")
+            worst = max(worst, float((out["cuda"] - out["cpu"]).abs().max()))
+    log(f"[recsys-small] 4 archs × f32/bf16 tables: card == CPU within 1e-5 (max |card − CPU| "
+        f"{worst:.3g}); {ops.launches - before} kernel lookups on the card")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -710,12 +1049,17 @@ def main():
 
     kernel = kernel_phase()
     alias_build, mh_small_err = alias_kernel_phase()
+    bag_small_err = bag_kernel_phase()
     corpus = full_corpus()
     launches = full_width_phase(corpus)
     alias_launches, mh = alias_phase(corpus)
     mh["max_abs_err"] = max(mh["max_abs_err"], mh_small_err)
     small_phase()
     alias_small_phase()
+    gc.collect()                       # the LDA phases' tensors go before the 48 GB table
+    torch.cuda.empty_cache()
+    bag_launches, bag_full_err, bag = recsys_phase()
+    recsys_small_phase()
 
     log(json.dumps({"kernels": [
         dict(name="gibbs_argmax", route="cuda", source="src/repro_torch/csrc/gibbs_argmax.cu",
@@ -727,7 +1071,10 @@ def main():
              launches=alias_launches["alias_build"], library_ms=None, **alias_build),
         dict(name="mh_resample", route="cuda", source="src/repro_torch/csrc/mh_resample.cu",
              replaces="src/repro/kernels/alias/kernel.py:249",
-             launches=alias_launches["mh_resample"], library_ms=None, **mh)]}))
+             launches=alias_launches["mh_resample"], library_ms=None, **mh),
+        dict(name="embedding_bag", route="cuda", source="src/repro_torch/csrc/embedding_bag.cu",
+             replaces="src/repro/kernels/embedding_bag/kernel.py:81", launches=bag_launches,
+             max_abs_err=max(bag_small_err, bag_full_err), **bag["lookup"])]}))
     log(f"card: {card_line()}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

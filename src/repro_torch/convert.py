@@ -46,3 +46,13 @@ def ring_state_from_numpy(phi, psi, word_local, doc_local, uid, z, device):
     dev = resolve_device(device)
     return (_t(phi, np.int32, dev), _t(psi, np.int32, dev), _t(word_local, np.int32, dev),
             _t(doc_local, np.int32, dev), _t(uid, np.int64, dev), _t(z, np.int32, dev))
+
+
+def recsys_params_from_numpy(params, device, table_dtype=torch.float32) -> dict:
+    """A recsys parameter dict (e.g. the JAX package's ``init_params``, as
+    numpy) with the tables (names ending in ``table``) in ``table_dtype`` and
+    every other parameter in f32. The f32 → bf16 cast rounds to nearest even,
+    as JAX's ``astype``."""
+    dev = resolve_device(device)
+    return {k: _t(v, np.float32, dev).to(table_dtype if k.endswith("table") else torch.float32)
+            for k, v in params.items()}

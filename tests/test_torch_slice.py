@@ -112,7 +112,7 @@ def test_port_imports_neither_jax_nor_repro():
     env = dict(os.environ, PYTHONPATH=SRC)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=120, check=True).stdout.split()
-    assert int(out[0]) >= 24 and out[1] == "[]"
+    assert int(out[0]) >= 32 and out[1] == "[]"
 
 
 def test_entry_points_refuse_to_run_without_cuda():
