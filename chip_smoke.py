@@ -377,17 +377,32 @@ def word_weights(R, K, seed):
     return (counts.to(torch.float32) + 0.01) / (psi + FULL["vocab"] * 0.01)
 
 
-def check_build(wn, order, ns, label):
-    """alias_build kernel against the plain sweep on the same (wn, order, ns);
+def build_bytes(R, K):
+    """Bytes the alias build must move: the weights [R, K] and the scale [R]
+    read once, prob and alias [R, K] written once."""
+    return 12 * R * K + 4 * R
+
+
+def check_build(weights, scale, label):
+    """alias_build kernel against the plain sweep on the same (weights, scale);
     returns the plain version's device ms and the largest |kernel − plain|."""
     from repro_torch.kernels.alias.kernel import alias_build_cuda
+    pk, ak = alias_build_cuda(weights, scale)
+    return check_tables(pk, ak, weights, scale, label)
+
+
+def check_tables(pk, ak, weights, scale, label):
+    """Kernel-built tables (pk, ak) against the plain sweep over the same rows
+    (``ops._prepare`` then ``build_alias_ref``), bit for bit; returns the plain
+    version's device ms and the largest |kernel − plain|."""
+    from repro_torch.kernels.alias import ops
     from repro_torch.kernels.alias.ref import build_alias_ref
-    pk, ak = alias_build_cuda(wn, order, ns)
-    plain_ms, (pp, ap) = events_ms(lambda: build_alias_ref(wn, order, ns))
+    plain_ms, (pp, ap) = events_ms(lambda: build_alias_ref(*ops._prepare(weights, scale)))
     torch.cuda.synchronize()
-    bad = int((pk != pp).sum()) + int((ak != ap).sum())
+    bad = int((pk.view(torch.int32) != pp.view(torch.int32)).sum()) + int((ak != ap).sum())
     err = max(float((pk - pp).abs().max()), float((ak - ap).abs().max()))
-    log(f"[alias-kernel] alias_build {label}: {bad} entries differ from the plain sweep")
+    log(f"[alias-kernel] alias_build {label}: {bad} entries differ from the plain sweep "
+        f"(plain {plain_ms:.1f} ms)")
     if bad:
         raise AssertionError(f"alias_build differs from its plain version at {label}")
     return plain_ms, err
@@ -435,44 +450,70 @@ def check_mh(args, seed, n_mh, V, label):
 
 def alias_kernel_phase():
     """Both alias kernels against their plain versions, bit for bit, at small
-    shapes and at full K; the full-cell timings come from ``alias_phase``."""
-    from repro_torch.core import sparse
+    shapes and at full K. ``alias_build`` is timed on one synthetic 2,048-row
+    chunk, the α row and a synthetic 32,768 × 100,000 word table in one
+    launch; its time on the cell's own table, and the full-cell timings of
+    ``mh_resample``, come from ``alias_phase``."""
     from repro_torch.kernels.alias import ops
     from repro_torch.kernels.alias.kernel import alias_build_cuda
+    from repro_torch.kernels.alias.ref import edge_rows
 
-    K = FULL["n_topics"]
+    K, V = FULL["n_topics"], FULL["vocab"]
     rng = np.random.default_rng(11)
     errs = []
     for R, k in [(1, 8), (5, 37), (16, 128), (3, 513), (64, 4096)]:
-        w = torch.from_numpy(rng.gamma(0.3, 1.0, (R, k)).astype(np.float32) + 1e-3)
-        errs.append(check_build(*ops._prepare(w.cuda()), f"R={R} K={k}")[1])
-    special = torch.ones((3, 64), device="cuda")
-    special[0] = 0.0
-    special[0, 3] = 5.0                       # one-hot; row 1 all equal
-    special[2, 32:] = 0.0                     # a zero-weight tail
-    errs.append(check_build(*ops._prepare(special),
-                            "one-hot / all-equal / zero-tail rows R=3 K=64")[1])
+        w = torch.from_numpy(rng.gamma(0.3, 1.0, (R, k)).astype(np.float32) + 1e-3).cuda()
+        errs.append(check_build(w, ops._scale(w), f"R={R} K={k}")[1])
+    for k in (1, 31, 32, 33, 63, 64, 65, 4097):
+        w = torch.from_numpy(np.concatenate(
+            [edge_rows(k), rng.gamma(0.3, 1.0, (37, k)).astype(np.float32)])).cuda()
+        errs.append(check_build(w, ops._scale(w), f"edge rows + 37 gamma rows K={k}")[1])
 
-    # the row chunk of a table build, and the α table's one row after it: the
-    # two shapes the main path builds, held against one plain sweep
-    R = sparse.TABLE_ROWS
-    alpha = torch.full((1, K), 50.0 / K, device="cuda")
-    prepared = ops._prepare(word_weights(R, K, seed=5)), ops._prepare(alpha)
-    wn, order, ns = (torch.cat(parts) for parts in zip(*prepared))
-    plain_ms, err = check_build(wn, order, ns, f"R={R}+1 K={K} (a table chunk and the α row)")
-    errs.append(err)
-    wn, order, ns = prepared[0]
-    out = (torch.empty_like(wn), torch.empty_like(order))
-    ms = timed_ms(lambda: alias_build_cuda(wn, order, ns, out=out), reps=5, warmup=1)
-    bound_ms, bound_by = bound(16 * R * K, SWEEP_OPS_PER_SLOT * R * K)
-    log(f"[alias-kernel] alias_build R={R} K={K}: kernel_ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} (R={R}+1) bound_ms={bound_ms:.4f} ({bound_by}) "
+    # a synthetic word table in one launch; its first 2,048 rows are the
+    # chunk timed alone below (seed 5)
+    R = 2048
+    table = torch.empty((V, K), device="cuda")
+    for lo in range(0, V, R):
+        table[lo:lo + R] = word_weights(R, K, seed=5 + lo)
+    scale = ops._scale(table)
+    out = (torch.empty_like(table), torch.empty((V, K), dtype=torch.int32, device="cuda"))
+    alias_build_cuda(table, scale, out=out)
+    torch.cuda.synchronize()
+    ms = timed_ms(lambda: alias_build_cuda(table, scale, out=out), reps=3, warmup=0)
+    bound_ms, bound_by = bound(build_bytes(V, K), SWEEP_OPS_PER_SLOT * V * K)
+    log(f"[alias-kernel] alias_build R={V} K={K} (a synthetic word table, one launch): "
+        f"kernel_ms={ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
         f"share_of_bound={bound_ms / ms:.5f}")
-    a_ms = timed_ms(lambda: alias_build_cuda(*ops._prepare(alpha)), reps=5, warmup=1)
-    log(f"[alias-kernel] alias_build R=1 K={K} (the α table, with _prepare): {a_ms:.4f} ms")
-    del wn, order, ns, out, prepared
-    build = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 max_abs_err=max(errs))
+
+    # a 2,048-row chunk and the α row, each alone
+    chunk = table[:R]
+    alpha = torch.full((1, K), 50.0 / K, device="cuda")
+    c_scale = ops._scale(chunk)
+    c_out = (torch.empty_like(chunk), torch.empty((R, K), dtype=torch.int32, device="cuda"))
+    c_ms = timed_ms(lambda: alias_build_cuda(chunk, c_scale, out=c_out), reps=5, warmup=1)
+    c_bound, _ = bound(build_bytes(R, K), SWEEP_OPS_PER_SLOT * R * K)
+    log(f"[alias-kernel] alias_build R={R} K={K} (a synthetic table chunk): kernel_ms={c_ms:.4f} "
+        f"bound_ms={c_bound:.4f} share_of_bound={c_bound / c_ms:.5f}")
+    a_ms = timed_ms(lambda: alias_build_cuda(alpha, ops._scale(alpha)), reps=5, warmup=1)
+    log(f"[alias-kernel] alias_build R=1 K={K} (the α table, with _scale): {a_ms:.4f} ms")
+
+    # one plain sweep holds both: the chunk plus the α row (R = 2,049), and a
+    # 2,049-row sample of the whole table (the first, the last, strided rows)
+    ca = torch.cat([chunk, alpha])
+    ca_scale = ops._scale(ca)
+    pk, ak = alias_build_cuda(ca, ca_scale)
+    rows = torch.linspace(0, V - 1, R + 1, device="cuda").round().long()
+    plain_ms, err = check_tables(
+        torch.cat([pk, out[0][rows]]), torch.cat([ak, out[1][rows]]),
+        torch.cat([ca, table[rows]]), torch.cat([ca_scale, scale[rows]]),
+        f"R={R}+1 K={K} (a table chunk and the α row) and {R + 1} rows of the whole "
+        f"table")
+    errs.append(err)
+    del table, out, chunk, c_out, ca, pk, ak
+    torch.cuda.empty_cache()
+    # ms and its bound at the main path's shape come from alias_phase (the
+    # cell's own wq); plain_ms covers the 4,098 rows of the one plain sweep
+    build = dict(plain_ms=plain_ms, plain_shape=[2 * R + 2, K], max_abs_err=max(errs))
 
     mh_errs = []
     # the last case: 262,144 tokens over R = 2,048 words at full K, 16 tokens
@@ -530,7 +571,7 @@ def alias_phase(base):
     from repro_torch.core.features import make_serving_fn
     from repro_torch.data import corpus as corpus_mod
     from repro_torch.kernels.alias import ops
-    from repro_torch.kernels.alias.kernel import mh_resample_cuda
+    from repro_torch.kernels.alias.kernel import alias_build_cuda, mh_resample_cuda
 
     K, V = FULL["n_topics"], FULL["vocab"]
     corpus = tile_corpus(base, ALIAS["tiles"])
@@ -601,8 +642,7 @@ def alias_phase(base):
     # ---- end of the main path ----
 
     n_builds = -(-ALIAS["epochs"] // ALIAS["agg_every"])
-    chunks = -(-sc.rows_per_shard // sparse.TABLE_ROWS)
-    expected = dict(alias_build=n_builds * (chunks + 1) + 1,
+    expected = dict(alias_build=n_builds * (phi.shape[0] + 1) + 1,
                     mh_resample=ALIAS["epochs"] * (cap // cfg.package_len))
     peak = torch.cuda.max_memory_allocated() / 2**30
     train_s = sum(epoch_s) + sum(build_s)
@@ -634,6 +674,23 @@ def alias_phase(base):
     tables = holder.pop()
     device_breakdown("alias epoch", lambda: epoch(*state, alpha2, beta, 99, *tables))
 
+    # alias_build at the main path's shape, on the cell's own wq: the shard's
+    # tables rebuilt in place, which must give the same bits again
+    wq0, out0 = tables[0][0], (tables[1][0], tables[2][0])
+    rows = torch.linspace(0, wq0.shape[0] - 1, 2049, device="cuda").round().long()
+    kept = (out0[0][rows].clone(), out0[1][rows].clone())
+    scale0 = ops._scale(wq0)
+    build_ms = timed_ms(lambda: alias_build_cuda(wq0, scale0, out=out0), reps=3, warmup=0)
+    if not (torch.equal(out0[0][rows].view(torch.int32), kept[0].view(torch.int32))
+            and torch.equal(out0[1][rows], kept[1])):
+        raise AssertionError("alias_build rebuilt the cell's tables with other bits")
+    build_bound, build_by = bound(build_bytes(*wq0.shape), SWEEP_OPS_PER_SLOT * wq0.numel())
+    log(f"[alias-kernel] alias_build R={wq0.shape[0]} K={K} (the cell's own wq, one launch): "
+        f"kernel_ms={build_ms:.4f} bound_ms={build_bound:.4f} ({build_by}) "
+        f"share_of_bound={build_bound / build_ms:.5f}; 2,049 rebuilt rows equal the "
+        f"main path's")
+    del kept
+
     # the MH kernel at the cell's shape: this epoch's one package
     pairs = sparse.pairs_from_assignments(dl.reshape(-1), z.reshape(-1), valid, D, cap_p)
     w0, d0, z0 = (torch.where(wl[0, 0] >= 0, x[0, 0], 0) for x in (wl, dl, z))
@@ -655,7 +712,8 @@ def alias_phase(base):
     del args, tables, state, phi, psi, wl, dl, uid, z, pairs
     torch.cuda.empty_cache()
     return launches, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                          max_abs_err=err)
+                          max_abs_err=err), dict(ms=build_ms, bound_ms=build_bound,
+                                                 bound_by=build_by, shape=list(wq0.shape))
 
 
 def alias_small_phase():
@@ -1052,7 +1110,8 @@ def main():
     bag_small_err = bag_kernel_phase()
     corpus = full_corpus()
     launches = full_width_phase(corpus)
-    alias_launches, mh = alias_phase(corpus)
+    alias_launches, mh, cell_build = alias_phase(corpus)
+    alias_build.update(cell_build)
     mh["max_abs_err"] = max(mh["max_abs_err"], mh_small_err)
     small_phase()
     alias_small_phase()

@@ -30,9 +30,8 @@ import torch
 
 from repro_torch.kernels.alias import ops as alias_ops
 
-# rows of the word tables built at a time: bounds the f32/int temporaries of
-# ``_prepare`` (~3 GB at K = 100,000) while the tables themselves are filled
-# in place
+# rows of wq filled at a time: bounds the f32 temporary of the wq pass
+# (0.8 GB at K = 100,000) while wq itself is filled in place
 TABLE_ROWS = 2048
 
 
@@ -228,9 +227,10 @@ def make_word_tables(phi, psi, beta, vocab_size: int) -> Tuple[torch.Tensor, ...
 
     phi [..., rows, K] int32, psi [K] or [..., K] int32 → (wq, wp, wa), each
     shaped like phi, with wq = (φ+β)/(ψ+Vβ): the LightLDA word proposal
-    including its denominator. Built ``TABLE_ROWS`` rows at a time into the
-    output tensors, so the temporaries stay a few GB at full width; rows are
-    independent, so the chunking changes no bit.
+    including its denominator. wq is filled ``TABLE_ROWS`` rows at a time, so
+    its temporary stays small at full width; the Walker tables of a whole
+    shard are then built in one ``build_alias`` call (one kernel launch on
+    the card).
     """
     dev = phi.device
     rows, K = phi.shape[-2:]
@@ -245,7 +245,7 @@ def make_word_tables(phi, psi, beta, vocab_size: int) -> Tuple[torch.Tensor, ...
         for lo in range(0, rows, TABLE_ROWS):
             sl = slice(lo, min(lo + TABLE_ROWS, rows))
             torch.div(phi3[s, sl].to(torch.float32) + beta, den[s], out=wq[s, sl])
-            alias_ops.build_alias(wq[s, sl], out=(wp[s, sl], wa[s, sl]))
+        alias_ops.build_alias(wq[s], out=(wp[s], wa[s]))
     return wq.view(phi.shape), wp.view(phi.shape), wa.view(phi.shape)
 
 

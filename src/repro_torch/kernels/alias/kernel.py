@@ -40,27 +40,32 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def alias_build_cuda(wn, order, ns, out=None):
-    """Launch the Walker sweep: wn [R, K] f32, order [R, K] int32, ns [R] int32
-    (from ``ops._prepare``) → (prob [R, K] f32, alias [R, K] int32), written
-    into ``out`` when given. Same contract as ``ref.build_alias_ref``."""
-    dev = _need_cuda("alias_build_cuda", wn)
-    R, K = wn.shape
-    if not 0 < K < 2 ** 31:
+def alias_build_cuda(weights, scale, out=None):
+    """Launch the Walker sweep over every row at once: weights [R, K] f32 and
+    the mean-1 scale [R] f32 (from ``ops._scale``) → (prob [R, K] f32, alias
+    [R, K] int32), written into ``out`` when given. The kernel forms
+    wn = weights·scale and the small/large partition itself; the tables equal
+    ``ref.build_alias_ref(*ops._prepare(weights, scale))`` bit for bit."""
+    dev = _need_cuda("alias_build_cuda", weights)
+    R, K = weights.shape
+    if not 0 < K < 2 ** 31 - 1024:
         raise ValueError(f"K={K} out of range")
-    check_arg("wn", wn, torch.float32, (R, K), dev)
-    check_arg("order", order, torch.int32, (R, K), dev)
-    check_arg("ns", ns, torch.int32, (R,), dev)
+    check_arg("weights", weights, torch.float32, (R, K), dev)
+    check_arg("scale", scale, torch.float32, (R,), dev)
     if out is None:
         out = (torch.empty((R, K), dtype=torch.float32, device=dev),
                torch.empty((R, K), dtype=torch.int32, device=dev))
     prob, alias = out
     check_arg("prob", prob, torch.float32, (R, K), dev)
     check_arg("alias", alias, torch.int32, (R, K), dev)
-    fn = _launcher("alias_build", [_P, _P, _P, _I, _I, _P, _P, _P])
+    # scratch: per row and kind, one bit per 32-slot tile that holds a slot of
+    # that kind
+    nw = -(-K // 1024)
+    bitmaps = torch.empty((R, 2, nw), dtype=torch.int32, device=dev)
+    fn = _launcher("alias_build", [_P, _P, _I, _I, _I, _P, _P, _P, _P])
     with torch.cuda.device(dev):
-        err = fn(wn.data_ptr(), order.data_ptr(), ns.data_ptr(), R, K,
-                 prob.data_ptr(), alias.data_ptr(), _stream(dev))
+        err = fn(weights.data_ptr(), scale.data_ptr(), R, K, nw, prob.data_ptr(),
+                 alias.data_ptr(), bitmaps.data_ptr(), _stream(dev))
     if err:
         raise RuntimeError(f"alias_build kernel launch failed: CUDA error {err}")
     return prob, alias

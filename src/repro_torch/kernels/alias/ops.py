@@ -5,15 +5,18 @@ CPU tensors go to the plain versions (``ref.py``); CUDA tensors go to the
 hand-written kernels (``kernel.py``), which raise if they cannot launch. There
 is no fallback from one to the other.
 
-``build_alias`` normalizes and partitions ONCE here (``_prepare``) and hands
-the same (wn, order, ns) to whichever sweep runs, so kernel and plain version
-agree bit for bit. ``mh_resample`` mixes the sampler seed with a
+``build_alias`` computes the per-row mean-1 scale ONCE here (``_scale``) and
+hands it to whichever sweep runs: the plain version normalizes and partitions
+with it (``_prepare``), the kernel forms the same products ``w·scale`` and the
+same small/large partition itself, so the two agree bit for bit. ``mh_resample`` mixes the sampler seed with a
 sampler-family salt and sums α here, once, for both; on the card it also
 sorts the tokens by word before the launch (same-word probes then share
 cached table rows) and scatters the draws back, which changes no bit: every
 token samples independently against the same snapshot.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -30,17 +33,28 @@ build_launches = 0
 mh_launches = 0
 
 
-def _prepare(weights: torch.Tensor):
-    """Mean-1 normalization and stable small/large partition of [R, K] rows.
+def _scale(weights: torch.Tensor) -> torch.Tensor:
+    """Per-row mean-1 scale of [R, K] rows → [R] f32: an f32 K divided by the
+    row sum clamped at 1e-30, one IEEE division as JAX's
+    ``jnp.float32(K) / total`` (``K / total`` with a Python int would be
+    ``total.reciprocal() * K``, which rounds differently)."""
+    K = weights.shape[-1]
+    total = weights.sum(dim=-1).clamp_min(1e-30)
+    return torch.tensor(float(K), dtype=torch.float32, device=weights.device) / total
+
+
+def _prepare(weights: torch.Tensor, scale: Optional[torch.Tensor] = None):
+    """Mean-1 normalization and stable small/large partition of [R, K] rows,
+    for the plain sweep; ``scale`` [R] defaults to ``_scale(weights)``.
 
     Returns (wn [R, K] f32, order [R, K] int32, ns [R] int32): ``order`` lists
     the small slots (wn < 1, NaN included) in index order, then the large
     ones; ``ns`` is the per-row small count. The order is one stable sort of
     the is-large flags, as ``jnp.argsort(..., stable=True)``.
     """
-    K = weights.shape[-1]
-    total = weights.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    wn = weights * (K / total)
+    if scale is None:
+        scale = _scale(weights)
+    wn = weights * scale[:, None]
     is_large = wn >= 1.0
     order = torch.sort(is_large.to(torch.uint8), dim=-1, stable=True).indices
     ns = (~is_large).sum(dim=-1, dtype=torch.int32)
@@ -54,19 +68,21 @@ def build_alias(weights: torch.Tensor, out=None):
     with the table identity q(k) = (prob_k + Σ_j (1−prob_j)·1[alias_j = k])/K
     = weights_k / Σ weights (up to f32 rounding). ``out``, a (prob, alias)
     pair of contiguous tensors of that shape, receives the tables in place.
+    On the card all rows go to the kernel in one launch.
     """
     global build_launches
     lead, K = weights.shape[:-1], weights.shape[-1]
-    wn, order, ns = _prepare(weights.reshape(-1, K).to(torch.float32))
+    flat = weights.reshape(-1, K).to(torch.float32)
+    scale = _scale(flat)
     flat_out = None if out is None else tuple(o.view(-1, K) for o in out)
-    if wn.device.type == "cpu":
-        prob, alias = build_alias_ref(wn, order, ns)
+    if flat.device.type == "cpu":
+        prob, alias = build_alias_ref(*_prepare(flat, scale))
         if flat_out is not None:
             flat_out[0].copy_(prob)
             flat_out[1].copy_(alias)
             prob, alias = flat_out
     else:
-        prob, alias = alias_build_cuda(wn, order, ns, out=flat_out)
+        prob, alias = alias_build_cuda(flat.contiguous(), scale, out=flat_out)
         build_launches += 1
     return prob.view(*lead, K), alias.view(*lead, K)
 

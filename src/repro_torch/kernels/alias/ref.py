@@ -18,6 +18,7 @@ the true collapsed posterior ratio on live counts with exact self-exclusion.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core import prng
@@ -26,6 +27,27 @@ _F32 = torch.float32
 
 
 # --------------------------------------------------------------- build ------
+
+
+def edge_rows(K: int, seed: int = 1) -> np.ndarray:
+    """Test rows [11, K] f32 that hit the CUDA build's tile logic at width K:
+    all large but one, all small but one, a 32-slot tile with no small, one
+    with no large, sparse larges, sparse smalls, one-hot, all equal, a zero
+    tail, a NaN, all zero."""
+    rng = np.random.default_rng(seed)
+    rows = np.stack([np.full(K, v, np.float32) for v in
+                     (2.0, 0.5, 0.1, 5.0, 0.01, 3.0, 0.0, 1.0, 1.0)])
+    rows[0, K // 2] = 1e-3
+    rows[1, min(7, K - 1)] = 1000.0
+    rows[2, 64:96] = 50.0
+    rows[3, 32:64] = 0.01
+    rows[4, ::97] = 100.0
+    rows[5, ::61] = 0.0
+    rows[6, min(3, K - 1)] = 5.0
+    rows[8, K // 2:] = 0.0
+    nan = rng.gamma(0.3, 1.0, K).astype(np.float32)
+    nan[K // 3] = np.nan
+    return np.concatenate([rows, nan[None], np.zeros((1, K), np.float32)])
 
 
 def build_alias_ref(wn: torch.Tensor, order: torch.Tensor, ns: torch.Tensor):

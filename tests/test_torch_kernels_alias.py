@@ -3,12 +3,16 @@
 On the CPU: the plain PyTorch versions against the JAX package
 (``force="ref"``) on the same numpy inputs. ``_prepare``'s order and small
 counts are equal and its normalized weights allclose (torch and XLA sum a row
-in different orders); given the same (wn, order, ns) the sweep is bitwise;
+in different orders); on rows whose sums are exact in any order its scale,
+normalized weights and tables are bit for bit JAX's; given the same
+(wn, order, ns) the sweep is bitwise;
 the MH probe is bitwise given the same tables (its α is dyadic, so Σα is
 exact in any order), with and without the by-word reorder.
 
 On a CUDA card (tests marked ``kernels``; they skip without one): each
-hand-written kernel against its plain version on the card, bit for bit. The
+hand-written kernel against its plain version on the card, bit for bit; the
+alias build also on rows made to hit its tile logic, on a 2,049-row table at
+K = 100,000 and on sampled rows of a table of more than 2³¹ elements. The
 JAX package is imported only by the tests that compare with it, so the card
 tests also run where jax is not installed.
 """
@@ -23,7 +27,7 @@ from repro_torch import convert
 from repro_torch.core import sparse as tsparse
 from repro_torch.kernels.alias import ops
 from repro_torch.kernels.alias.kernel import alias_build_cuda, mh_resample_cuda
-from repro_torch.kernels.alias.ref import build_alias_ref, mh_resample_ref
+from repro_torch.kernels.alias.ref import build_alias_ref, edge_rows, mh_resample_ref
 from repro_torch.kernels.gibbs.ref import gibbs_argmax_ref
 
 pytestmark = pytest.mark.port
@@ -43,6 +47,14 @@ def _special_rows(K):
     w[0] = 0.0
     w[0, 3] = 5.0
     w[2, K // 2:] = 0.0
+    return w
+
+
+def _int_rows(K, R=64, seed=3):
+    """Integer weights 0–9 and a zero row: every row sum is exact in f32 in
+    any summation order, so the two packages' sums agree bit for bit."""
+    w = np.random.default_rng(seed).integers(0, 10, (R, K)).astype(np.float32)
+    w[5] = 0.0
     return w
 
 
@@ -70,6 +82,30 @@ def test_prepare_matches_jax(jx, R, K):
     np.testing.assert_array_equal(torder.numpy(), jorder)
     np.testing.assert_array_equal(tns.numpy(), jns)
     np.testing.assert_allclose(twn.numpy(), jwn, rtol=1e-6)
+
+
+@pytest.mark.parametrize("K", [1000, 4097, 100_000])
+def test_prepare_scale_matches_jax_bitwise(jx, K):
+    """The mean-1 scale is JAX's f32 K / Σw, an IEEE division, so with the
+    same sums wn, order and ns are bit for bit JAX's (a reciprocal times K
+    differs in about a quarter of the rows at K not a power of two)."""
+    w = _int_rows(K)
+    jwn, jorder, jns = (np.asarray(x) for x in jx.ops._prepare(jx.jnp.asarray(w)))
+    twn, torder, tns = ops._prepare(_t(w), ops._scale(_t(w)))
+    np.testing.assert_array_equal(twn.numpy().view(np.int32), jwn.view(np.int32))
+    np.testing.assert_array_equal(torder.numpy(), jorder)
+    np.testing.assert_array_equal(tns.numpy(), jns)
+
+
+@pytest.mark.parametrize("K", [1000, 4097, 100_000])
+def test_build_alias_matches_jax_bitwise(jx, K):
+    """End to end on the CPU: ``build_alias`` equals JAX's ``build_alias``
+    (``force="ref"``) bit for bit on rows with exact sums."""
+    w = _int_rows(K)
+    jp, ja = (np.asarray(x) for x in jx.ops.build_alias(jx.jnp.asarray(w), force="ref"))
+    tp, ta = ops.build_alias(_t(w))
+    np.testing.assert_array_equal(tp.numpy().view(np.int32), jp.view(np.int32))
+    np.testing.assert_array_equal(ta.numpy(), ja)
 
 
 @pytest.mark.parametrize("R,K", BUILD_SHAPES)
@@ -256,9 +292,9 @@ def test_cpu_tensors_use_plain_versions_and_do_not_count():
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    wn, order, ns = ops._prepare(_t(_weights(2, 8)))
+    w = _t(_weights(2, 8))
     with pytest.raises(ValueError, match="CUDA"):
-        alias_build_cuda(wn, order, ns)
+        alias_build_cuda(w, ops._scale(w))
     c = _mh_case(V=20, K=16, D=8, T=37, cap=16)
     with pytest.raises(ValueError, match="CUDA"):
         mh_resample_cuda(*_torch_mh_args(c), 1, torch.tensor(0.01), torch.tensor(1.0),
@@ -275,17 +311,53 @@ def cuda():
     return torch.device("cuda")
 
 
+def _cuda_build_check(w, rows=None):
+    """The kernel, through ``ops.build_alias`` (one launch), against the plain
+    sweep on the same scale, bit for bit; on ``rows`` only when given."""
+    scale = ops._scale(w)
+    before = ops.build_launches
+    pk, ak = ops.build_alias(w)
+    torch.cuda.synchronize()
+    assert ops.build_launches == before + 1
+    if rows is not None:
+        pk, ak, w, scale = pk[rows], ak[rows], w[rows], scale[rows]
+    pp, ap_ = build_alias_ref(*ops._prepare(w, scale))
+    assert torch.equal(pk.view(torch.int32), pp.view(torch.int32)) and torch.equal(ak, ap_)
+
+
 @pytest.mark.kernels
 @pytest.mark.parametrize("R,K", BUILD_SHAPES + [(3, 16), (64, 4096)])
 def test_cuda_alias_build_matches_plain(cuda, R, K):
     w = _special_rows(K) if R == 3 and K == 16 else _weights(R, K)
-    wn, order, ns = ops._prepare(_t(w, cuda))
-    before = ops.build_launches
-    pk, ak = ops.build_alias(_t(w, cuda))
-    torch.cuda.synchronize()
-    assert ops.build_launches == before + 1
-    pp, ap_ = build_alias_ref(wn, order, ns)
-    assert torch.equal(pk, pp) and torch.equal(ak, ap_)
+    _cuda_build_check(_t(w, cuda))
+
+
+@pytest.mark.kernels
+@pytest.mark.parametrize("K", [1, 31, 32, 33, 63, 64, 65, 4097])
+def test_cuda_alias_build_tile_edges(cuda, K):
+    """Edge rows and 37 gamma rows (R = 48, not a multiple of 32)."""
+    w = np.concatenate([edge_rows(K), _weights(37, K)])
+    _cuda_build_check(_t(w, cuda))
+
+
+@pytest.mark.kernels
+def test_cuda_alias_build_2049_rows_full_k(cuda):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    counts = torch.randint(1, 50, (2049, 100_000), generator=g, device=cuda)
+    counts *= torch.rand(counts.shape, generator=g, device=cuda) < 0.002
+    _cuda_build_check((counts.to(torch.float32) + 0.01) / 400.0)
+
+
+@pytest.mark.kernels
+def test_cuda_alias_build_past_2_31_elements(cuda):
+    """R·K = 2.15·10⁹ > 2³¹: rows on both sides of element 2³¹ and the last
+    one are bit for bit the plain sweep's."""
+    R, K = 21_500, 100_000
+    g = torch.Generator(device=cuda).manual_seed(9)
+    w = torch.rand((R, K), generator=g, device=cuda)
+    w *= w > 0.9
+    rows = torch.tensor([0, 1, 7_777, 21_474, 21_475, R - 2, R - 1], device=cuda)
+    _cuda_build_check(w, rows)
 
 
 @pytest.mark.kernels
