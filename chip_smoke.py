@@ -538,25 +538,35 @@ def tile_corpus(corpus, n):
                   corpus.n_docs * n, corpus.vocab_size)
 
 
-def mh_bytes(w, uid, wp, seed2, n_mh, n_docs, cap_p):
-    """Bytes the MH probe must move for the tokens (w, uid), each input byte
-    read once and the output written once. Per token: w, d, z, out (4 B) and
-    uid (8 B), and each scattered gather into a [rows, K] table as one
-    32-byte sector: φ_ws for p(z0) and φ_wt for each step's p(t), and per word
-    step wp_jk, wq_s and wq_t, plus wa_jk where the coin rejects wp_jk (known
-    from the token's uniforms before the chain runs). Once each: the pair
-    table (n_docs · cap_p topics and counts) and the [K] vectors ψ, α, ap,
-    aa."""
-    from repro_torch.core import prng
-    T, K = w.shape[0], wp.shape[1]
-    key, row = uid.to(torch.int64), w.long()
-    sectors = T * (1 + n_mh)
-    for step in range(1, n_mh, 2):
-        u_draw = prng.uniform01(seed2, key, 4 * step + 1)
-        u_coin = prng.uniform01(seed2, key, 4 * step + 2)
-        jk = (u_draw * K).to(torch.int64).clamp(max=K - 1)
-        sectors += 3 * T + int((u_coin >= wp[row, jk]).sum())
-    return T * 24 + 32 * sectors + n_docs * cap_p * 8 + 4 * K * 4
+def mh_bytes(args, seed2, beta, asum, V, n_mh, n_docs, cap_p):
+    """Bytes the MH probe must move for the tokens of ``args`` (the tensors
+    phi … uid of ``ops.mh_resample``), each input byte read once and the
+    output written once, counted two ways → (per gather, distinct sectors).
+    Both charge per token w, d, z, out (4 B) and uid (8 B), and once each the
+    pair table (n_docs · cap_p topics and counts) and the [K] vectors ψ, α,
+    ap, aa. The gathers into the [rows, K] tables are φ_ws for p(z0) and φ_wt
+    for each step's p(t), and per word step wp_jk, wq_s and wq_t, plus wa_jk
+    where the coin rejects wp_jk: the entries this run's chain reads, from
+    the plain version's trace. "Per gather" charges each its own 32-byte
+    sector; "distinct" charges each 32-byte sector once, however many tokens
+    read it (tokens sorted by word that share (w, k) share φ_wk's sector)."""
+    from repro_torch.kernels.alias.ref import mh_resample_ref
+    phi, w, z = args[0], args[10], args[12]
+    T, K = w.shape[0], phi.shape[1]
+    trace = []
+    mh_resample_ref(*args, seed2, beta, asum, V, n_mh, trace=trace)
+    row = w.long() * K
+    read = {"phi": [row + z.long()], "wq": [], "wp": [], "wa": []}
+    for s, t, jk, rejects in trace:
+        read["phi"].append(row + t)
+        if rejects is not None:                        # a word step
+            read["wq"] += [row + s, row + t]
+            read["wp"].append(row + jk)
+            read["wa"].append((row + jk)[rejects])
+    per_gather = sum(int(x.numel()) for v in read.values() for x in v)
+    distinct = sum(int(torch.unique(torch.cat(v) // 8).numel()) for v in read.values() if v)
+    fixed = T * 24 + n_docs * cap_p * 8 + 4 * K * 4
+    return fixed + 32 * per_gather, fixed + 32 * distinct
 
 
 def mh_ops(T, cap, n_mh):
@@ -703,17 +713,22 @@ def alias_phase(base):
     asum = alpha2.sum(dtype=torch.float32)
     ms = timed_ms(lambda: mh_resample_cuda(*args[:10], *srt, ops.mh_seed(7), beta, asum,
                                            V, ALIAS["n_mh"]), reps=10)
-    bound_ms, bound_by = bound(mh_bytes(w0, uid[0, 0], tables[1][0], ops.mh_seed(7),
-                                        ALIAS["n_mh"], D, cap_p),
-                               mh_ops(cap, cap_p, ALIAS["n_mh"]))
+    per_gather, distinct = mh_bytes(args, ops.mh_seed(7), beta, asum, V, ALIAS["n_mh"], D,
+                                    cap_p)
+    n_ops = mh_ops(cap, cap_p, ALIAS["n_mh"])
+    gather_ms, _ = bound(per_gather, n_ops)
+    bound_ms, bound_by = bound(distinct, n_ops)
     log(f"[alias-kernel] mh_resample T={cap} cap={cap_p} n_mh=4 (words sorted): "
-        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
-        f"share_of_bound={bound_ms / ms:.5f}")
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}, "
+        f"each distinct 32-byte sector once: {distinct} B) share_of_bound={bound_ms / ms:.5f}; "
+        f"charging each gather its own sector: {per_gather} B, {gather_ms:.4f} ms, share "
+        f"{gather_ms / ms:.5f}")
     del args, tables, state, phi, psi, wl, dl, uid, z, pairs
     torch.cuda.empty_cache()
-    return launches, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                          max_abs_err=err), dict(ms=build_ms, bound_ms=build_bound,
-                                                 bound_by=build_by, shape=list(wq0.shape))
+    mh = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+              bound_ms_per_gather=gather_ms, max_abs_err=err)
+    return launches, mh, dict(ms=build_ms, bound_ms=build_bound, bound_by=build_by,
+                              shape=list(wq0.shape))
 
 
 def alias_small_phase():
@@ -852,28 +867,53 @@ def bag_full_width(table, spec, ids):
     e2 = check_bag(table, flat, w, "sum", f"full width, {B} bags of {F}, weighted")
     e3 = check_bag(table, flat, None, "sum", f"full width, {B} bags of {F}, ones")
     esz = table.element_size()
+    row = D * esz
+    distinct = int(torch.unique(flat).numel())          # the table rows the gather reads
     res = {}
     w_lib = w.to(table.dtype)                  # PyTorch's call takes the table's dtype
+    # bytes: each distinct row read once, each output row written once, the
+    # ids (and weights) read once; beside it the count that charges every
+    # gathered row
     cases = (("lookup", one, None, lambda: nnf.embedding(one[:, 0], table),
-              2 * B * F * D * esz + B * F * 4),
+              B * F * row + B * F * 4),
              ("multi_hot", flat, w,
               lambda: nnf.embedding_bag(flat, table, mode="sum", per_sample_weights=w_lib),
-              B * F * D * esz + B * D * esz + 2 * B * F * 4))
-    for label, i, ww, library, nbytes in cases:
+              B * row + 2 * B * F * 4))
+    for label, i, ww, library, rest in cases:
         ms = timed_ms(lambda: embedding_bag_cuda(table, i, ww), reps=20)
         plain_ms = timed_ms(lambda: embedding_bag_padded_ref(table, i, ww), reps=5, warmup=1)
         library_ms = timed_ms(library, reps=20)
-        bound_ms, bound_by = bound(nbytes, 2 * B * F * D)
+        bound_ms, bound_by = bound(distinct * row + rest, 2 * B * F * D)
+        per_row_ms, _ = bound(B * F * row + rest, 2 * B * F * D)
         log(f"[bag-kernel] full width {label} ({B} × {F} ids, D={D}, {table.dtype}): "
             f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-            f"bound_ms={bound_ms:.4f} ({bound_by}) share_of_bound={bound_ms / ms:.4f}")
+            f"bound_ms={bound_ms:.4f} ({bound_by}, {distinct} distinct rows read once) "
+            f"share_of_bound={bound_ms / ms:.4f}; charging every gathered row: "
+            f"{per_row_ms:.4f} ms, share {per_row_ms / ms:.4f}")
         res[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          bound_ms_per_gathered_row=per_row_ms)
+    # the same gather with its ids folded into the table's first GiB: if it
+    # reaches the bound and the real one does not, the page walks over the
+    # 44.77 GiB table set the pace, not the kernel
+    fold_rows = (1 << 30) // (D * esz)
+    folded = (one % fold_rows).contiguous()
+    e1 = max(e1, check_bag(table, folded, None, "sum", "ids folded into the first GiB"))
+    fold_ms = timed_ms(lambda: embedding_bag_cuda(table, folded), reps=20)
+    lk = res["lookup"]
+    lk["folded_1gib_ms"] = fold_ms
+    fold_bound, _ = bound(int(torch.unique(folded).numel()) * row + B * F * (row + 4),
+                          2 * B * F * D)
+    log(f"[bag-kernel] full width lookup, ids folded into the first GiB ({fold_rows} rows): "
+        f"kernel_ms={fold_ms:.4f} bound_ms={fold_bound:.4f} "
+        f"share_of_bound={fold_bound / fold_ms:.4f}; the real gather {lk['ms']:.4f} ms, "
+        f"share {lk['bound_ms'] / lk['ms']:.4f}")
+    del folded
     # the serve_p99 batch's gather: 512 × 26 bags of one, most of the path's launches
     small = one[:RECSYS["p99_batch"] * F].contiguous()
     ms = timed_ms(lambda: embedding_bag_cuda(table, small), reps=50)
-    bound_ms, bound_by = bound(2 * small.numel() * D * esz + small.numel() * 4,
-                               2 * small.numel() * D)
+    bound_ms, bound_by = bound(int(torch.unique(small).numel()) * row
+                               + small.numel() * (row + 4), 2 * small.numel() * D)
     log(f"[bag-kernel] serve_p99 lookup ({RECSYS['p99_batch']} × {F} ids): kernel_ms={ms:.4f} "
         f"bound_ms={bound_ms:.4f} ({bound_by})")
     return max(e1, e2, e3), res
@@ -1133,7 +1173,8 @@ def main():
              launches=alias_launches["mh_resample"], library_ms=None, **mh),
         dict(name="embedding_bag", route="cuda", source="src/repro_torch/csrc/embedding_bag.cu",
              replaces="src/repro/kernels/embedding_bag/kernel.py:81", launches=bag_launches,
-             max_abs_err=max(bag_small_err, bag_full_err), **bag["lookup"])]}))
+             max_abs_err=max(bag_small_err, bag_full_err), multi_hot=bag["multi_hot"],
+             **bag["lookup"])]}))
     log(f"card: {card_line()}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

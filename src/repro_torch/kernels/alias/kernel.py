@@ -71,10 +71,23 @@ def alias_build_cuda(weights, scale, out=None):
     return prob, alias
 
 
+# slot bounds of the MH kernel that holds a pair row in registers
+# (``mh_resample_kernel_regs<16 | 32>``); longer rows take the generic kernel
+MH_SLOT_BOUNDS = (16, 32)
+
+
+def mh_slot_bound(cap: int) -> int:
+    """The register kernel's slot bound for pair rows of ``cap`` slots: the
+    least of ``MH_SLOT_BOUNDS`` that holds them, or 0 for the generic kernel,
+    which reads the row from memory for each lookup."""
+    return next((b for b in MH_SLOT_BOUNDS if cap <= b), 0)
+
+
 def mh_resample_cuda(phi, psi, doc_topic, doc_count, wq, wp, wa, alpha, ap, aa,
                      w, d, z, uid, seed2: int, beta, alpha_sum,
                      vocab_size: int, n_mh: int) -> torch.Tensor:
-    """Launch the MH probe, one thread per token → z_new [T] int32.
+    """Launch the MH probe, one thread per token → z_new [T] int32, with the
+    pair row in registers when ``mh_slot_bound(cap)`` is not 0.
 
     Same contract as ``ref.mh_resample_ref``, with int32 w/d/z, int64 uid
     holding uint32 values, and ``beta``/``alpha_sum`` 0-dim f32 tensors on
@@ -98,15 +111,15 @@ def mh_resample_cuda(phi, psi, doc_topic, doc_count, wq, wp, wa, alpha, ap, aa,
             ("beta", beta, torch.float32, ()), ("alpha_sum", alpha_sum, torch.float32, ())):
         check_arg(name, x, dtype, shape, dev)
     out = torch.empty(T, dtype=torch.int32, device=dev)
-    fn = _launcher("mh_resample", [_P] * 14 + [ctypes.c_uint32, _P, _P, ctypes.c_float,
-                                               _I, _I, _I, _I, _P, _P])
+    fn = _launcher("mh_resample", [_P] * 14 + [ctypes.c_uint32, _P, _P, ctypes.c_float]
+                   + [_I] * 5 + [_P, _P])
     with torch.cuda.device(dev):
         err = fn(phi.data_ptr(), psi.data_ptr(), doc_topic.data_ptr(),
                  doc_count.data_ptr(), wq.data_ptr(), wp.data_ptr(), wa.data_ptr(),
                  alpha.data_ptr(), ap.data_ptr(), aa.data_ptr(), w.data_ptr(),
                  d.data_ptr(), z.data_ptr(), uid.data_ptr(), int(seed2) & 0xFFFF_FFFF,
                  beta.data_ptr(), alpha_sum.data_ptr(), float(vocab_size), n_mh, T, K,
-                 cap, out.data_ptr(), _stream(dev))
+                 cap, mh_slot_bound(cap), out.data_ptr(), _stream(dev))
     if err:
         raise RuntimeError(f"mh_resample kernel launch failed: CUDA error {err}")
     return out

@@ -138,10 +138,16 @@ def mh_resample_ref(
     alpha_sum,   # [] f32
     vocab_size: int,
     n_mh: int,
+    trace=None,
 ) -> torch.Tensor:
     """n_mh MH steps per token against the true collapsed posterior ratio;
     returns z_new [T] int32. Per token O(cap) per doc proposal, O(1) gathers
-    per probe — never O(K)."""
+    per probe — never O(K).
+
+    ``trace``, a list, receives per step the entries of the [rows, K] tables
+    the step reads, as (state s, proposal t, jk, alias-coin rejected) [T]
+    tensors, the last None on a doc step: what a byte count of the chain
+    needs (``chip_smoke.mh_bytes``)."""
     K = psi.shape[0]
     vb = torch.tensor(float(vocab_size), dtype=_F32, device=beta.device) * beta
     w, d, z0 = w.long(), d.long(), z.long()
@@ -186,9 +192,12 @@ def mh_resample_ref(
             q_t = lookup(t_prop) + alpha[t_prop]
         else:
             # ----- word proposal: stale alias table, O(1) probes ------------
-            t_prop = torch.where(u_coin < wp[w, jk], jk, wa[w, jk].long())
+            coin = u_coin < wp[w, jk]
+            t_prop = torch.where(coin, jk, wa[w, jk].long())
             q_s = wq[w, s]
             q_t = wq[w, t_prop]
+        if trace is not None:
+            trace.append((s, t_prop, jk, None if step % 2 == 0 else ~coin))
         u_acc = prng.uniform01(seed2, uid, b0 + 3)
         p_t = p_of(t_prop)
         ratio = (p_t * q_s) / (p_s * q_t)

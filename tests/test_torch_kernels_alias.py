@@ -26,7 +26,7 @@ from _torch_port import one_torch_thread as _one_torch_thread  # noqa: F401  (au
 from repro_torch import convert
 from repro_torch.core import sparse as tsparse
 from repro_torch.kernels.alias import ops
-from repro_torch.kernels.alias.kernel import alias_build_cuda, mh_resample_cuda
+from repro_torch.kernels.alias.kernel import alias_build_cuda, mh_resample_cuda, mh_slot_bound
 from repro_torch.kernels.alias.ref import build_alias_ref, edge_rows, mh_resample_ref
 from repro_torch.kernels.gibbs.ref import gibbs_argmax_ref
 
@@ -147,9 +147,11 @@ def test_build_alias_out_fills_given_tensors():
 # ------------------------------------------------------------- probe --------
 
 
-def _mh_case(V, K, D, T, cap, seed=3, jx=None):
+def _mh_case(V, K, D, T, cap, seed=3, jx=None, hollow=0):
     """Consistent counts, pairs, dyadic α and tables, as numpy: pairs and
-    tables from the JAX package when ``jx`` is given, else from the port."""
+    tables from the JAX package when ``jx`` is given, else from the port.
+    With ``hollow`` the tokens of every doc d ≡ 0 (mod hollow) are left out
+    of the pairs, so their rows hold zero counts (as padding tokens see)."""
     rng = np.random.default_rng(seed)
     w = rng.integers(0, V, T).astype(np.int32)
     d = (np.arange(T) % D).astype(np.int32)       # ⌈T/D⌉ tokens per doc
@@ -166,8 +168,8 @@ def _mh_case(V, K, D, T, cap, seed=3, jx=None):
         tabs = jx.sparse.make_tables(jnp.asarray(phi), jnp.asarray(psi), jnp.asarray(alpha),
                                      jnp.float32(0.01), V, force="ref")
     else:
-        tp, ct = tsparse.pairs_from_assignments(_t(d), _t(z), torch.ones(T, dtype=torch.bool),
-                                                D, cap)
+        valid = torch.ones(T, dtype=torch.bool) if not hollow else _t(d % hollow != 0)
+        tp, ct = tsparse.pairs_from_assignments(_t(d), _t(z), valid, D, cap)
         tabs = tsparse.make_tables(_t(phi), _t(psi), _t(alpha), 0.01, V)
     uid = np.arange(T, dtype=np.uint32) + np.uint32(7)
     return dict(phi=phi, psi=psi, tp=np.asarray(tp), ct=np.asarray(ct),
@@ -291,6 +293,32 @@ def test_cpu_tensors_use_plain_versions_and_do_not_count():
     assert (ops.build_launches, ops.mh_launches) == before
 
 
+@pytest.mark.parametrize("cap,bound", [(1, 16), (14, 16), (16, 16), (17, 32), (32, 32),
+                                       (33, 0), (130, 0)])
+def test_mh_slot_bound(cap, bound):
+    """Pair rows up to 16 slots take the 16-slot register kernel, up to 32 the
+    32-slot one, longer rows the generic kernel (0)."""
+    assert mh_slot_bound(cap) == bound
+
+
+@pytest.mark.parametrize("n_mh", [1, 4])
+def test_mh_trace_records_the_chain_without_changing_it(n_mh):
+    """``trace`` gets one (s, t, jk, alias-coin rejected) entry a step, the
+    last None on doc steps, and the draw is the same as without it; each
+    step's state is the draw of the chain cut after the steps before it."""
+    c = _mh_case(V=20, K=64, D=16, T=400, cap=30, hollow=5)
+    args = _torch_mh_args(c)
+    plain = lambda n, trace=None: mh_resample_ref(*args, ops.mh_seed(5), torch.tensor(0.01),
+                                                  args[7].sum(), 20, n, trace=trace)
+    trace = []
+    assert torch.equal(plain(n_mh, trace), plain(n_mh))
+    assert len(trace) == n_mh
+    for step, (s, t, jk, rejects) in enumerate(trace):
+        assert (rejects is None) == (step % 2 == 0)
+        assert torch.equal(s.to(torch.int32), plain(step))
+        assert ((t >= 0) & (t < 64)).all() and ((jk >= 0) & (jk < 64)).all()
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     w = _t(_weights(2, 8))
     with pytest.raises(ValueError, match="CUDA"):
@@ -374,3 +402,22 @@ def test_cuda_mh_resample_matches_plain(cuda, T, K, n_mh, cap, seed):
     zp = mh_resample_ref(*args, ops.mh_seed(seed), torch.tensor(0.01, device=cuda),
                          args[7].sum(), 20, n_mh)
     assert torch.equal(zk, zp)
+
+
+@pytest.mark.kernels
+@pytest.mark.parametrize("n_mh", [1, 3, 4])
+@pytest.mark.parametrize("cap", [1, 14, 16, 17, 32, 33])
+def test_cuda_mh_resample_slot_bounds(cuda, cap, n_mh):
+    """Caps on both sides of the register kernel's slot bounds (16, 32) and
+    past them (the generic kernel), odd and even n_mh, and tokens whose doc
+    rows hold zero counts (every fifth doc's tokens are left out of the
+    pairs): bit for bit with the plain version."""
+    T, K = 3000, 256
+    c = _mh_case(V=40, K=K, D=max(8, -(-T // cap)), T=T, cap=cap, seed=cap, hollow=5)
+    args = _torch_mh_args(c, cuda)
+    assert bool((args[3].sum(dim=1) == 0).any())
+    for seed in (1, 0xFFFF_FFFF):
+        zk = ops.mh_resample(*args, seed, 0.01, 40, n_mh)
+        zp = mh_resample_ref(*args, ops.mh_seed(seed), torch.tensor(0.01, device=cuda),
+                             args[7].sum(), 40, n_mh)
+        assert torch.equal(zk, zp)

@@ -10,7 +10,10 @@ weight 1 is the row itself, so there the plain version equals ``jnp.take``
 bit for bit.
 
 On a CUDA card (tests marked ``kernels``; they skip without one; they import
-no jax): the hand-written kernel against the plain version on the card.
+no jax): the hand-written kernel against the plain version on the card, on
+both its paths (16-byte vectors, and scalar loads for other row widths and
+unaligned tables). The wrapper's choice of path and launch geometry is plain
+Python and is tested here on the CPU.
 """
 import numpy as np
 import pytest
@@ -18,7 +21,12 @@ import torch
 
 from _torch_port import one_torch_thread as _one_torch_thread  # noqa: F401  (autouse)
 from repro_torch.kernels.embedding_bag import ops
-from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
+from repro_torch.kernels.embedding_bag.kernel import (
+    AHEAD,
+    WARPS_PER_BLOCK,
+    bag_geometry,
+    embedding_bag_cuda,
+)
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_padded_ref
 
 pytestmark = pytest.mark.port
@@ -216,3 +224,122 @@ def test_cuda_kernel_indexes_past_two_to_the_31():
     torch.testing.assert_close(bag.float(), plain.float(), rtol=2e-2, atol=2e-2)
     del table
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------- the wrapper's path and geometry
+@pytest.mark.parametrize("D,elem,lanes", [
+    (7, 2, 0), (8, 2, 1), (9, 2, 0), (10, 2, 0), (18, 2, 0), (64, 2, 8), (128, 2, 16),
+    (600, 2, 32), (7, 4, 0), (8, 4, 2), (9, 4, 0), (64, 4, 16), (128, 4, 32), (600, 4, 32)])
+def test_bag_geometry_path_by_row_width(D, elem, lanes):
+    """A row of a whole number of 16-byte vectors takes the vector path, with
+    its vector count rounded up to a power of two (at most 32) lanes a bag;
+    any other width the scalar path (lanes 0)."""
+    assert bag_geometry(D, elem, 100, 1, True, 132)[0] == lanes
+
+
+@pytest.mark.parametrize("D,elem", [(8, 2), (128, 2), (8, 4), (128, 4)])
+def test_bag_geometry_unaligned_takes_scalar_path(D, elem):
+    """A table or output that is not 16-byte aligned (a view offset by one
+    element) goes to the scalar path at any width."""
+    assert bag_geometry(D, elem, 100, 26, True, 132)[0] > 0
+    assert bag_geometry(D, elem, 100, 26, False, 132) == (0, 1, 13)
+
+
+def test_bag_geometry_empty_bags_take_scalar_path():
+    assert bag_geometry(128, 2, 100, 0, True, 132) == (0, 1, 13)
+
+
+@pytest.mark.parametrize("F", [1, 2, 3, 4, 5, 8, 12, 26, 40, 64])
+def test_bag_geometry_fills_whole_windows(F):
+    """A group's items in a run, bags × F, fill whole windows of AHEAD row
+    loads, with the fewest bags that do."""
+    bags = bag_geometry(128, 2, 10_000, F, True, 132)[1]
+    assert bags * F % AHEAD == 0 and all(b * F % AHEAD for b in range(1, bags))
+
+
+def test_bag_geometry_at_the_bulk_gather():
+    """262,144 × 26 bags of one 256-byte row: 16 lanes a bag, 8 bags a
+    group, and the card's resident blocks (8 an SM), each warp looping."""
+    assert bag_geometry(128, 2, 262_144 * 26, 1, True, 132) == (16, 8, 132 * 8)
+    # the serve_p99 gather: fewer runs than resident warps, one run a warp
+    assert bag_geometry(128, 2, 512 * 26, 1, True, 132) == (16, 8, 104)
+
+
+@pytest.mark.parametrize("D", [8, 128])
+@pytest.mark.parametrize("F", [1, 3, 26, 40])
+@pytest.mark.parametrize("B", [1, 2, 31, 33, 1000])
+def test_bag_geometry_runs_cover_every_bag_once(B, F, D):
+    """The vector kernel's walk (grid-stride over runs; group g of a warp
+    takes bags run · groups · bags + g + groups · m, m < bags, below B)
+    reaches each of the B bags exactly once, here with the grid of a card of
+    two SMs, so warps loop over several runs."""
+    lanes, bags, blocks = bag_geometry(D, 2, B, F, True, 2)
+    groups = 32 // lanes
+    n_runs = -(-B // (groups * bags))
+    n_warps = blocks * WARPS_PER_BLOCK
+    seen = [b for warp in range(n_warps) for run in range(warp, n_runs, n_warps)
+            for g in range(groups) for m in range(bags)
+            if (b := run * groups * bags + g + groups * m) < B]
+    assert sorted(seen) == list(range(B))
+
+
+# ------------------------------------------------ on the card: path edges
+def _check_on_card(t, tid, w, combiner="sum"):
+    """Kernel against the plain version on the card: a bag of one with no
+    weights bit for bit, otherwise within the limits (weighted bf16 bags as
+    ``test_cuda_kernel_matches_plain`` holds them)."""
+    bf16 = t.dtype == torch.bfloat16
+    tw = None if w is None else torch.from_numpy(w).cuda()
+    w_plain = tw.to(torch.bfloat16).float() if tw is not None and bf16 else tw
+    out = ops.embedding_bag(t, tid, w_plain, combiner)
+    plain = embedding_bag_padded_ref(t, tid, w_plain, combiner)
+    assert out.dtype == t.dtype and out.shape == plain.shape
+    if tid.shape[1] == 1 and w is None:
+        assert torch.equal(out, plain)
+    tol = TOL["bfloat16" if bf16 else "float32"]
+    np.testing.assert_allclose(_f32(out), _f32(plain), rtol=tol, atol=tol)
+    if tw is not None and bf16:
+        exact = embedding_bag_padded_ref(t.float(), tid, tw, combiner)
+        np.testing.assert_allclose(_f32(ops.embedding_bag(t, tid, tw, combiner)), _f32(exact),
+                                   rtol=2 ** -8 + 1e-5, atol=1e-5)
+
+
+@pytest.mark.kernels
+@pytest.mark.parametrize("weighted", [False, True], ids=["ones", "weighted"])
+@pytest.mark.parametrize("F", [1, 26, 40])
+@pytest.mark.parametrize("B", [1, 2, 31, 33])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [7, 8, 9, 64, 128])
+def test_cuda_kernel_path_edges(D, dtype, B, F, weighted):
+    """Row widths on both sides of a multiple of 16 bytes, B not a multiple
+    of the bags a warp takes, F of one bag, of 26 (not a multiple of the
+    window) and of 40."""
+    _card()
+    table, ids, w = _inputs(B, F, 3000, D)
+    if weighted:
+        w[::3, -1] = 0.0
+    t = torch.from_numpy(table).to("cuda", getattr(torch, dtype))
+    _check_on_card(t, torch.from_numpy(ids).cuda(), w if weighted else None)
+    if weighted:
+        _check_on_card(t, torch.from_numpy(ids).cuda(), w, "mean")
+
+
+@pytest.mark.kernels
+@pytest.mark.parametrize("dtype,D", [("bfloat16", 128), ("float32", 8), ("bfloat16", 64)])
+@pytest.mark.parametrize("shift", ["row", "element"])
+def test_cuda_kernel_table_view_offset(dtype, D, shift):
+    """A table that is a view into a larger one, offset by one row (still
+    16-byte aligned here: the vector path) or by one element (unaligned: the
+    scalar path), bags of one bit for bit and weighted bags of 26 within the
+    limits."""
+    _card()
+    V = 2000
+    big, ids, w = _inputs(64, 26, V + 1, D)
+    flat = torch.from_numpy(big).to("cuda", getattr(torch, dtype)).reshape(-1)
+    lo = D if shift == "row" else 1
+    t = flat[lo:lo + V * D].view(V, D)
+    assert t.is_contiguous()
+    assert (t.data_ptr() % 16 == 0) == (shift == "row")
+    tid = torch.from_numpy(ids % V).cuda()
+    _check_on_card(t, tid.reshape(-1, 1).contiguous(), None)
+    _check_on_card(t, tid, w)
