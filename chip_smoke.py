@@ -455,7 +455,7 @@ def alias_kernel_phase():
     launch; its time on the cell's own table, and the full-cell timings of
     ``mh_resample``, come from ``alias_phase``."""
     from repro_torch.kernels.alias import ops
-    from repro_torch.kernels.alias.kernel import alias_build_cuda
+    from repro_torch.kernels.alias.kernel import alias_build_cuda, mh_slot_bound
     from repro_torch.kernels.alias.ref import edge_rows
 
     K, V = FULL["n_topics"], FULL["vocab"]
@@ -516,14 +516,19 @@ def alias_kernel_phase():
     build = dict(plain_ms=plain_ms, plain_shape=[2 * R + 2, K], max_abs_err=max(errs))
 
     mh_errs = []
-    # the last case: 262,144 tokens over R = 2,048 words at full K, 16 tokens
-    # to a doc, so (nearly) every pair row is full
+    # pair caps 5, 16, 8 and 20 take the 16- and 32-slot register kernels,
+    # cap 64 the generic one; the last case: 262,144 tokens over R = 2,048
+    # words at full K, 16 tokens to a doc, so (nearly) every pair row is full
     for T, k, V, D, n_mh in [(37, 16, 20, 8, 1), (300, 16, 20, 8, 5), (64, 130, 20, 8, 4),
-                             (4000, 512, 20, 200, 4), (128 * R, K, R, 8 * R, 5)]:
+                             (4000, 512, 20, 200, 4), (256, 130, 20, 4, 4),
+                             (128 * R, K, R, 8 * R, 5)]:
         args, cap = mh_case(T, k, V, D, n_mh)
+        slots = mh_slot_bound(cap)
+        path = f"{slots}-slot register kernel" if slots else "generic kernel"
         for seed in (0, 0xFFFF_FFFF):
             mh_errs.append(check_mh(args, seed, n_mh, V,
-                                    f"T={T} K={k} cap={cap} n_mh={n_mh} seed={seed}")[1])
+                                    f"T={T} K={k} cap={cap} ({path}) n_mh={n_mh} "
+                                    f"seed={seed}")[1])
         del args
     torch.cuda.empty_cache()
     return build, max(mh_errs)

@@ -35,24 +35,13 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import os
-import subprocess
 import sys
 
 import torch
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, os.path.join(ROOT, "src"))
-sys.path.insert(0, ROOT)
+import kernel_bench as kb
 
 K, V, TOKENS = 100_000, 32_768, 747_200
-
-
-def build_variant(name, src, out_dir):
-    from repro_torch import kernels
-    so = os.path.join(out_dir, f"lib{name}.so")
-    cmd = [kernels.nvcc(), *kernels.NVCC_FLAGS, "-o", so, src]
-    return so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def launcher(so):
@@ -71,20 +60,6 @@ def run(fn, w, scale, out):
     if err:
         raise RuntimeError(f"alias_build launch failed: CUDA error {err}")
     return out
-
-
-def best_ms(fn, reps=3):
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return min(times)
 
 
 def cell_rows(words, seed):
@@ -140,26 +115,17 @@ def main():
                         "empty_table,cell_init_table",
                         help="comma-separated cases to run")
     args = parser.parse_args()
-    if not torch.cuda.is_available():
-        print("alias_build_bench: needs a CUDA card", file=sys.stderr)
+    if not kb.need_card("alias_build_bench"):
         return 1
     from repro_torch import kernels
     from repro_torch.kernels.alias import ops
     from repro_torch.kernels.alias.ref import build_alias_ref
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True)
-    print(f"card: {card.stdout.strip()}; torch {torch.__version__}", flush=True)
-    out_dir = os.path.join(ROOT, "build", "alias_build_bench")
-    os.makedirs(out_dir, exist_ok=True)
-    jobs = {name: build_variant(name, src, out_dir)
-            for name, src in (v.split("=", 1) for v in args.variant)}
+    jobs = kb.start_builds(args.variant, "alias_build_bench")
     kernels.build(["alias_build"])
     fns = {"committed": launcher(str(kernels.library_path("alias_build")))}
-    for name, (so, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+    for name, _, so, proc in jobs:
+        kb.finish_build(name, proc)
         fns[name] = launcher(so)
     names = list(fns)
 
@@ -188,13 +154,9 @@ def main():
                      and torch.equal(out[1][head], ap))
             ok &= plain
             same["plain sweep, first rows"] = plain
-        ms = {name: [] for name in names}
-        for name in names + names[::-1]:
-            ms[name].append(best_ms(lambda: run(fns[name], w, scale, out)))
-        print(f"{case} R={w.shape[0]} K={K}: "
-              + "; ".join(f"{n} {' / '.join(f'{t:.4f}' for t in ts)} ms"
-                          for n, ts in ms.items())
-              + f"; equal to the committed kernel: {same}", flush=True)
+        ms = kb.in_turns(fns, lambda fn: kb.event_ms(lambda: run(fn, w, scale, out), 3, min))
+        print(f"{case} R={w.shape[0]} K={K}: {kb.fmt_turns(ms)}; equal to the committed "
+              f"kernel: {same}", flush=True)
         del w, scale, out
         torch.cuda.empty_cache()
     print("all builds equal bit for bit" if ok else "a build DIFFERS", flush=True)

@@ -3,18 +3,14 @@
 Needs a CUDA card and nvcc. Run from the root of the checkout:
 
     python3 scripts/bag_mh_bench.py [--variant NAME=PATH.cu ...]
-                                    [--legacy-variant NAME=PATH.cu ...]
-                                    [--cases lookup,lookup_1gib,multi_hot,p99,cell,cell_cap30]
+        [--cases lookup,lookup_1gib,multi_hot,p99,p99_host,cell,cell_cap30]
 
 The committed kernels (``src/repro_torch/csrc/{embedding_bag,mh_resample}.cu``)
 always run. Each ``--variant`` is another source with the committed C entry
-point of one of the two kernels (the script reads which from the source); a
-``--legacy-variant`` has the entry point as it was before the path choice
-moved into the wrapper (``embedding_bag_launch`` without lanes / bags /
-blocks, ``mh_resample_launch`` without slot_bound): the previous kernels,
-e.g. ``git show <commit>:src/repro_torch/csrc/<name>.cu``, or edited copies
-of them. Each is built with the committed flags. Every build must give
-the committed kernel's output bit for bit; the script exits nonzero otherwise.
+point of one of the two kernels (the script reads which from the source),
+built with the committed flags (``kernel_bench.py`` says how to wrap an
+earlier kernel whose entry point differs). Every build must give the
+committed kernel's output bit for bit; the script exits nonzero otherwise.
 
 Cases:
 - ``lookup``: dlrm-mlperf's bulk gather, 262,144 × 26 bags of one row
@@ -24,7 +20,15 @@ Cases:
   (id mod 4,194,304 rows), which separates the page walks of a 44.77 GiB
   table from the kernel's own design;
 - ``multi_hot``: 262,144 weighted bags of 26 rows (uniform weights);
-- ``p99``: the serve_p99 gather, 512 × 26 bags of one;
+- ``p99``: the serve_p99 gather, 512 × 26 bags of one, events around the
+  host call;
+- ``p99_host``: the host's side of that gather, in microseconds a call of
+  the committed wrapper (``embedding_bag_cuda``: checks, allocation, path
+  choice, launch), of each build's ctypes launch alone (its arguments made
+  beforehand) and of the wrapper's path choice alone (``bag_geometry`` and
+  the alignment test), each the median of 9 loops of 500 calls (fewer than
+  the card's launch queue holds, so the host never waits on the card), each
+  loop timed before the synchronize that follows it, in turns;
 - ``cell``: one alias-MH package shaped like the alias cell of
   ``chip_smoke.py``: the cell's 747,200 tokens (its corpus tiled 40 times),
   each on a uniform topic, at K = 100,000, V = 32,768, pair cap 14, n_mh 4,
@@ -48,88 +52,61 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import os
-import subprocess
+import functools
 import sys
+import time
 
 import numpy as np
 import torch
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, os.path.join(ROOT, "src"))
-sys.path.insert(0, ROOT)
+import kernel_bench as kb
 
 P, I = ctypes.c_void_p, ctypes.c_int
-BAG_CASES = ("lookup", "lookup_1gib", "multi_hot", "p99")
+BAG_CASES = ("lookup", "lookup_1gib", "multi_hot", "p99", "p99_host")
 MH_CASES = ("cell", "cell_cap30")
 FOLD_ROWS = (1 << 30) // 256            # rows of 128 bf16 in one GiB
 
 
-def build(name, src, out_dir):
-    from repro_torch import kernels
-    so = os.path.join(out_dir, f"lib{name}.so")
-    cmd = [kernels.nvcc(), *kernels.NVCC_FLAGS, "-o", so, src]
-    return so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                text=True)
-
-
-def bag_launcher(so, legacy):
+def bag_launcher(so):
     """fn(table, ids, weights) → out, through the library ``so``."""
-    from repro_torch.kernels.embedding_bag.kernel import _sm_count, bag_geometry
+    from repro_torch.kernels.embedding_bag.kernel import bag_geometry
     fn = ctypes.CDLL(so).embedding_bag_launch
-    fn.argtypes = [P, P, P, ctypes.c_longlong] + [I] * (4 if legacy else 7) + [P, P]
+    fn.argtypes = [P, P, P, ctypes.c_longlong] + [I] * 7 + [P, P]
     fn.restype = I
 
     def run(table, ids, weights):
         (V, D), (B, F) = table.shape, ids.shape
         out = torch.empty((B, D), dtype=table.dtype, device="cuda")
-        head = [table.data_ptr(), ids.data_ptr(),
-                None if weights is None else weights.data_ptr(), B, F, D, 0,
-                1 if table.dtype == torch.bfloat16 else 0]
-        if not legacy:
-            head += bag_geometry(D, table.element_size(), B, F,
-                                 (table.data_ptr() | out.data_ptr()) % 16 == 0,
-                                 _sm_count(torch.cuda.current_device()))
-        err = fn(*head, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        t_ptr, o_ptr = table.data_ptr(), out.data_ptr()
+        err = fn(t_ptr, ids.data_ptr(), None if weights is None else weights.data_ptr(), B,
+                 F, D, 0, 1 if table.dtype == torch.bfloat16 else 0,
+                 *bag_geometry(D, table.element_size(), B, F, (t_ptr | o_ptr) % 16 == 0),
+                 o_ptr, torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"embedding_bag launch failed: CUDA error {err}")
         return out
+    run.launch = fn
     return run
 
 
-def mh_launcher(so, legacy):
+def mh_launcher(so):
     """fn(args, seed2, beta, asum, V, n_mh) → z_new, through the library ``so``;
     ``args`` are the tensors phi … uid of ``mh_resample_cuda``."""
     from repro_torch.kernels.alias.kernel import mh_slot_bound
     fn = ctypes.CDLL(so).mh_resample_launch
-    fn.argtypes = [P] * 14 + [ctypes.c_uint32, P, P, ctypes.c_float] + \
-        [I] * (4 if legacy else 5) + [P, P]
+    fn.argtypes = [P] * 14 + [ctypes.c_uint32, P, P, ctypes.c_float] + [I] * 5 + [P, P]
     fn.restype = I
 
     def run(args, seed2, beta, asum, V, n_mh):
         K, cap, T = args[0].shape[1], args[2].shape[1], args[10].shape[0]
         out = torch.empty(T, dtype=torch.int32, device="cuda")
-        tail = [n_mh, T, K, cap] + ([] if legacy else [mh_slot_bound(cap)])
         err = fn(*(a.data_ptr() for a in args), seed2, beta.data_ptr(), asum.data_ptr(),
-                 float(V), *tail, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                 float(V), n_mh, T, K, cap, mh_slot_bound(cap), out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"mh_resample launch failed: CUDA error {err}")
         return out
     return run
-
-
-def median_ms(fn, reps=20):
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
 
 
 def bag_cases(wanted):
@@ -155,7 +132,8 @@ def bag_cases(wanted):
     cases = {"lookup": (one, None, rows_read(one) + B * F * (D * 2 + 4)),
              "lookup_1gib": (folded, None, rows_read(folded) + B * F * (D * 2 + 4)),
              "multi_hot": (flat, w, rows_read(flat) + B * D * 2 + 2 * B * F * 4),
-             "p99": (p99, None, rows_read(p99) + 512 * F * (D * 2 + 4))}
+             "p99": (p99, None, rows_read(p99) + 512 * F * (D * 2 + 4)),
+             "p99_host": (p99, None, 0)}
     for name in BAG_CASES:
         if name in wanted:
             yield name, table, *cases[name]
@@ -200,16 +178,43 @@ def compare(label, fns, call, nbytes):
     them a, b, …, b, a; print one line; return whether all were equal."""
     ref = call(fns["committed"])
     same = {n: torch.equal(call(f), ref) for n, f in fns.items() if n != "committed"}
-    names = list(fns)
-    ms = {n: [] for n in names}
-    for n in names + names[::-1]:
-        ms[n].append(median_ms(lambda: call(fns[n])))
+    ms = kb.in_turns(fns, lambda fn: kb.event_ms(lambda: call(fn), 20))
     bound = nbytes / 3.35e12 * 1e3
-    print(f"{label}: " + "; ".join(
-        f"{n} {' / '.join(f'{t:.4f}' for t in ts)} ms (share {bound / min(ts):.3f})"
-        for n, ts in ms.items()) + f"; bound {bound:.4f} ms (bytes); equal to the committed "
-        f"kernel: {same}", flush=True)
+    print(f"{label}: {kb.fmt_turns(ms, lambda n, ts: f' (share {bound / min(ts):.3f})')}; "
+          f"bound {bound:.4f} ms (bytes); equal to the committed kernel: {same}", flush=True)
     return all(same.values())
+
+
+def host_cost(table, ids, builds, calls=500):
+    """The ``p99_host`` case: host microseconds a call of the committed
+    wrapper, of each build's launch alone and of the path choice alone."""
+    from repro_torch.kernels.embedding_bag import kernel
+    (_, D), (B, F) = table.shape, ids.shape
+    out = kernel.embedding_bag_cuda(table, ids)
+    t_ptr, o_ptr, i_ptr = table.data_ptr(), out.data_ptr(), ids.data_ptr()
+    args = (t_ptr, i_ptr, None, B, F, D, 0, 1,
+            *kernel.bag_geometry(D, table.element_size(), B, F, (t_ptr | o_ptr) % 16 == 0),
+            o_ptr, torch.cuda.current_stream().cuda_stream)
+
+    def loop_us(fn):
+        times = []
+        for _ in range(9):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times.append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+        return float(np.median(times))
+
+    fns = {"wrapper": lambda: kernel.embedding_bag_cuda(table, ids)}
+    fns.update({f"launch alone, {name}": functools.partial(run.launch, *args)
+                for name, run in builds.items()})
+    fns["path choice alone"] = lambda: kernel.bag_geometry(
+        D, table.element_size(), B, F, (t_ptr | o_ptr) % 16 == 0)
+    us = kb.in_turns(fns, loop_us)
+    print(f"embedding_bag p99_host ({B} × {F}): host µs a call: " + "; ".join(
+        f"{n} {' / '.join(f'{t:.3f}' for t in ts)}" for n, ts in us.items()), flush=True)
 
 
 def random_sectors(table, n):
@@ -218,7 +223,7 @@ def random_sectors(table, n):
     timed like the kernels: the card's rate for scattered 4-byte reads."""
     g = torch.Generator(device="cuda").manual_seed(11)
     idx = torch.randint(0, table.numel(), (n,), generator=g, device="cuda")
-    ms = median_ms(lambda: torch.take(table, idx))
+    ms = kb.event_ms(lambda: torch.take(table, idx), 20)
     print(f"torch.take of {n} int32 at uniform positions of a {table.numel() * 4 / 2**30:.2f} "
           f"GiB table: {ms:.4f} ms, {n * 32 / ms / 1e9:.3f} TB/s of 32-byte sectors",
           flush=True)
@@ -228,39 +233,28 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--variant", action="append", default=[],
                         help="NAME=PATH of another source with the committed entry point")
-    parser.add_argument("--legacy-variant", action="append", default=[],
-                        help="NAME=PATH of a source with the previous entry point")
     parser.add_argument("--cases", default=",".join(BAG_CASES + MH_CASES))
     args = parser.parse_args()
-    if not torch.cuda.is_available():
-        print("bag_mh_bench: needs a CUDA card", file=sys.stderr)
+    if not kb.need_card("bag_mh_bench"):
         return 1
     from repro_torch import kernels
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True)
-    print(f"card: {card.stdout.strip()}; torch {torch.__version__}", flush=True)
-    out_dir = os.path.join(ROOT, "build", "bag_mh_bench")
-    os.makedirs(out_dir, exist_ok=True)
-    jobs = []
-    for legacy, specs in ((False, args.variant), (True, args.legacy_variant)):
-        for spec in specs:
-            name, src = spec.split("=", 1)
-            kernel = "embedding_bag" if "embedding_bag_launch" in open(src).read() \
-                else "mh_resample"
-            jobs.append((kernel, name, legacy, *build(name, src, out_dir)))
+    jobs = kb.start_builds(args.variant, "bag_mh_bench")
     kernels.build(["embedding_bag", "mh_resample"])
     make = {"embedding_bag": bag_launcher, "mh_resample": mh_launcher}
-    fns = {k: {"committed": make[k](str(kernels.library_path(k)), False)} for k in make}
-    for kernel, name, legacy, so, proc in jobs:
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        fns[kernel][name] = make[kernel](so, legacy)
+    fns = {k: {"committed": make[k](str(kernels.library_path(k)))} for k in make}
+    for name, src, so, proc in jobs:
+        kb.finish_build(name, proc)
+        with open(src) as f:
+            kernel = "embedding_bag" if "embedding_bag_launch" in f.read() else "mh_resample"
+        fns[kernel][name] = make[kernel](so)
 
     wanted = set(args.cases.split(","))
     ok = True
     if wanted & set(BAG_CASES):
         for name, table, ids, w, nbytes in bag_cases(wanted):
+            if name == "p99_host":
+                host_cost(table, ids, fns["embedding_bag"])
+                continue
             ok &= compare(f"embedding_bag {name} ({ids.shape[0]} × {ids.shape[1]}, D=128 bf16)",
                           fns["embedding_bag"], lambda f: f(table, ids, w), nbytes)
         del table

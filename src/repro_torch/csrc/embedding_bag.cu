@@ -22,15 +22,18 @@
 // What the design does about it (the vector path): 16-byte loads and stores,
 // 8 bf16 or 4 f32 a lane, so a row of R 16-byte vectors takes a group of
 // `lanes` = R rounded up to a power of two (at most 32) and a warp serves
-// 32 / lanes bags at once. Each warp takes runs of bags from a grid sized to
-// the card's resident warps; a group walks its bags' (bag, f) items in
+// 32 / lanes bags at once. Each warp takes runs of bags from a grid of at
+// most the blocks the card holds resident at once (the occupancy API's count
+// for this kernel, times the SMs), looping over runs; a group walks its
+// bags' (bag, f) items in
 // windows of kAhead: it reads the window's ids and weights, then issues all
 // kAhead row loads, and only then accumulates them, in order, into f32
 // registers, storing a bag when its last item is added. So each lane has
 // kAhead independent 16-byte row loads in flight, whether the bags hold one
 // row each or many. The wrapper picks this path when a row is a whole number
-// of 16-byte vectors and the table and output are 16-byte aligned, and the
-// launch geometry (kernel.py: bag_geometry).
+// of 16-byte vectors and the table and output are 16-byte aligned, with the
+// lanes and bags a group and the grid of one run a warp
+// (kernel.py: bag_geometry); the launch caps that grid at the resident blocks.
 // The scalar path, for any other width or alignment: one warp a bag, lanes
 // striding over D with up to 16 accumulators each, the bag's ids and weights
 // read 32 at a time and broadcast by warp shuffles.
@@ -226,18 +229,35 @@ embedding_bag_kernel_vector(const uint4* __restrict__ table, const int* __restri
   }
 }
 
+// Blocks of `kernel` an SM holds at once (its registers decide: ptxas -v
+// prints them), asked once per kernel.
+template <typename K>
+int resident_per_sm(K kernel) {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, 0) != cudaSuccess) {
+    return 1;
+  }
+  return n > 0 ? n : 1;
+}
+
+// `blocks` is the grid of one run a warp; it is capped at the blocks `sms`
+// SMs hold resident, and the warps loop over the runs.
 template <typename T>
-void launch_vector(int lanes, int blocks, cudaStream_t s, const void* table, const int* ids,
-                   const float* weights, long long B, int F, int vpr, int bags, int mean,
-                   void* out) {
+void launch_vector(int lanes, int blocks, int sms, cudaStream_t s, const void* table,
+                   const int* ids, const float* weights, long long B, int F, int vpr,
+                   int bags, int mean, void* out) {
   const uint4* t = (const uint4*)table;
   uint4* o = (uint4*)out;
   switch (lanes) {
-#define EB_CASE(L)                                                                       \
-  case L:                                                                                \
-    embedding_bag_kernel_vector<T, L><<<blocks, kThreads, 0, s>>>(t, ids, weights, B, F, \
-                                                                   vpr, bags, mean, o);  \
-    break;
+#define EB_CASE(L)                                                                     \
+  case L: {                                                                            \
+    static const int per_sm = resident_per_sm(embedding_bag_kernel_vector<T, L>);     \
+    const long long most = (long long)per_sm * sms;                                    \
+    const int grid = blocks < most ? blocks : (int)most;                               \
+    embedding_bag_kernel_vector<T, L><<<grid, kThreads, 0, s>>>(t, ids, weights, B, F, \
+                                                                 vpr, bags, mean, o);  \
+    break;                                                                             \
+  }
     EB_CASE(1) EB_CASE(2) EB_CASE(4) EB_CASE(8) EB_CASE(16) EB_CASE(32)
 #undef EB_CASE
   }
@@ -248,8 +268,9 @@ void launch_vector(int lanes, int blocks, cudaStream_t s, const void* table, con
 // dtype 0: float32 table and output; 1: bfloat16. weights may be null (all
 // ones). lanes 0 takes the scalar path (one warp a bag, `blocks` blocks of 8
 // bags); lanes in {1, 2, 4, 8, 16, 32} the vector path, with `bags` bags a
-// group in each run and `blocks` blocks, which needs D * element size a
-// multiple of 16 and 16-byte aligned table and out. Launches on `stream` and
+// group in each run and at most `blocks` blocks (capped at the blocks the
+// card holds resident), which needs D * element size a multiple of 16 and
+// 16-byte aligned table and out. Launches on `stream` and
 // returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a
 // geometry the kernels do not take.
 extern "C" int embedding_bag_launch(const void* table, const int* ids,
@@ -277,11 +298,16 @@ extern "C" int embedding_bag_launch(const void* table, const int* ids,
     return (int)cudaErrorInvalidValue;
   }
   const int vpr = (int)(row_bytes / 16);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
   if (dtype == 1) {
-    launch_vector<__nv_bfloat16>(lanes, blocks, s, table, ids, weights, B, F, vpr, bags,
+    launch_vector<__nv_bfloat16>(lanes, blocks, sms, s, table, ids, weights, B, F, vpr, bags,
                                  mean, out);
   } else {
-    launch_vector<float>(lanes, blocks, s, table, ids, weights, B, F, vpr, bags, mean, out);
+    launch_vector<float>(lanes, blocks, sms, s, table, ids, weights, B, F, vpr, bags, mean,
+                         out);
   }
   return (int)cudaGetLastError();
 }

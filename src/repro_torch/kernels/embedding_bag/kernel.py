@@ -19,21 +19,21 @@ _fn = None
 
 WARPS_PER_BLOCK = 8      # kThreads / 32 in the source
 AHEAD = 8                # kAhead: row loads a lane of the vector path has in flight
-BLOCKS_PER_SM = 8        # 8 blocks of 8 warps fill an SM's 64 warp slots
 
 
 @functools.lru_cache(maxsize=1024)
-def bag_geometry(D: int, elem_size: int, B: int, F: int, aligned: bool, sm_count: int):
+def bag_geometry(D: int, elem_size: int, B: int, F: int, aligned: bool):
     """Path and launch geometry of the kernel → (lanes, bags, blocks).
 
     ``lanes`` 0 is the scalar path: one warp a bag, ``blocks`` = ⌈B / 8⌉.
     Otherwise the vector path: 16-byte loads, ``lanes`` (a power of two ≤ 32)
     lanes a bag, so a warp serves 32 / lanes bags at once; each group of
     lanes takes ``bags`` bags a run, enough (bag, f) items to fill whole
-    windows of ``AHEAD`` row loads; ``blocks`` is the card's resident blocks
-    or fewer, and each warp loops over runs. The vector path needs F ≥ 1, a
-    row of a whole number of 16-byte vectors and ``aligned``: the table and
-    the output 16-byte aligned.
+    windows of ``AHEAD`` row loads; ``blocks`` gives each warp one run, and
+    the launch caps it at the blocks the card holds resident (the occupancy
+    API's count for the kernel, times the SMs), so each warp loops over
+    runs. The vector path needs F ≥ 1, a row of a whole number of 16-byte
+    vectors and ``aligned``: the table and the output 16-byte aligned.
     """
     row_bytes = D * elem_size
     if F == 0 or row_bytes % 16 or not aligned:
@@ -42,12 +42,7 @@ def bag_geometry(D: int, elem_size: int, B: int, F: int, aligned: bool, sm_count
     lanes = min(32, 1 << (vpr - 1).bit_length())
     bags = AHEAD // math.gcd(AHEAD, F)
     runs = -(-B // (32 // lanes * bags))
-    return lanes, bags, max(1, min(-(-runs // WARPS_PER_BLOCK), sm_count * BLOCKS_PER_SM))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+    return lanes, bags, max(1, -(-runs // WARPS_PER_BLOCK))
 
 
 def _launcher():
@@ -84,16 +79,15 @@ def embedding_bag_cuda(table, ids, weights=None, combiner: str = "sum") -> torch
     if weights is not None:
         check_arg("weights", weights, torch.float32, (B, F), dev)
     out = torch.empty((B, D), dtype=table.dtype, device=dev)
-    lanes, bags, blocks = bag_geometry(
-        D, table.element_size(), B, F, (table.data_ptr() | out.data_ptr()) % 16 == 0,
-        _sm_count(dev.index))
+    t_ptr, o_ptr = table.data_ptr(), out.data_ptr()
+    lanes, bags, blocks = bag_geometry(D, table.element_size(), B, F,
+                                       (t_ptr | o_ptr) % 16 == 0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _launcher()(
-            table.data_ptr(), ids.data_ptr(),
-            None if weights is None else weights.data_ptr(), B, F, D,
-            int(combiner == "mean"), _DTYPES[table.dtype], lanes, bags, blocks,
-            out.data_ptr(), stream)
+            t_ptr, ids.data_ptr(), None if weights is None else weights.data_ptr(), B, F, D,
+            int(combiner == "mean"), _DTYPES[table.dtype], lanes, bags, blocks, o_ptr,
+            stream)
     if err:
         raise RuntimeError(f"embedding_bag kernel launch failed: CUDA error {err}")
     return out

@@ -234,35 +234,36 @@ def test_bag_geometry_path_by_row_width(D, elem, lanes):
     """A row of a whole number of 16-byte vectors takes the vector path, with
     its vector count rounded up to a power of two (at most 32) lanes a bag;
     any other width the scalar path (lanes 0)."""
-    assert bag_geometry(D, elem, 100, 1, True, 132)[0] == lanes
+    assert bag_geometry(D, elem, 100, 1, True)[0] == lanes
 
 
 @pytest.mark.parametrize("D,elem", [(8, 2), (128, 2), (8, 4), (128, 4)])
 def test_bag_geometry_unaligned_takes_scalar_path(D, elem):
     """A table or output that is not 16-byte aligned (a view offset by one
     element) goes to the scalar path at any width."""
-    assert bag_geometry(D, elem, 100, 26, True, 132)[0] > 0
-    assert bag_geometry(D, elem, 100, 26, False, 132) == (0, 1, 13)
+    assert bag_geometry(D, elem, 100, 26, True)[0] > 0
+    assert bag_geometry(D, elem, 100, 26, False) == (0, 1, 13)
 
 
 def test_bag_geometry_empty_bags_take_scalar_path():
-    assert bag_geometry(128, 2, 100, 0, True, 132) == (0, 1, 13)
+    assert bag_geometry(128, 2, 100, 0, True) == (0, 1, 13)
 
 
 @pytest.mark.parametrize("F", [1, 2, 3, 4, 5, 8, 12, 26, 40, 64])
 def test_bag_geometry_fills_whole_windows(F):
     """A group's items in a run, bags × F, fill whole windows of AHEAD row
     loads, with the fewest bags that do."""
-    bags = bag_geometry(128, 2, 10_000, F, True, 132)[1]
+    bags = bag_geometry(128, 2, 10_000, F, True)[1]
     assert bags * F % AHEAD == 0 and all(b * F % AHEAD for b in range(1, bags))
 
 
 def test_bag_geometry_at_the_bulk_gather():
     """262,144 × 26 bags of one 256-byte row: 16 lanes a bag, 8 bags a
-    group, and the card's resident blocks (8 an SM), each warp looping."""
-    assert bag_geometry(128, 2, 262_144 * 26, 1, True, 132) == (16, 8, 132 * 8)
-    # the serve_p99 gather: fewer runs than resident warps, one run a warp
-    assert bag_geometry(128, 2, 512 * 26, 1, True, 132) == (16, 8, 104)
+    group, two groups a warp, so 425,984 runs and one block for each 8 of
+    them (the launch caps the grid at the card's resident blocks)."""
+    assert bag_geometry(128, 2, 262_144 * 26, 1, True) == (16, 8, 53_248)
+    # the serve_p99 gather: 832 runs, one a warp
+    assert bag_geometry(128, 2, 512 * 26, 1, True) == (16, 8, 104)
 
 
 @pytest.mark.parametrize("D", [8, 128])
@@ -271,16 +272,19 @@ def test_bag_geometry_at_the_bulk_gather():
 def test_bag_geometry_runs_cover_every_bag_once(B, F, D):
     """The vector kernel's walk (grid-stride over runs; group g of a warp
     takes bags run · groups · bags + g + groups · m, m < bags, below B)
-    reaches each of the B bags exactly once, here with the grid of a card of
-    two SMs, so warps loop over several runs."""
-    lanes, bags, blocks = bag_geometry(D, 2, B, F, True, 2)
+    reaches each of the B bags exactly once, with the grid ``bag_geometry``
+    gives and with that grid capped at two blocks, as the launch caps it on
+    a card that holds few resident, so warps loop over several runs."""
+    lanes, bags, blocks = bag_geometry(D, 2, B, F, True)
     groups = 32 // lanes
     n_runs = -(-B // (groups * bags))
-    n_warps = blocks * WARPS_PER_BLOCK
-    seen = [b for warp in range(n_warps) for run in range(warp, n_runs, n_warps)
-            for g in range(groups) for m in range(bags)
-            if (b := run * groups * bags + g + groups * m) < B]
-    assert sorted(seen) == list(range(B))
+    assert blocks * WARPS_PER_BLOCK >= n_runs
+    for grid in (blocks, min(blocks, 2)):
+        n_warps = grid * WARPS_PER_BLOCK
+        seen = [b for warp in range(n_warps) for run in range(warp, n_runs, n_warps)
+                for g in range(groups) for m in range(bags)
+                if (b := run * groups * bags + g + groups * m) < B]
+        assert sorted(seen) == list(range(B))
 
 
 # ------------------------------------------------ on the card: path edges
