@@ -6,19 +6,30 @@
 Needs one CUDA card (Hopper, sm_90a) and ``nvcc``. It builds every kernel of
 the port from ``src/repro_torch/csrc`` (one ``nvcc`` per source, all started
 together), holds each against its plain PyTorch version on the card, then
-drives the port's two paths at the full width of peacock-lda — K = 100,000
-topics, V = 32,768 words (cut from 210,000 so that Φ and P̂ fit one 80 GB
-card whole):
+drives the port's three LDA paths at the full width of peacock-lda —
+K = 100,000 topics, V = 32,768 words (cut from 210,000 so that Φ and P̂ fit
+one 80 GB card whole):
 
 - the dense path: a 4,096-query segment shard through train (3 Gibbs
   epochs) → α re-estimation → RT-LDA export → 4 served batches of 1,024;
 - the alias-MH path: that shard tiled 40× (163,840 docs, ~747,000 tokens)
   laid out as a ring of one device, 6 epochs with the stale alias tables
   rebuilt at epochs 0 and 3, α re-estimation from the sparse pairs, the α
-  table refreshed, RT-LDA export and 2 served batches of 1,024.
+  table refreshed, RT-LDA export and 2 served batches of 1,024;
+- the training loop: the dense path's shard through the port's ``Trainer``
+  (the dense ring of one device in 2 packages, 3 epochs, α re-estimated,
+  the word LL logged), both forms of the dense ring timed and profiled, an
+  RT-LDA model from ``gather_phi`` serving a batch, and the dense and alias
+  samplers' LL curves from one z0; ``gibbs_argmax`` (each ring form) and
+  ``mh_resample`` are held against their plain versions on a package of
+  this path at its own shape.
 
-Small phases at quickstart scale run the O(K²V) de-duplication and hold the
-card's whole dense loop and alias loop against the same loops on the CPU.
+Small phases at quickstart scale run the O(K²V) de-duplication, hold the
+card's whole dense loop and alias loop against the same loops on the CPU,
+and drive ``repro_torch.launch.train`` in both samplers: a run that
+publishes, a run killed after epoch 4 and resumed (bit for bit), and the same
+run on the CPU (the dense run's every package held against the plain
+version on the CPU: a differing draw must be a near-tie).
 
 Then the recsys serving path at full width: dlrm-mlperf (the 187,767,552 ×
 128 bf16 embedding table of the MLPerf Criteo-1TB config, nothing cut) with
@@ -32,6 +43,7 @@ Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits nonzero on any failure,
 and when there is no CUDA card.
 """
+import contextlib
 import gc
 import json
 import os
@@ -106,10 +118,43 @@ def gibbs_inputs(T, K, psi_row, seed):
     return phi, psi, theta, alpha, torch.tensor(0.01, device="cuda"), uid
 
 
+def near_ties(zk, args, seed, V, tau, rows=2048):
+    """Hold the kernel's draws ``zk`` against the plain version on ``args``
+    (phi, psi, theta, alpha, beta, uid; on the card, or on the CPU for a
+    card-vs-CPU check), a block of rows at a time. The plain draw is the row
+    argmax of ``gibbs_scores``, which is ``gibbs_argmax_ref``. Returns (draws
+    that differ, of them not a near-tie (score gap above 4 ulp), largest gap);
+    raises on a draw out of [0, K)."""
+    from repro_torch.kernels.gibbs.ref import gibbs_scores
+    phi, psi, theta, alpha, beta, uid = args
+    T, K = phi.shape
+    zk = zk.to(phi.device).long()
+    if not bool(((zk >= 0) & (zk < K)).all()):
+        raise AssertionError(f"gibbs_argmax drew a topic out of [0, {K}) at T={T}")
+    inf = torch.tensor(float("inf"), device=phi.device)
+    mism = bad = 0
+    max_gap = 0.0
+    for lo in range(0, T, rows):
+        r = slice(lo, lo + rows)
+        scores = gibbs_scores(phi[r], psi if psi.dim() == 1 else psi[r], theta[r], alpha,
+                              beta, uid[r], seed, V, tau)
+        zp = torch.argmax(scores, dim=1)
+        sk = scores.gather(1, zk[r, None])[:, 0]
+        sp = scores.gather(1, zp[:, None])[:, 0]
+        del scores
+        gap = (sp - sk).abs()
+        top = torch.maximum(sp.abs(), sk.abs())
+        differ = zk[r] != zp
+        mism += int(differ.sum())
+        bad += int((differ & ~(gap <= 4 * (torch.nextafter(top, inf) - top))).sum())
+        max_gap = max(max_gap, float(gap.max()))
+    return mism, bad, max_gap
+
+
 def kernel_phase():
     from repro_torch.kernels.gibbs import ops
     from repro_torch.kernels.gibbs.kernel import gibbs_argmax_cuda
-    from repro_torch.kernels.gibbs.ref import gibbs_argmax_ref, gibbs_scores
+    from repro_torch.kernels.gibbs.ref import gibbs_argmax_ref
 
     seed, V = 42, FULL["vocab"]
     max_err, total_bad = 0.0, 0
@@ -118,24 +163,11 @@ def kernel_phase():
             args = gibbs_inputs(T, K, psi_row, seed=T + K)
             for tau in (1.0, 0.0):
                 zk = ops.gibbs_argmax(*args, seed, V, tau)
-                zp = gibbs_argmax_ref(*args, seed, V, tau)
-                torch.cuda.synchronize()
-                if not bool(((zk >= 0) & (zk < K)).all()):
-                    raise AssertionError(f"kernel index out of range at T={T} K={K}")
-                scores = gibbs_scores(*args, seed, V, tau)    # the plain version's
-                sk = scores.gather(1, zk.long()[:, None])[:, 0]
-                sp = scores.gather(1, zp.long()[:, None])[:, 0]
-                del scores
-                gap = (sp - sk).abs()
-                ulp = torch.nextafter(torch.maximum(sp.abs(), sk.abs()),
-                                      torch.tensor(float("inf"), device="cuda"))
-                ulp = ulp - torch.maximum(sp.abs(), sk.abs())
-                mism = zk != zp
-                bad = int((mism & ~(gap <= 4 * ulp)).sum())
-                max_err = max(max_err, float(gap.max()))
+                mism, bad, gap = near_ties(zk, args, seed, V, tau)
+                max_err = max(max_err, gap)
                 total_bad += bad
                 log(f"[kernel] T={T} K={K} psi={'row' if psi_row else 'plane'} tau={tau}: "
-                    f"{int(mism.sum())} mismatches, {bad} not near-ties (>4 ulp)")
+                    f"{mism} mismatches, {bad} not near-ties (>4 ulp)")
             del args
     if total_bad:
         raise AssertionError(f"{total_bad} kernel/plain mismatches beyond a near-tie")
@@ -242,13 +274,15 @@ def full_width_phase(corpus):
     # ---- the main path: counts from 0, train → export → serve ----
     ops.launches = 0
     n_blocks = len(wi) // FULL["block"]
+    rates = []
     for e in range(FULL["epochs"]):
         t0 = time.perf_counter()
         state = gibbs.gibbs_epoch(state, wi_t, di_t, D, V, seed=e * 31 + 7,
                                   block_size=FULL["block"])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        log(f"[full] epoch {e}: {dt:.4f} s, {corpus.n_tokens / dt:.1f} tokens/s "
+        rates.append(corpus.n_tokens / dt)
+        log(f"[full] epoch {e}: {dt:.4f} s, {rates[-1]:.1f} tokens/s "
             f"({n_blocks} blocks of {FULL['block']})")
     lda.check_invariants(lda.LDAState(state.phi, state.psi, state.z[valid], state.alpha,
                                       state.beta), wi_t[valid])
@@ -292,8 +326,9 @@ def full_width_phase(corpus):
         f"{FULL['bucket']} ({n_cut} queries cut to the bucket); batch s "
         f"{[round(t, 4) for t in times]}; queries/s per batch {[round(x, 1) for x in qps]}; "
         f"queries/s after the first {sum(FULL['batch'] for _ in times[1:]) / sum(times[1:]):.1f}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[full] launches gibbs_argmax={launches} (expected {expected}); "
-        f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"max_memory_allocated={peak:.2f} GiB")
 
     # where the time goes: one more epoch and one more batch, under the profiler
     device_breakdown("epoch", lambda: gibbs.gibbs_epoch(
@@ -302,7 +337,7 @@ def full_width_phase(corpus):
     device_breakdown("serve batch", lambda: serve(model, q, 7))
     del model, state
     torch.cuda.empty_cache()
-    return launches
+    return launches, dict(tokens_per_s=rates, peak_gib=peak)
 
 
 # ----------------------------------------------------------------- small phase
@@ -781,6 +816,367 @@ def alias_small_phase():
         f"{cfg.package_len}: card == CPU for z, Φ, Ψ and the pairs")
 
 
+# ------------------------------------------------------------- trainer phase
+# the port's Trainer at full width on FULL's corpus: the dense ring in packages
+# of at most 10,000 tokens, α re-estimated from the second epoch (index 1) on;
+# then the default and the optimized ring form (int8 Θ, column exclusion,
+# small Θ) two epochs each; then the dense and the alias sampler from one z0
+# with α held, for their LL curves
+TRAINER = dict(epochs=3, alpha_from=1, max_package=10_000, form_epochs=2, ll_epochs=8)
+# the small launch.train loop: SMALL's geometry, killed after epoch 4 of 6
+TRAINER_SMALL = dict(epochs=6, kill_at=4, ckpt_every=2)
+
+
+def package_len_for(cap, most):
+    """The largest divisor of ``cap`` not above ``most``."""
+    return max(L for L in range(1, min(cap, most) + 1) if cap % L == 0)
+
+
+def check_ring_state(state, rows, n_tokens, K, label):
+    """Φ equals the counts of the stack's z, and Ψ is Φ's column sums and
+    sums to the token count."""
+    from repro_torch.core import lda
+    phi, psi, wl, _, _, z = state
+    valid = wl >= 0
+    counts, _ = lda.build_counts(wl[valid], z[valid], K, rows)
+    same = torch.equal(counts, phi[0])
+    del counts
+    if not same:
+        raise AssertionError(f"{label}: Φ is not the counts of the stack's z")
+    if int(psi.sum()) != n_tokens or not torch.equal(phi.sum(dim=(0, 1)), psi):
+        raise AssertionError(f"{label}: Σψ is not the token count, or Φ's column sums "
+                             f"are not Ψ")
+
+
+@contextlib.contextmanager
+def held(module, name, check, first_only=False):
+    """Within the block, calls that the port makes to ``module.name`` (a
+    kernel's wrapper) launch as before and then go to ``check(result, args)``:
+    every call, or only the first. Yields the list of the checks' returns."""
+    launch, seen = getattr(module, name), []
+
+    def call(*args):
+        out = launch(*args)
+        if not (first_only and seen):
+            seen.append(check(out, args))
+        return out
+    setattr(module, name, call)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, launch)
+
+
+def gibbs_check(to, label):
+    """A ``held`` check of ``gibbs_argmax``: the plain version on the call's
+    inputs moved to ``to``; fails on a draw that differs beyond a near-tie."""
+    def check(zk, args):
+        seed, V, tau = args[6:9]
+        mism, bad, gap = near_ties(zk, [a.to(to) for a in args[:6]], seed, V, tau)
+        if bad:
+            raise AssertionError(f"{label}: gibbs_argmax at T={args[0].shape[0]} "
+                                 f"K={args[0].shape[1]} differs from its plain version on "
+                                 f"{bad} tokens beyond a near-tie")
+        return dict(T=args[0].shape[0], psi="row" if args[1].dim() == 1 else "plane",
+                    mismatches=mism, max_gap=gap)
+    return check
+
+
+def mh_check(label):
+    """A ``held`` check of ``mh_resample``: the plain version on the call's
+    inputs, bit for bit."""
+    from repro_torch.kernels.alias import ops as alias_ops
+    from repro_torch.kernels.alias.ref import mh_resample_ref
+
+    def check(zk, args):
+        seed, beta, V, n_mh = args[14:18]
+        beta = torch.as_tensor(beta, dtype=torch.float32, device=zk.device).reshape(())
+        zp = mh_resample_ref(*args[:14], alias_ops.mh_seed(seed), beta,
+                             args[7].sum(dtype=torch.float32), V, n_mh)
+        bad = int((zk != zp).sum())
+        if bad:
+            raise AssertionError(f"{label}: mh_resample differs from its plain version on "
+                                 f"{bad} of {zk.shape[0]} draws")
+        return dict(T=zk.shape[0], differ=bad)
+    return check
+
+
+def trainer_phase(corpus, gibbs_epoch_stats):
+    """FULL's corpus through the port's Trainer at K = 100,000, V = 32,768."""
+    import dataclasses
+    from repro_torch.core import distributed as dist, rtlda
+    from repro_torch.core.features import make_serving_fn
+    from repro_torch.data import corpus as corpus_mod
+    from repro_torch.kernels.alias import ops as alias_ops
+    from repro_torch.kernels.gibbs import ops
+    from repro_torch.training import (AlphaOptimizer, Metrics, Trainer, TrainerCallback,
+                                      TrainerConfig)
+
+    K, V, T = FULL["n_topics"], FULL["vocab"], corpus.n_tokens
+    cap, _ = corpus_mod.shard_corpus(corpus, 1, 1, K, seed=1, probe_only=True)
+    L = package_len_for(cap, TRAINER["max_package"])
+    n_pkg = cap // L
+    log(f"[trainer] FULL corpus: {corpus.n_docs} docs, {T} tokens; ring of one device, cap "
+        f"{cap}: package_len {L} ({n_pkg} packages an epoch)")
+    say = lambda msg: log(f"[trainer] {msg}")
+    cfg = TrainerConfig(n_docs=corpus.n_docs, vocab_size=V, n_topics=K, sampler="dense",
+                        n_epochs=TRAINER["epochs"], alpha_opt_from=TRAINER["alpha_from"],
+                        package_len=L, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, callbacks=[AlphaOptimizer(), Metrics(printer=say)], corpus=corpus)
+    tr.log = say
+    tr.setup()
+    ll0 = tr.log_likelihood()
+    torch.cuda.synchronize()
+    log(f"[trainer] setup (shard_corpus, device state) {time.perf_counter() - t0:.2f} s; "
+        f"word LL at z0 {ll0:.6e}")
+
+    # ---- the main path: counts from 0, Trainer.fit ----
+    ops.launches = 0
+    tr.fit()
+    torch.cuda.synchronize()
+    launches = ops.launches
+    # ---- end of the main path ----
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expected = TRAINER["epochs"] * n_pkg
+    if launches != expected:
+        raise AssertionError(f"Trainer: gibbs_argmax launched {launches} times, expected "
+                             f"{expected}")
+    lls = tr.metrics["ll"]
+    if not lls[-1] > ll0:
+        raise AssertionError(f"Trainer did not raise the word LL: {ll0} -> {lls[-1]}")
+    check_ring_state(tr.state, tr.sc0.rows_per_shard, T, K, "Trainer")
+    if not bool(torch.isfinite(tr.alpha).all() & (tr.alpha > 0).all()) \
+            or abs(float(tr.alpha.sum()) - 50.0) < 1e-3:
+        raise AssertionError("AlphaOptimizer left α non-finite, non-positive or unmoved")
+    rates = [T / t for t in tr.metrics["epoch_s"]]
+    log(f"[trainer] dense ring, {TRAINER['epochs']} epochs: tokens/s per epoch "
+        f"{[round(r, 1) for r in rates]}; word LL {[f'{x:.6e}' for x in lls]}; "
+        f"α sum {float(tr.alpha.sum()):.4f} (was 50.0); launches gibbs_argmax={launches} "
+        f"(expected {expected}); max_memory_allocated={peak:.2f} GiB over the session "
+        f"(setup, epochs, LL, α)")
+    log(f"[trainer] beside the gibbs_epoch path (blocks of {FULL['block']}, no ring): "
+        f"tokens/s per epoch {[round(r, 1) for r in gibbs_epoch_stats['tokens_per_s']]}, "
+        f"max_memory_allocated={gibbs_epoch_stats['peak_gib']:.2f} GiB")
+
+    # ---- the two ring forms, each from its own peak reset ----
+    opt_cfg = dataclasses.replace(tr.ring_cfg, theta_dtype=torch.int8,
+                                  column_exclusion=True, small_theta=True)
+    epochs = {"default": dist.build_epoch_body(tr.ring_cfg),
+              "optimized": dist.build_epoch_body(opt_cfg)}
+    forms = {}
+    n = TRAINER["form_epochs"]
+    for name, ring_cfg in (("default", tr.ring_cfg), ("optimized", opt_cfg)):
+        epoch = epochs[name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.launches = 0
+        secs = []
+        for e in range(n):
+            t0 = time.perf_counter()
+            epoch(*tr.state, tr.alpha, tr.beta, 1000 + len(forms) * 10 + e)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        if ops.launches != n * n_pkg:
+            raise AssertionError(f"{name} ring: {ops.launches} launches, expected {n * n_pkg}")
+        forms[name] = dict(tokens_per_s=[T / t for t in secs],
+                           peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        check_ring_state(tr.state, tr.sc0.rows_per_shard, T, K, f"{name} ring")
+        log(f"[trainer] {name} ring form ({ring_form(ring_cfg)}), {n} epochs: tokens/s "
+            f"{[round(r, 1) for r in forms[name]['tokens_per_s']]}; max_memory_allocated={forms[name]['peak_gib']:.2f} GiB from the epoch's start "
+            f"(Φ {tr.state[0].numel() * 4 / 2**30:.2f} GiB resident)")
+    # ---- gibbs_argmax on the first package of a ring epoch, each form, held
+    # against its plain version on the card (launches here are not counted) ----
+    for i, (name, epoch) in enumerate(epochs.items()):
+        with held(ops, "gibbs_argmax", gibbs_check("cuda", f"{name} ring"),
+                  first_only=True) as seen:
+            epoch(*tr.state, tr.alpha, tr.beta, 2000 + i)
+        torch.cuda.synchronize()
+        log(f"[trainer] {name} ring form, first package of an epoch: gibbs_argmax against "
+            f"its plain version on the card: {seen[0]}; differing draws are near-ties "
+            f"(≤ 4 ulp)")
+    for name, epoch in epochs.items():
+        device_breakdown(f"trainer ring epoch, {name} form",
+                         lambda: epoch(*tr.state, tr.alpha, tr.beta, 99))
+
+    # ---- export and serve, as the other phases do ----
+    phi_full = tr.gather_phi()
+    model = rtlda.build_model(phi_full, tr.beta, tr.alpha, device="cuda")
+    del phi_full
+    q, _ = query_batch(corpus, 0, FULL["batch"], FULL["bucket"])
+    pkd, ids, _ = make_serving_fn(n_iters=5, n_trials=2, top_n=30, device="cuda")(model, q, 5)
+    torch.cuda.synchronize()
+    if pkd.shape != (FULL["batch"], K) or not bool(torch.isfinite(pkd).all()) \
+            or float((pkd.sum(dim=1) - 1).abs().max()) > 1e-5 \
+            or not bool(((ids >= 0) & (ids < V)).all()):
+        raise AssertionError("trainer model: served pkd or ids out of shape or range")
+    log(f"[trainer] build_model(gather_phi) and one served batch of {FULL['batch']}: pkd "
+        f"rows sum to 1 within 1e-5, ids in [0, V)")
+    del model, pkd, ids, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the dense and the alias sampler from one z0, α held: LL per epoch
+    # and the share of tokens whose topic changed in each epoch ----
+    class Moved(TrainerCallback):
+        def on_train_start(self, trainer):
+            self.z, self.shares = trainer.state[5].clone(), []
+
+        def on_epoch_end(self, trainer, epoch):
+            z, valid = trainer.state[5], trainer.state[2] >= 0
+            self.shares.append(float((z != self.z)[valid].sum()) / float(valid.sum()))
+            self.z = z.clone()
+
+    curves, moved, ll_launches = {}, {}, {}
+    for sampler in ("dense", "alias"):
+        c = cfg.replace(sampler=sampler, n_epochs=TRAINER["ll_epochs"], alpha_opt_from=99)
+        mv = Moved()
+        t = Trainer(c, callbacks=[Metrics(printer=lambda m: None), mv], corpus=corpus)
+        t.log = lambda m: None
+        t.setup()
+        ll_z0 = t.log_likelihood()
+        ops.launches = alias_ops.build_launches = alias_ops.mh_launches = 0
+        t.fit()
+        torch.cuda.synchronize()
+        n = dict(gibbs_argmax=ops.launches, alias_build=alias_ops.build_launches,
+                 mh_resample=alias_ops.mh_launches)
+        want = "gibbs_argmax" if sampler == "dense" else "mh_resample"
+        if n[want] != TRAINER["ll_epochs"] * n_pkg or (sampler == "alias"
+                                                      and n["alias_build"] == 0):
+            raise AssertionError(f"{sampler} Trainer: launches {n}")
+        check_ring_state(t.state, t.sc0.rows_per_shard, T, K, f"{sampler} Trainer")
+        curves[sampler], moved[sampler], ll_launches[sampler] = [ll_z0] + t.metrics["ll"], \
+            mv.shares, n
+        log(f"[trainer-ll] {sampler}: {TRAINER['ll_epochs']} epochs from the shared z0, α held "
+            f"at 50/K; launches {n}; epoch s {[round(x, 4) for x in t.metrics['epoch_s']]}; "
+            f"share of tokens that changed topic per epoch {[round(x, 6) for x in mv.shares]}")
+        if sampler == "alias":
+            # mh_resample on the first package of one more epoch, held against
+            # its plain version on the card bit for bit (not counted)
+            with held(alias_ops, "mh_resample", mh_check("alias Trainer"),
+                      first_only=True) as seen:
+                t._epoch_fn(*t.state, t.alpha, t.beta, 3000, *t._epoch_tables())
+            torch.cuda.synchronize()
+            log(f"[trainer-ll] alias Trainer, first package of an epoch: mh_resample against "
+                f"its plain version on the card: {seen[0]}")
+        del t
+        gc.collect()
+        torch.cuda.empty_cache()
+    if curves["dense"][0] != curves["alias"][0]:
+        raise AssertionError("the two samplers did not start from one z0")
+    log("[trainer-ll] word LL after each epoch (epoch 0 = z0): " + "; ".join(
+        f"{e}: dense {d:.6e} alias {a:.6e}"
+        for e, (d, a) in enumerate(zip(curves["dense"], curves["alias"]))))
+    return launches, ll_launches
+
+
+def ring_form(cfg):
+    return (f"Θ {str(cfg.theta_dtype).replace('torch.', '')}, "
+            f"{'column exclusion' if cfg.column_exclusion else 'ψ plane'}, "
+            f"{'small Θ' if cfg.small_theta else 'dense Θ'}")
+
+
+def trainer_small_phase():
+    """SMALL's geometry through ``repro_torch.launch.train.main``, dense and
+    alias: an uninterrupted run that publishes, a run killed after epoch 4
+    (exit 17) and resumed, which must land on it bit for bit and publish the
+    same model, and the same run on the CPU (the alias run must equal it bit
+    for bit; the dense run's differing tokens are printed)."""
+    import contextlib
+    import io
+    import shutil
+    from repro_torch.checkpoint import snapshots
+    from repro_torch.kernels.alias import ops as alias_ops
+    from repro_torch.kernels.gibbs import ops as gibbs_ops
+    from repro_torch.launch import train
+
+    S = TRAINER_SMALL
+    root = os.path.join(ROOT, "build", "chip_smoke_trainer")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(sampler, device, ck, extra=()):
+        argv = ["--device", device, "--sampler", sampler, "--docs", str(SMALL["n_docs"]),
+                "--vocab", str(SMALL["vocab"]), "--topics", str(SMALL["n_topics"]),
+                "--true-topics", str(SMALL["gen_topics"]), "--epochs", str(S["epochs"]),
+                "--alpha-opt-from", "99", "--ckpt-every", str(S["ckpt_every"]),
+                "--bench-out", "", "--ckpt-dir", os.path.join(root, ck), *extra]
+        with contextlib.redirect_stdout(io.StringIO()):     # the runs' epoch lines
+            try:
+                return train.main(argv), 0
+            except SystemExit as exc:
+                return None, exc.code
+
+    def counted(sampler, *a, **kw):
+        gibbs_ops.launches = alias_ops.build_launches = alias_ops.mh_launches = 0
+        out = run(sampler, "cuda", *a, **kw)
+        torch.cuda.synchronize()
+        return out, dict(gibbs_argmax=gibbs_ops.launches, alias_build=alias_ops.build_launches,
+                         mh_resample=alias_ops.mh_launches)
+
+    launches = {}
+    for sampler in ("dense", "alias"):
+        pub = {k: os.path.join(root, f"{sampler}-{k}-snap") for k in ("gold", "resumed")}
+        n = launches[sampler] = {}
+        (gold, _), n["uninterrupted"] = counted(sampler, f"{sampler}-gold",
+                                                ["--publish-dir", pub["gold"]])
+        (_, code), n["killed"] = counted(sampler, f"{sampler}-killed",
+                                         ["--kill-at", str(S["kill_at"])])
+        (res, _), n["resumed"] = counted(sampler, f"{sampler}-killed",
+                                         ["--resume", "--publish-dir", pub["resumed"]])
+        kernel = "gibbs_argmax" if sampler == "dense" else "mh_resample"
+        want = dict(uninterrupted=S["epochs"], killed=S["kill_at"],
+                    resumed=S["epochs"] - S["kill_at"])
+        if code != 17 or any(n[r][kernel] != want[r] for r in want):
+            raise AssertionError(f"small {sampler} loop: kill exit {code}, launches {n} "
+                                 f"(want {want} {kernel} launches)")
+        for i, (a, b) in enumerate(zip(gold.state, res.state)):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"small {sampler} loop: the resumed run's state leaf "
+                                     f"{i} differs from the uninterrupted run's")
+        if not torch.equal(gold.alpha, res.alpha):
+            raise AssertionError(f"small {sampler} loop: resumed α differs")
+        models = {k: snapshots.load_snapshot(p, device="cuda") for k, p in pub.items()}
+        for k, (m, meta) in models.items():
+            if meta["epoch"] != S["epochs"] or not bool(torch.isfinite(m.pvk).all()):
+                raise AssertionError(f"small {sampler} loop: {k} snapshot {meta}")
+        if not (torch.equal(models["gold"][0].pvk, models["resumed"][0].pvk)
+                and torch.equal(models["gold"][0].r_topic, models["resumed"][0].r_topic)):
+            raise AssertionError(f"small {sampler} loop: the resumed run published another "
+                                 f"model")
+        cpu, _ = run(sampler, "cpu", f"{sampler}-cpu")
+        diff = {name: int((a.cpu() != b).sum()) for name, a, b in
+                zip(("phi", "psi", "z"), (gold.state[0], gold.state[1], gold.state[5]),
+                    (cpu.state[0], cpu.state[1], cpu.state[5]))}
+        if sampler == "alias" and any(diff.values()):
+            raise AssertionError(f"small alias loop: card and CPU differ {diff}")
+        held_note = ""
+        if sampler == "dense":
+            # the same run again with every package's gibbs_argmax held against
+            # the plain version on the CPU, on the package's own inputs: a draw
+            # that differs beyond a near-tie fails, and a card/CPU difference
+            # with no differing draw is unexplained (not counted)
+            with held(gibbs_ops, "gibbs_argmax", gibbs_check("cpu", "small dense loop")) \
+                    as seen:
+                again, _ = run(sampler, "cuda", f"{sampler}-held")
+            if not all(torch.equal(a, b) for a, b in zip(gold.state, again.state)):
+                raise AssertionError("small dense loop: the held run left the card's path")
+            ties = sum(x["mismatches"] for x in seen)
+            if any(diff.values()) and not ties:
+                raise AssertionError(f"small dense loop: card and CPU differ {diff} with "
+                                     f"no differing draw")
+            held_note = (f"; every package ({len(seen)}) held against the plain version on "
+                         f"the CPU: {ties} draws differ, all near-ties (≤ 4 ulp)")
+        log(f"[trainer-small] {sampler}: K={SMALL['n_topics']} V={SMALL['vocab']} "
+            f"{SMALL['n_docs']} docs, {S['epochs']} epochs through launch.train.main; killed "
+            f"after epoch {S['kill_at']} (exit 17) and resumed: state and α equal the "
+            f"uninterrupted run's bit for bit, both published v_{models['gold'][1]['version']:06d} "
+            f"models load and are equal; card vs CPU entries that differ {diff}{held_note}; "
+            f"launches {n}")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 # ------------------------------------------------------- embedding_bag kernel
 BAG_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
@@ -1154,12 +1550,26 @@ def main():
     alias_build, mh_small_err = alias_kernel_phase()
     bag_small_err = bag_kernel_phase()
     corpus = full_corpus()
-    launches = full_width_phase(corpus)
+    launches, gibbs_epoch_stats = full_width_phase(corpus)
     alias_launches, mh, cell_build = alias_phase(corpus)
     alias_build.update(cell_build)
     mh["max_abs_err"] = max(mh["max_abs_err"], mh_small_err)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer_launches, ll_launches = trainer_phase(corpus, gibbs_epoch_stats)
     small_phase()
     alias_small_phase()
+    small_launches = trainer_small_phase()
+    # `launches` is each kernel's count on its first path (gibbs_epoch, the
+    # alias cell), as in earlier runs; launches_by_path gives every path
+    small = lambda sampler, k: {r: c[k] for r, c in small_launches[sampler].items()}
+    gibbs_paths = dict(gibbs_epoch=launches, trainer=trainer_launches,
+                       trainer_ll_dense=ll_launches["dense"]["gibbs_argmax"],
+                       launch_train_small=small("dense", "gibbs_argmax"))
+    alias_paths = {k: dict(alias_cell=alias_launches[k],
+                           trainer_ll_alias=ll_launches["alias"][k],
+                           launch_train_small=small("alias", k))
+                   for k in ("alias_build", "mh_resample")}
     gc.collect()                       # the LDA phases' tensors go before the 48 GB table
     torch.cuda.empty_cache()
     bag_launches, bag_full_err, bag = recsys_phase()
@@ -1167,15 +1577,18 @@ def main():
 
     log(json.dumps({"kernels": [
         dict(name="gibbs_argmax", route="cuda", source="src/repro_torch/csrc/gibbs_argmax.cu",
-             replaces="src/repro/kernels/gibbs/kernel.py:92", launches=launches,
+             replaces="src/repro/kernels/gibbs/kernel.py:92",
+             launches=launches, launches_by_path=gibbs_paths,
              max_abs_err=kernel["max_abs_err"], ms=kernel["ms"], plain_ms=kernel["plain_ms"],
              bound_ms=kernel["bound_ms"], bound_by=kernel["bound_by"], library_ms=None),
         dict(name="alias_build", route="cuda", source="src/repro_torch/csrc/alias_build.cu",
              replaces="src/repro/kernels/alias/kernel.py:125",
-             launches=alias_launches["alias_build"], library_ms=None, **alias_build),
+             launches=alias_launches["alias_build"],
+             launches_by_path=alias_paths["alias_build"], library_ms=None, **alias_build),
         dict(name="mh_resample", route="cuda", source="src/repro_torch/csrc/mh_resample.cu",
              replaces="src/repro/kernels/alias/kernel.py:249",
-             launches=alias_launches["mh_resample"], library_ms=None, **mh),
+             launches=alias_launches["mh_resample"],
+             launches_by_path=alias_paths["mh_resample"], library_ms=None, **mh),
         dict(name="embedding_bag", route="cuda", source="src/repro_torch/csrc/embedding_bag.cu",
              replaces="src/repro/kernels/embedding_bag/kernel.py:81", launches=bag_launches,
              max_abs_err=max(bag_small_err, bag_full_err), multi_hot=bag["multi_hot"],

@@ -1,22 +1,37 @@
-"""Peacock's ring sampler on one device: the alias-MH family (port of the
-M = 1 part of ``repro.core.distributed``).
+"""Peacock's ring sampler on one device (port of the M = 1 part of
+``repro.core.distributed``).
 
 With a ring of one device (M = 1, one data shard, one vocab shard) the
 diagonal-ring epoch of the JAX package is one round: the device rebuilds the
-sparse Θ pairs of its data shard from the stack's z, samples its one
-sub-block in packages of L tokens against its resident Φ and the stale alias
-tables, and writes the new z back into the stack. The rotations and the Ψ
-all-reduce are the identity on one device. This is what ``Trainer`` runs on
-one device with ``sampler="alias"``.
+doc-topic state of its data shard from the stack's z, samples its one
+sub-block in packages of L tokens against its resident Φ, and writes the new
+z back into the stack. The rotations and the Ψ all-reduce are the identity on
+one device. This is what ``Trainer`` runs on one device, in both sampler
+families:
+
+- ``sampler="dense"``: Θ rebuilt as a count plane (dense [docs, K], or
+  ``small_theta``'s [cap+1, K] over the sampled docs, int32 or int8), each
+  package drawn by the fused Gumbel-max scan ``gibbs_argmax`` over [L, K]
+  planes with the token's own assignment removed (¬ivd);
+- ``sampler="alias"``: Θ as sparse (topic, count) pairs and the alias-MH
+  probe against stale proposal tables.
+
+¬ivd in the dense family has two forms. By default ψ goes to the kernel as an
+[L, K] plane with 1 taken off at (t, z_t), like Φ and Θ. With
+``column_exclusion`` ψ goes as its [K] row and its self-exclusion is folded
+into Φ's z column, (φ+β)·(ψ_z+Vβ)/(ψ_z−1+Vβ) − β: the form of the JAX
+package's kernel branch, taken here on every device. (The JAX package's plain
+branch adds a log difference instead, which can differ in the last ulp.)
 
 The global layout is the JAX package's: phi [1, rows, K] int32, psi [K]
-int32, stacks [S=1, M=1, cap] (word_local, doc_local, uid, z) and the tables
-appended after the seed (wq/wp/wa shaped like phi, ap/aa [K]). uid is int64
-holding uint32 values. ``phi``, ``psi`` and ``z`` are updated in place.
+int32, stacks [S=1, M=1, cap] (word_local, doc_local, uid, z) and, for the
+alias family, the tables appended after the seed (wq/wp/wa shaped like phi,
+ap/aa [K]). uid is int64 holding uint32 values. ``phi``, ``psi`` and ``z``
+are updated in place. Θ is weighted by the stack's valid mask; the ring has
+no sentinel rollback (padding tokens keep their z and move no count).
 
-The dense ring (``sampler="dense"``), rings of more than one device and
-word-sharded model parallelism are not ported yet; the epoch builder raises
-for them.
+Rings of more than one device and word-sharded model parallelism are not
+ported yet (ROADMAP queue 1, item 11); the epoch builder raises for them.
 """
 from __future__ import annotations
 
@@ -26,9 +41,10 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import sparse
+from repro_torch.core import gibbs, sparse
 from repro_torch.data.corpus import ShardedCorpus
 from repro_torch.kernels.alias import ops as alias_ops
+from repro_torch.kernels.gibbs import ops as gibbs_ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,11 +57,67 @@ class RingConfig:
     package_len: int           # L — pipeline package size (§3.1.2)
     n_rounds: int = 1          # = ring size M; only 1 is ported
     model_shards: int = 1      # P — word-sharded model parallelism; only 1
-    sampler: str = "alias"     # sparsity-aware alias-table MH; "dense" (the
-                               # exact [T, K] plane scan) is not ported
+    sampler: str = "dense"     # "dense" = exact [T, K] plane scan;
+                               # "alias" = sparsity-aware alias-table MH
     n_mh: int = 4              # MH steps per token (alias sampler)
     doc_topic_cap: int = 0     # pair-row pitch for sparse Θ (0 → n_topics);
                                # must be ≥ max distinct topics per doc
+    # dense-family knobs (the JAX package's hill-climbed variant):
+    theta_dtype: torch.dtype = torch.int32  # int8: 4× less Θ-rebuild traffic
+                                            # (wraps past 127 repeats of a topic)
+    column_exclusion: bool = False # ¬ivd of ψ folded into Φ's z column (ψ
+                                   # stays one [K] row) instead of a ψ plane
+    small_theta: bool = False      # rebuild Θ only for the ≤ cap docs sampled
+                                   # this round ([cap+1, K], not [docs, K])
+
+
+def _packages(cfg: RingConfig):
+    L = cfg.package_len
+    if L <= 0 or cfg.cap % L:
+        raise ValueError(f"package_len={L} must divide cap={cfg.cap}")
+    return [slice(lo, lo + L) for lo in range(0, cfg.cap, L)]
+
+
+def _sample_subblock(phi, psi, theta, w, d, z, uid, alpha, beta, seed: int,
+                     cfg: RingConfig):
+    """Sample one sub-block in packages of L tokens with the Gumbel-max scan.
+
+    phi [rows, K] and psi [K] int32 and theta [docs, K] (``cfg.theta_dtype``)
+    are updated in place; w/d/z/uid [cap]. Sentinels (w < 0) are drawn at
+    w = 0, d = 0 and their results discarded through masked count updates.
+    Returns (phi, psi, theta, z_new).
+    """
+    out = []
+    for pkg in _packages(cfg):
+        wk, dk, zk = w[pkg], d[pkg], z[pkg]
+        valid = wk >= 0
+        w_s = torch.where(valid, wk, 0).long()
+        d_s = torch.where(valid, dk, 0).long()
+        zl = zk.long()
+        if cfg.column_exclusion:
+            at = (torch.arange(zl.shape[0], device=zl.device), zl)
+            phi_rows = phi[w_s].to(torch.float32)
+            phi_rows[at] -= 1.0
+            theta_rows = theta[d_s].to(torch.float32)
+            theta_rows[at] -= 1.0
+            psi_f = psi.to(torch.float32)
+            psi_z = psi_f[zl]
+            vb = cfg.vocab_size * beta
+            corr = (psi_z + vb) / (psi_z - 1.0 + vb)
+            phi_rows[at] = (phi_rows[at] + beta) * corr - beta
+            psi_arg = psi_f
+        else:
+            phi_rows, psi_arg, theta_rows = gibbs._self_excluded(phi, psi, theta, w_s, d_s, zl)
+        z_new = gibbs_ops.gibbs_argmax(phi_rows, psi_arg, theta_rows, alpha, beta,
+                                       uid[pkg], seed, cfg.vocab_size, 1.0)
+        del phi_rows, psi_arg, theta_rows
+        z_new = torch.where(valid, z_new, zk)
+        sparse.move_counts(phi, psi, w_s, zk, z_new, valid.to(torch.int32))
+        dtheta = valid.to(theta.dtype)
+        theta.index_put_((d_s, zl), -dtheta, accumulate=True)
+        theta.index_put_((d_s, z_new.long()), dtheta, accumulate=True)
+        out.append(z_new)
+    return phi, psi, theta, torch.cat(out)
 
 
 def _sample_subblock_mh(phi, psi, pairs, w, d, z, uid, alpha, beta, seed: int,
@@ -57,13 +129,9 @@ def _sample_subblock_mh(phi, psi, pairs, w, d, z, uid, alpha, beta, seed: int,
     d = 0 and their results discarded through masked count updates. Returns
     (phi, psi, pairs, z_new).
     """
-    L = cfg.package_len
-    if cfg.cap % L:
-        raise ValueError(f"package_len={L} must divide cap={cfg.cap}")
     tp, ct = pairs
     out = []
-    for lo in range(0, cfg.cap, L):
-        pkg = slice(lo, lo + L)
+    for pkg in _packages(cfg):
         wk, dk, zk = w[pkg], d[pkg], z[pkg]
         valid = wk >= 0
         w_s = torch.where(valid, wk, 0)
@@ -78,31 +146,70 @@ def _sample_subblock_mh(phi, psi, pairs, w, d, z, uid, alpha, beta, seed: int,
     return phi, psi, (tp, ct), torch.cat(out)
 
 
-def build_epoch_body(cfg: RingConfig):
-    """The one-device ring epoch of the alias family.
+def _rebuild_theta(flat_d, flat_z, flat_valid, d_sub, cfg: RingConfig):
+    """Θ of the visiting stack, weighted by its valid mask: dense [docs, K],
+    or with ``small_theta`` one row per doc sampled this round plus a scratch
+    row ([cap+1, K]). Returns (theta, the sub-block's doc rows in it)."""
+    dev = flat_z.device
+    valid = flat_valid.to(cfg.theta_dtype)
+    if cfg.small_theta:
+        # docs sampled this round get rows [0, cap) (which of a doc's tokens
+        # names its row does not matter: all of them read the same row);
+        # absent docs land in the scratch row cap
+        inv = torch.full((cfg.docs_per_shard,), cfg.cap, dtype=torch.int32, device=dev)
+        inv[d_sub.long()] = torch.arange(cfg.cap, dtype=torch.int32, device=dev)
+        idx = inv[flat_d.long()].long()
+        theta = torch.zeros((cfg.cap + 1, cfg.n_topics), dtype=cfg.theta_dtype, device=dev)
+        theta.index_put_((idx, flat_z.long()), valid, accumulate=True)
+        return theta, inv[d_sub.long()]
+    theta = torch.zeros((cfg.docs_per_shard, cfg.n_topics), dtype=cfg.theta_dtype,
+                        device=dev)
+    theta.index_put_((flat_d.long(), flat_z.long()), valid, accumulate=True)
+    return theta, d_sub
 
-    ``epoch(phi, psi, wl, dl, uid, z, alpha, beta, seed, wq, wp, wa, ap, aa)``
-    runs one round: pairs rebuilt from the stack, the sub-block sampled, z
-    written back. Returns (phi, psi, wl, dl, uid, z), phi/psi/z updated in
-    place. Raises for what is not ported: the dense sampler, more than one
-    round (a ring of several devices) and model sharding.
+
+def build_epoch_body(cfg: RingConfig):
+    """The one-device ring epoch.
+
+    ``epoch(phi, psi, wl, dl, uid, z, alpha, beta, seed, *tables)`` runs one
+    round: Θ (dense family) or the pairs (alias family) rebuilt from the
+    stack, the sub-block sampled, z written back. ``tables`` is empty for
+    ``sampler="dense"`` and (wq, wp, wa, ap, aa) for ``sampler="alias"``.
+    Returns (phi, psi, wl, dl, uid, z), phi/psi/z updated in place. Raises
+    for what is not ported: more than one round (a ring of several devices)
+    and model sharding.
     """
-    if cfg.sampler != "alias":
-        raise NotImplementedError(f"sampler={cfg.sampler!r}: only the alias ring is ported")
+    if cfg.sampler not in ("dense", "alias"):
+        raise ValueError(f"sampler must be 'dense' or 'alias', got {cfg.sampler!r}")
     if cfg.n_rounds != 1 or cfg.model_shards != 1:
         raise NotImplementedError(
             f"n_rounds={cfg.n_rounds}, model_shards={cfg.model_shards}: only a ring "
-            "of one device (n_rounds = model_shards = 1) is ported")
-    cap_p = cfg.doc_topic_cap or cfg.n_topics
+            "of one device (n_rounds = model_shards = 1) is ported; the multi-GPU "
+            "ring is ROADMAP queue 1, item 11")
+    if cfg.theta_dtype not in (torch.int32, torch.int8):
+        raise ValueError(f"theta_dtype must be torch.int32 or torch.int8, got {cfg.theta_dtype}")
+    _packages(cfg)
+    if cfg.sampler == "alias":
+        cap_p = cfg.doc_topic_cap or cfg.n_topics
 
-    def epoch(phi, psi, wl, dl, uid, z, alpha, beta, seed: int, wq, wp, wa, ap, aa):
-        tabs = sparse.AliasTables(wq[0], wp[0], wa[0], ap, aa)
-        flat_valid = wl.reshape(-1) >= 0
-        pairs = sparse.pairs_from_assignments(dl.reshape(-1), z.reshape(-1), flat_valid,
-                                              cfg.docs_per_shard, cap_p)
-        _, _, _, z_new = _sample_subblock_mh(
-            phi[0], psi, pairs, wl[0, 0], dl[0, 0], z[0, 0], uid[0, 0], alpha, beta,
-            int(seed), cfg, tabs)
+        def epoch(phi, psi, wl, dl, uid, z, alpha, beta, seed: int, wq, wp, wa, ap, aa):
+            tabs = sparse.AliasTables(wq[0], wp[0], wa[0], ap, aa)
+            flat_valid = wl.reshape(-1) >= 0
+            pairs = sparse.pairs_from_assignments(dl.reshape(-1), z.reshape(-1), flat_valid,
+                                                  cfg.docs_per_shard, cap_p)
+            _, _, _, z_new = _sample_subblock_mh(
+                phi[0], psi, pairs, wl[0, 0], dl[0, 0], z[0, 0], uid[0, 0], alpha, beta,
+                int(seed), cfg, tabs)
+            z[0, 0] = z_new
+            return phi, psi, wl, dl, uid, z
+
+        return epoch
+
+    def epoch(phi, psi, wl, dl, uid, z, alpha, beta, seed: int):
+        theta, d_sub = _rebuild_theta(dl.reshape(-1), z.reshape(-1), wl.reshape(-1) >= 0,
+                                      dl[0, 0], cfg)
+        _, _, _, z_new = _sample_subblock(phi[0], psi, theta, wl[0, 0], d_sub, z[0, 0],
+                                          uid[0, 0], alpha, beta, int(seed), cfg)
         z[0, 0] = z_new
         return phi, psi, wl, dl, uid, z
 

@@ -99,18 +99,35 @@ def theta_hat(theta: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
 # Model quality metrics
 # ---------------------------------------------------------------------------
 
+# rows of Φ per lgamma pass: at K = 10⁵ a [V, K] f32 temporary is 13 GB
+# (XLA fuses the reduction and makes none)
+LL_ROWS = 4096
+
+
 def word_log_likelihood(phi, psi, beta) -> torch.Tensor:
     """Collapsed log p(w|z) word part (the paper's Fig. 6 LL-vs-iteration).
 
     log p(w|z) = K*[lnG(V*beta) - V*lnG(beta)]
                  + sum_k [ sum_v lnG(phi_vk + beta) - lnG(psi_k + V*beta) ]
+
+    The same sum is taken term by term, each term zero where its count is:
+
+    log p(w|z) = sum_k [ sum_v (lnG(phi_vk + beta) - lnG(beta))
+                         + lnG(V*beta) - lnG(psi_k + V*beta) ]
+
+    so in f32 it keeps the changes of a sweep at K = 10⁵, where the two
+    large constants of the first form (~10¹⁰) leave an ulp of ~10³. The sum
+    over v runs ``LL_ROWS`` rows of Φ at a time, so its f32 temporaries stay
+    small at full width.
     """
     V, K = phi.shape
     vb = V * beta
-    const = K * (torch.lgamma(vb) - V * torch.lgamma(beta))
-    per_topic = torch.lgamma(phi.to(torch.float32) + beta).sum(dim=0) \
-        - torch.lgamma(psi.to(torch.float32) + vb)
-    return const + per_topic.sum()
+    lg_beta = torch.lgamma(beta)
+    per_topic = torch.lgamma(vb) - torch.lgamma(psi.to(torch.float32) + vb)
+    for lo in range(0, V, LL_ROWS):
+        rows = torch.lgamma(phi[lo:lo + LL_ROWS].to(torch.float32) + beta)
+        per_topic += (rows - lg_beta).sum(dim=0)
+    return per_topic.sum()
 
 
 def doc_log_likelihood(doc_ids, z, alpha, n_docs: int) -> torch.Tensor:

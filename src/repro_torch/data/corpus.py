@@ -1,15 +1,18 @@
-"""Corpus containers and the Peacock shard layout (host-side numpy), copied
-from ``repro.data.corpus``.
+"""Corpus containers, §4.1 preprocessing and the Peacock shard/segment
+layout (host-side numpy), copied from ``repro.data.corpus``.
 
-What the port's slices need: ``Corpus``, ``corpus_from_docs``, ``pad_corpus``,
-and the ring layout ``vocab_placement``, ``ShardedCorpus``, ``shard_corpus``
-(the same seed gives the same arrays). The port keeps its own
-copy so that it never imports ``repro`` (whose ``data`` package loads jax).
+``Corpus``, ``corpus_from_docs``, ``preprocess``, ``pad_corpus``, the ring
+layout ``vocab_placement``, ``ShardedCorpus``, ``shard_corpus``, and the outer
+segmentation ``Segments``, ``assign_segments``, ``segment_corpus``: the same
+inputs and seeds give the same arrays as the JAX package's. Word-sharded model
+slices (``n_model_shards > 1``) and the pod partition are not ported (ROADMAP
+queue 1, item 11). The port keeps its own copy so that it never imports
+``repro`` (whose ``data`` package loads jax).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Iterator, List, Sequence
 
 import numpy as np
 
@@ -37,6 +40,48 @@ def corpus_from_docs(docs: Sequence[np.ndarray], vocab_size: int) -> Corpus:
         [np.full(len(d), i, np.int32) for i, d in enumerate(docs)]
     ) if docs else np.zeros(0, np.int32)
     return Corpus(word_ids, doc_ids, len(docs), vocab_size)
+
+
+def preprocess(
+    docs: List[np.ndarray],
+    vocab_size: int,
+    min_word_freq: int = 2,
+    max_word_fraction: float = 0.2,
+    drop_single_word_docs: bool = True,
+    dedup_docs: bool = True,
+):
+    """Paper §4.1 — the five preprocessing steps, in order:
+
+    1. tokenize + count word frequencies (input is already token ids),
+    2. remove low-frequency words (likely typos),
+    3. remove very-high-frequency words (common words dominate topics [23]),
+    4. de-duplicate identical documents (keep one appearance),
+    5. drop single-word documents (no co-occurrence signal).
+
+    Returns (Corpus with a compacted vocabulary, old→new vocab id map).
+    """
+    freq = np.zeros(vocab_size, np.int64)
+    for d in docs:
+        np.add.at(freq, d, 1)
+    total = freq.sum()
+    keep = (freq >= min_word_freq) & (freq <= max_word_fraction * max(total, 1))
+    remap = np.full(vocab_size, -1, np.int64)
+    remap[keep] = np.arange(int(keep.sum()))
+
+    seen = set()
+    out_docs = []
+    for d in docs:
+        nd = remap[d]
+        nd = nd[nd >= 0].astype(np.int32)
+        if drop_single_word_docs and len(nd) < 2:
+            continue
+        if dedup_docs:
+            key = nd.tobytes()
+            if key in seen:
+                continue
+            seen.add(key)
+        out_docs.append(nd)
+    return corpus_from_docs(out_docs, int(keep.sum())), remap
 
 
 def pad_corpus(word_ids: np.ndarray, doc_ids: np.ndarray, multiple: int):
@@ -100,17 +145,29 @@ def shard_corpus(
     n_topics: int,
     seed: int = 0,
     cap_multiple: int = 8,
+    placement=None,
+    min_cap: int = 0,
+    min_docs_per_shard: int = 0,
+    uids=None,
+    probe_only: bool = False,
 ) -> ShardedCorpus:
     """Shuffle docs (paper: randomize to balance blocks), round-robin them to data
     shards, split each shard's tokens by vocab shard, pad to one capacity.
 
-    The layout of ``repro.data.corpus.shard_corpus`` at its defaults (one
-    corpus, token uids ``arange``, no word-sharded model slices): the same
-    seed gives the same arrays.
+    The layout of ``repro.data.corpus.shard_corpus`` without word-sharded
+    model slices: the same arguments give the same arrays. ``placement`` — an
+    optional shared (shard_of, local_of, rows) so that segments agree on one
+    vocabulary layout; ``min_cap``/``min_docs_per_shard`` force common static
+    shapes across segments; ``uids`` — the [n_tokens] ids of the tokens in
+    the full corpus (default ``arange``); ``probe_only=True`` returns just
+    ``(cap, docs_per_shard)`` without building the stacks.
     """
     rng = np.random.default_rng(seed)
-    freq = np.bincount(corpus.word_ids, minlength=corpus.vocab_size)
-    shard_of, local_of, rows = vocab_placement(freq, n_vocab_shards)
+    if placement is None:
+        freq = np.bincount(corpus.word_ids, minlength=corpus.vocab_size)
+        shard_of, local_of, rows = vocab_placement(freq, n_vocab_shards)
+    else:
+        shard_of, local_of, rows = placement
 
     doc_perm = rng.permutation(corpus.n_docs)
     data_shard_of_doc = np.empty(corpus.n_docs, np.int32)
@@ -118,15 +175,18 @@ def shard_corpus(
     for pos, d in enumerate(doc_perm):
         data_shard_of_doc[d] = pos % n_data_shards
         doc_local_of_doc[d] = pos // n_data_shards
-    docs_per_shard = max(int(np.ceil(corpus.n_docs / n_data_shards)), 1)
+    docs_per_shard = max(int(np.ceil(corpus.n_docs / n_data_shards)), min_docs_per_shard, 1)
 
     tok_data_shard = data_shard_of_doc[corpus.doc_ids]
     tok_vocab_shard = shard_of[corpus.word_ids]
 
     counts = np.zeros((n_data_shards, n_vocab_shards), np.int64)
     np.add.at(counts, (tok_data_shard, tok_vocab_shard), 1)
-    cap = ((int(counts.max()) + cap_multiple - 1) // cap_multiple) * cap_multiple
+    cap = max(int(counts.max()), min_cap)
+    cap = ((cap + cap_multiple - 1) // cap_multiple) * cap_multiple
     cap = max(cap, cap_multiple)
+    if probe_only:
+        return cap, docs_per_shard
 
     S, M = n_data_shards, n_vocab_shards
     word_local = np.full((S, M, cap), -1, np.int32)
@@ -136,7 +196,8 @@ def shard_corpus(
 
     fill = np.zeros((S, M), np.int64)
     z_init = rng.integers(0, n_topics, corpus.n_tokens).astype(np.int32)
-    uids = np.arange(corpus.n_tokens, dtype=np.uint32)
+    if uids is None:
+        uids = np.arange(corpus.n_tokens, dtype=np.uint32)
     for t in range(corpus.n_tokens):
         s = tok_data_shard[t]
         m = tok_vocab_shard[t]
@@ -154,3 +215,73 @@ def shard_corpus(
         n_data_shards=S, n_vocab_shards=M, vocab_size=corpus.vocab_size,
         n_real_tokens=corpus.n_tokens,
     )
+
+
+@dataclasses.dataclass
+class Segments:
+    """Outer segmentation for bigger-than-device-memory corpora.
+
+    Mirrors Fig. 3/4: the epoch driver iterates segments, loading each segment's
+    sharded arrays to device (LoadShard), running the ring epoch, and writing the
+    updated z back to host (SaveShard). Segment boundaries are document-aligned.
+    """
+
+    segments: List[ShardedCorpus]
+
+    def __iter__(self) -> Iterator[ShardedCorpus]:
+        return iter(self.segments)
+
+    def __len__(self) -> int:
+        return len(self.segments)
+
+
+def assign_segments(n_docs: int, n_segments: int, seed: int = 0) -> np.ndarray:
+    """Document→segment assignment from a seeded permutation.
+
+    Returns ``seg_of_doc`` [n_docs] int32: deterministic given (n_docs,
+    n_segments, seed), balanced to within one document per segment, and
+    decorrelated from any ordering the corpus arrived in.
+    """
+    perm = np.random.default_rng(seed).permutation(n_docs)
+    seg_of = np.empty(n_docs, np.int32)
+    seg_of[perm] = np.arange(n_docs, dtype=np.int32) % n_segments
+    return seg_of
+
+
+def segment_corpus(
+    corpus: Corpus, n_segments: int, n_data_shards: int, n_vocab_shards: int,
+    n_topics: int, seed: int = 0,
+) -> Segments:
+    """Split documents into segments (seeded permutation), shard each segment.
+
+    All segments share one global vocab placement (Φ shards are stable across
+    segments) and one common static shape (cap, docs_per_shard); token uids
+    stay global.
+    """
+    if n_segments == 1:
+        return Segments([shard_corpus(corpus, n_data_shards, n_vocab_shards,
+                                      n_topics, seed)])
+    freq = np.bincount(corpus.word_ids, minlength=corpus.vocab_size)
+    placement = vocab_placement(freq, n_vocab_shards)
+    seg_of = assign_segments(corpus.n_docs, n_segments, seed)
+    subs = []
+    guids = []
+    for g in range(n_segments):
+        mask = seg_of[corpus.doc_ids] == g
+        w = corpus.word_ids[mask]
+        d = corpus.doc_ids[mask]
+        # compact doc ids within the segment; uids stay global token ids
+        uniq, inv = np.unique(d, return_inverse=True)
+        subs.append(Corpus(w, inv.astype(np.int32), len(uniq), corpus.vocab_size))
+        guids.append(np.nonzero(mask)[0].astype(np.uint32))
+    # shape probe (vectorized counting only), then one build per segment
+    probe = [shard_corpus(s, n_data_shards, n_vocab_shards, n_topics, seed + g,
+                          placement=placement, probe_only=True)
+             for g, s in enumerate(subs)]
+    cap = max(c for c, _ in probe)
+    dps = max(d for _, d in probe)
+    return Segments([
+        shard_corpus(s, n_data_shards, n_vocab_shards, n_topics, seed + g,
+                     placement=placement, min_cap=cap, min_docs_per_shard=dps, uids=u)
+        for g, (s, u) in enumerate(zip(subs, guids))
+    ])

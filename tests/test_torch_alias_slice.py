@@ -106,7 +106,7 @@ def test_device_arrays_match_jax(corpus):
 
 def test_epoch_builder_refuses_what_is_not_ported(corpus):
     _, kw = _ring(corpus, 1)
-    for bad in (dict(sampler="dense"), dict(n_rounds=2), dict(model_shards=2)):
+    for bad in (dict(n_rounds=2), dict(model_shards=2)):
         with pytest.raises(NotImplementedError):
             tdist.build_epoch_body(tdist.RingConfig(**{**kw, **bad}))
 

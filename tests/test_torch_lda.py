@@ -112,3 +112,39 @@ def test_check_invariants_catches_drift():
     ts.phi[3, 2] += 1
     with pytest.raises(AssertionError, match="phi"):
         tlda.check_invariants(ts, torch.from_numpy(w))
+
+
+def test_word_log_likelihood_resolves_a_move_at_large_k():
+    """At many topics the f32 form with the two large constants (the JAX
+    package's) rounds a few tokens' moves away; the port's term-by-term sum
+    stays within 1e-6 of an f64 sum of the same formula and sees the move.
+    Rows are summed in chunks of ``LL_ROWS``; cut it to cover the chunking."""
+    from scipy.special import gammaln
+
+    Vb, Kb, n = 600, 20_000, 3_000
+    rng = np.random.default_rng(4)
+    w, z = rng.integers(0, Vb, n), rng.integers(0, Kb, n)
+
+    def exact(w, z):
+        phi = np.zeros((Vb, Kb))
+        np.add.at(phi, (w, z), 1)
+        b = np.float64(np.float32(0.01))
+        vb = Vb * b
+        return (Kb * (gammaln(vb) - Vb * gammaln(b)) + gammaln(phi + b).sum()
+                - gammaln(phi.sum(0) + vb).sum())
+
+    def port(w, z):
+        phi, psi = tlda.build_counts(torch.from_numpy(w), torch.from_numpy(z), Kb, Vb)
+        return float(tlda.word_log_likelihood(phi, psi, torch.tensor(0.01)))
+
+    z2 = z.copy()
+    z2[:20] = z[20:40]                      # move 20 tokens into topics of others
+    old = tlda.LL_ROWS
+    tlda.LL_ROWS = 256
+    try:
+        got = [port(w, z), port(w, z2)]
+    finally:
+        tlda.LL_ROWS = old
+    want = [exact(w, z), exact(w, z2)]
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    assert abs((got[1] - got[0]) - (want[1] - want[0])) < 0.05 * abs(want[1] - want[0])
