@@ -22,14 +22,26 @@ one 80 GB card whole):
   RT-LDA model from ``gather_phi`` serving a batch, and the dense and alias
   samplers' LL curves from one z0; ``gibbs_argmax`` (each ring form) and
   ``mh_resample`` are held against their plain versions on a package of
-  this path at its own shape.
+  this path at its own shape;
+- the streamed path (Fig. 3/4's LoadShard/SaveShard): the alias path's
+  163,840 docs written by ``save_segments`` as 10 segments on disk and
+  trained from the memory-mapped directory by the ``Trainer`` (dense: 3
+  epochs in packages of 9,379 with α re-estimated, then one epoch each with
+  prefetch on and off, which must agree bit for bit; alias: 6 epochs), each
+  epoch's tokens/s, segment seconds, LoadShard/SaveShard host times and peak
+  memory, a profiled epoch of each sampler, ``gibbs_argmax`` and
+  ``mh_resample`` held against their plain versions on a segment's first
+  package, and both samplers' LL curves from one z0.
 
 Small phases at quickstart scale run the O(K²V) de-duplication, hold the
 card's whole dense loop and alias loop against the same loops on the CPU,
 and drive ``repro_torch.launch.train`` in both samplers: a run that
 publishes, a run killed after epoch 4 and resumed (bit for bit), and the same
 run on the CPU (the dense run's every package held against the plain
-version on the CPU: a differing draw must be a near-tie).
+version on the CPU: a differing draw must be a near-tie); then the same in 3
+streamed segments, killed at a segment boundary and resumed, from a
+``--corpus-dir``, and with the first segment read failing under a
+``FaultPlane`` (retried), all bit for bit with the uninterrupted run.
 
 Then the recsys serving path at full width: dlrm-mlperf (the 187,767,552 ×
 128 bf16 embedding table of the MLPerf Criteo-1TB config, nothing cut) with
@@ -1177,6 +1189,404 @@ def trainer_small_phase():
     return launches
 
 
+# ------------------------------------------------------------- stream phase
+# the streamed cell: the alias cell's corpus (FULL's shard tiled 40×: 163,840
+# docs, 747,200 tokens) written by save_segments as 10 segments on disk and
+# trained from the mmap'd directory by the Trainer at K = 100,000: Θ is
+# rebuilt per segment (6.6 GB at 16,384 docs), so the dense ring fits one
+# card. Dense: packages of at most 10,000 tokens, 3 epochs with α re-estimated
+# from the second (index 1); then one epoch each with prefetch on and off from
+# one start. Alias: 6 epochs, tables rebuilt every 3, α held. Then both
+# samplers 8 epochs from one z0 with α held (LL curves)
+STREAM = dict(tiles=40, segments=10, max_package=10_000, epochs=3, alpha_from=1,
+              alias_epochs=6, agg_every=3, n_mh=4, ll_epochs=8)
+# the small streamed launch.train loop: SMALL's geometry in 3 segments, a
+# checkpoint at every segment boundary, killed after segment 1 of epoch 2
+STREAM_SMALL = dict(segments=3, epochs=4, kill_at=2, kill_at_segment=1)
+
+
+def check_stream_state(tr, label):
+    """Φ and Ψ of a streamed session equal the counts of its global z store
+    over the source's segments, and Ψ sums to the token count."""
+    import dataclasses
+    from repro_torch.core import distributed as dist
+    phi = psi = None
+    for g in range(tr.source.n_segments):
+        sc = tr.source.segment(g)
+        sc = dataclasses.replace(sc, z0=tr._z[np.asarray(sc.uid)])
+        phi, psi = dist.device_counts(sc, tr.config.n_topics, tr.device, phi, psi)
+    same = torch.equal(phi, tr.state[0]) and torch.equal(psi, tr.state[1])
+    del phi, psi
+    if not same or int(tr.state[1].sum()) != tr.source.n_tokens:
+        raise AssertionError(f"{label}: Φ/Ψ are not the counts of the global z store")
+
+
+def stream_stats(tr, n_seg, label, first=0):
+    """Per-epoch lines of a streamed Trainer from epoch ``first`` on: tokens/s
+    from the sampler's time (``epoch_s``) and from the stream's time (the
+    consumer's LoadShard wait + sampler + SaveShard a segment), segment
+    seconds, and the stream's host times."""
+    T, m = tr.source.n_tokens, tr.metrics
+    rows = []
+    for e, ep_s in enumerate(m["epoch_s"][first:], start=first):
+        sl = slice(e * n_seg, (e + 1) * n_seg)
+        seg_s, wait, load, save = (np.array(m[k][sl]) for k in
+                                   ("segment_s", "load_wait_s", "load_shard_s", "save_shard_s"))
+        stream_s = float(seg_s.sum() + wait.sum() + save.sum())
+        rows.append(dict(tokens_per_s=T / ep_s, stream_tokens_per_s=T / stream_s,
+                         segment_s_mean=float(seg_s.mean()), segment_s_min=float(seg_s.min()),
+                         segment_s_max=float(seg_s.max()), load_shard_s=float(load.mean()),
+                         load_wait_s=float(wait.mean()), load_wait_first_s=float(wait[0]),
+                         load_wait_rest_s=float(wait[1:].mean()) if n_seg > 1 else 0.0,
+                         save_shard_s=float(save.mean())))
+        r = rows[-1]
+        if e < len(m["peak_gib"]):
+            r["peak_gib"] = m["peak_gib"][e]
+        log(f"[stream] {label} epoch {e}: {r['tokens_per_s']:.1f} tokens/s (epoch_s "
+            f"{ep_s:.4f}), {r['stream_tokens_per_s']:.1f} tokens/s over the stream's time "
+            f"({stream_s:.4f} s); segment_s mean {r['segment_s_mean']:.4f} (min "
+            f"{r['segment_s_min']:.4f}, max {r['segment_s_max']:.4f}); host LoadShard "
+            f"{r['load_shard_s'] * 1e3:.2f} ms a segment, the consumer's wait for it "
+            f"{r['load_wait_s'] * 1e3:.2f} ms (first segment {r['load_wait_first_s'] * 1e3:.2f}, "
+            f"the rest {r['load_wait_rest_s'] * 1e3:.2f}), SaveShard "
+            f"{r['save_shard_s'] * 1e3:.2f} ms"
+            + (f"; max_memory_allocated {r['peak_gib']:.2f} GiB in the epoch (its segments, "
+               f"Ω folds and epoch-end callbacks)" if "peak_gib" in r else ""))
+    return rows
+
+
+def stream_phase(base):
+    """The streamed cell through the port's Trainer from a save_segments
+    directory (DiskSource, mmap'd), at K = 100,000, V = 32,768."""
+    import shutil
+    from repro_torch.core import distributed as dist
+    from repro_torch.data import sources
+    from repro_torch.data.stream import SegmentStream
+    from repro_torch.kernels.alias import ops as alias_ops
+    from repro_torch.kernels.gibbs import ops
+    from repro_torch.training import (AlphaOptimizer, Metrics, Trainer, TrainerCallback,
+                                      TrainerConfig)
+
+    K, V, S = FULL["n_topics"], FULL["vocab"], STREAM
+    root = os.path.join(ROOT, "build", "chip_smoke_stream")
+    shutil.rmtree(root, ignore_errors=True)
+    corpus = tile_corpus(base, S["tiles"])
+    t0 = time.perf_counter()
+    sources.save_segments(sources.InMemorySource(corpus, S["segments"], 1, 1, K, seed=1), root)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+    disk = sources.open_segments(root)
+    T, n_seg, cap = disk.n_tokens, disk.n_segments, disk.cap
+    L = package_len_for(cap, S["max_package"])
+    n_pkg = cap // L
+    log(f"[stream] corpus: FULL's shard tiled {S['tiles']}×: {disk.n_docs} docs, {T} tokens "
+        f"(the paper's 10⁹ queries cut to 1.6·10⁵); save_segments wrote {n_seg} segments, "
+        f"{nbytes} bytes on disk in {save_s:.2f} s (segment_corpus and the writes, on the "
+        f"host); cap {cap}, {disk.docs_per_shard} docs a segment, package_len {L} "
+        f"({n_pkg} packages a segment)")
+    del corpus
+    say = lambda msg: log(f"[stream] {msg}")
+
+    def trainer(sampler, n_epochs, callbacks=(), **kw):
+        cfg = TrainerConfig(n_topics=K, vocab_size=V, corpus_dir=root, sampler=sampler,
+                            n_epochs=n_epochs, package_len=L if sampler == "dense" else 0,
+                            agg_every=S["agg_every"], n_mh=S["n_mh"], device="cuda", **kw)
+        tr = Trainer(cfg, callbacks=list(callbacks))
+        tr.log = lambda m: None
+        return tr
+
+    class EpochPeak(TrainerCallback):
+        """Last callback: the epoch's peak device memory (its segments, Ω
+        folds and the callbacks before this one), then a reset for the next."""
+        def on_epoch_end(self, trainer, epoch):
+            trainer.metrics["peak_gib"].append(torch.cuda.max_memory_allocated() / 2**30)
+            torch.cuda.reset_peak_memory_stats()
+
+    def release(*trainers):
+        for t in trainers:
+            t.state = t._tables = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- the main path: counts from 0, the dense Trainer's fit ----
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = trainer("dense", S["epochs"], [AlphaOptimizer(), Metrics(printer=say), EpochPeak()],
+                 alpha_opt_from=S["alpha_from"])
+    t0 = time.perf_counter()
+    ops.launches = 0
+    tr.fit()
+    torch.cuda.synchronize()
+    launches = ops.launches
+    fit_s = time.perf_counter() - t0
+    # ---- end of the main path ----
+    peak = max(tr.metrics["peak_gib"])
+    expected = S["epochs"] * n_seg * n_pkg
+    if launches != expected:
+        raise AssertionError(f"streamed Trainer: gibbs_argmax launched {launches} times, "
+                             f"expected {expected}")
+    lls = tr.metrics["ll"]
+    if not all(np.isfinite(lls)) or not lls[-1] > lls[0]:
+        raise AssertionError(f"streamed Trainer did not raise the word LL: {lls}")
+    check_stream_state(tr, "streamed Trainer")
+    if not bool(torch.isfinite(tr.alpha).all() & (tr.alpha > 0).all()) \
+            or abs(float(tr.alpha.sum()) - 50.0) < 1e-3:
+        raise AssertionError("streamed AlphaOptimizer left α non-finite, non-positive or "
+                             "unmoved")
+    dense_rows = stream_stats(tr, n_seg, "dense")
+    log(f"[stream] dense Trainer from the directory, {S['epochs']} epochs: launches "
+        f"gibbs_argmax={launches} (expected {expected}); word LL "
+        f"{[f'{x:.6e}' for x in lls]}; α sum {float(tr.alpha.sum()):.4f} (was 50.0); "
+        f"fit {fit_s:.2f} s (setup's pass over the segments, epochs, Ω folds, LL, α); "
+        f"max_memory_allocated={peak:.2f} GiB over the session, the largest epoch's (card: "
+        f"{card_line()})")
+
+    # ---- one more epoch through fit, profiled (no callbacks; the Ω fold stays,
+    # as the session's α re-estimation asks for it) ----
+    tr.callbacks, n_before = [], len(tr.metrics["epoch_s"])
+    tr.config = tr.config.replace(n_epochs=S["epochs"] + 1)
+    device_breakdown("streamed dense epoch", tr.fit, top=10)
+    prof = stream_stats(tr, n_seg, "dense, profiled", first=n_before)
+    # ---- gibbs_argmax on the first package of a segment, held against its
+    # plain version on the card (not counted; it moves the session's counts,
+    # so it comes last) ----
+    seg = next(iter(SegmentStream(disk, tr._z.copy(), prefetch=False,
+                                  device=tr.device).epoch(0)))
+    with held(ops, "gibbs_argmax", gibbs_check("cuda", "streamed dense"), first_only=True) \
+            as seen:
+        tr._epoch_fn(*tr.state, seg.wl, seg.dl, seg.uid, seg.z, tr.alpha, tr.beta, 4000)
+    torch.cuda.synchronize()
+    del seg
+    log(f"[stream] first package of a segment: gibbs_argmax against its plain version on "
+        f"the card: {seen[0]}; differing draws are near-ties (≤ 4 ulp)")
+    release(tr)
+    del tr
+
+    # ---- prefetch on and off, one epoch each from one start: Φ, ψ, z equal ----
+    runs = {}
+    for prefetch in (True, False):
+        t = trainer("dense", 1, prefetch=prefetch, alpha_opt_from=99)
+        t.fit()
+        torch.cuda.synchronize()
+        runs[prefetch] = t
+        stream_stats(t, n_seg, f"dense, prefetch {'on' if prefetch else 'off'}")
+    on, off = runs[True], runs[False]
+    same = dict(phi=torch.equal(on.state[0], off.state[0]),
+                psi=torch.equal(on.state[1], off.state[1]), z=bool((on._z == off._z).all()))
+    if not all(same.values()):
+        raise AssertionError(f"prefetch on and off differ: equal {same}")
+    prefetch_s = {p: float(sum(t.metrics['segment_s']) + sum(t.metrics['load_wait_s'])
+                           + sum(t.metrics['save_shard_s'])) for p, t in runs.items()}
+    log(f"[stream] one epoch with prefetch on and one with it off, from one start: Φ, ψ and "
+        f"the global z store equal bit for bit; the stream's time {prefetch_s[True]:.4f} s "
+        f"(on) vs {prefetch_s[False]:.4f} s (off)")
+    release(on, off)
+    del on, off, runs
+
+    # ---- the alias Trainer from the same directory ----
+    torch.cuda.reset_peak_memory_stats()
+    ta = trainer("alias", S["alias_epochs"], [Metrics(printer=say), EpochPeak()],
+                 alpha_opt_from=99)
+    alias_ops.build_launches = alias_ops.mh_launches = 0
+    t0 = time.perf_counter()
+    ta.fit()
+    torch.cuda.synchronize()
+    alias_fit_s = time.perf_counter() - t0
+    alias_launches = dict(alias_build=alias_ops.build_launches,
+                          mh_resample=alias_ops.mh_launches)
+    alias_peak = max(ta.metrics["peak_gib"])
+    if alias_launches["mh_resample"] != S["alias_epochs"] * n_seg \
+            or alias_launches["alias_build"] < 4:
+        raise AssertionError(f"streamed alias Trainer: launches {alias_launches} (want "
+                             f"{S['alias_epochs'] * n_seg} mh_resample, two table builds)")
+    check_stream_state(ta, "streamed alias Trainer")
+    alias_rows = stream_stats(ta, n_seg, "alias")
+    window = T * S["alias_epochs"] / alias_fit_s
+    log(f"[stream] alias Trainer from the directory, {S['alias_epochs']} epochs (tables "
+        f"rebuilt every {S['agg_every']}), α held: launches {alias_launches}; word LL "
+        f"{[f'{x:.6e}' for x in ta.metrics['ll']]}; fit {alias_fit_s:.2f} s = {window:.1f} "
+        f"tokens/s over the whole fit (setup pass, table builds, LL); "
+        f"max_memory_allocated={alias_peak:.2f} GiB")
+    # ---- one more alias epoch through fit, profiled (no callbacks); the epoch
+    # before it rebuilds the tables (epoch 6), so the profiled one does not ----
+    ta.callbacks = []
+    ta.config = ta.config.replace(n_epochs=S["alias_epochs"] + 1)
+    ta.fit()
+    n_before = len(ta.metrics["epoch_s"])
+    ta.config = ta.config.replace(n_epochs=S["alias_epochs"] + 2)
+    device_breakdown("streamed alias epoch", ta.fit, top=10)
+    alias_prof = stream_stats(ta, n_seg, "alias, profiled", first=n_before)
+    # ---- mh_resample on the first package of a segment, held against its plain
+    # version on the card bit for bit (not counted; it moves the counts, so last) ----
+    seg = next(iter(SegmentStream(disk, ta._z.copy(), prefetch=False,
+                                  device=ta.device).epoch(0)))
+    with held(alias_ops, "mh_resample", mh_check("streamed alias"), first_only=True) as seen:
+        ta._epoch_fn(*ta.state, seg.wl, seg.dl, seg.uid, seg.z, ta.alpha, ta.beta, 4000,
+                     *ta._epoch_tables())
+    torch.cuda.synchronize()
+    del seg
+    log(f"[stream] first package of a segment: mh_resample against its plain version on the "
+        f"card: {seen[0]}")
+    release(ta)
+    del ta
+
+    # ---- the dense and the alias sampler from one z0, α held: LL per epoch and
+    # the share of tokens whose topic changed in each epoch ----
+    class Moved(TrainerCallback):
+        def on_train_start(self, trainer):
+            self.z, self.shares = None, []
+
+        def on_epoch_end(self, trainer, epoch):
+            if self.z is None:
+                self.z = self.z0
+            self.shares.append(float((trainer._z != self.z).mean()))
+            self.z = trainer._z.copy()
+
+    curves, moved, ll_launches = {}, {}, {}
+    for sampler in ("dense", "alias"):
+        mv = Moved()
+        t = trainer(sampler, S["ll_epochs"], [Metrics(printer=lambda m: None), mv],
+                    alpha_opt_from=99)
+        t.setup()
+        t._materialize_stream_state()
+        mv.z0 = t._z.copy()
+        ll_z0 = t.log_likelihood()
+        ops.launches = alias_ops.build_launches = alias_ops.mh_launches = 0
+        t.fit()
+        torch.cuda.synchronize()
+        n = dict(gibbs_argmax=ops.launches, alias_build=alias_ops.build_launches,
+                 mh_resample=alias_ops.mh_launches)
+        want = dict(dense=("gibbs_argmax", S["ll_epochs"] * n_seg * n_pkg),
+                    alias=("mh_resample", S["ll_epochs"] * n_seg))[sampler]
+        if n[want[0]] != want[1]:
+            raise AssertionError(f"streamed {sampler} LL run: launches {n}, want {want}")
+        check_stream_state(t, f"streamed {sampler} LL run")
+        curves[sampler], moved[sampler], ll_launches[sampler] = \
+            [ll_z0] + t.metrics["ll"], mv.shares, n
+        log(f"[stream-ll] {sampler}: {S['ll_epochs']} epochs from the shared z0, α held at "
+            f"50/K; launches {n}; epoch_s {[round(x, 4) for x in t.metrics['epoch_s']]}; "
+            f"share of tokens that changed topic per epoch {[round(x, 6) for x in mv.shares]}")
+        release(t)
+        del t
+    if curves["dense"][0] != curves["alias"][0]:
+        raise AssertionError("the two streamed samplers did not start from one z0")
+    log("[stream-ll] word LL after each epoch (epoch 0 = z0): " + "; ".join(
+        f"{e}: dense {d:.6e} alias {a:.6e}"
+        for e, (d, a) in enumerate(zip(curves["dense"], curves["alias"]))))
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(gibbs=launches, alias=alias_launches, ll=ll_launches, dense=dense_rows,
+                alias_rows=alias_rows, profiled=prof, alias_profiled=alias_prof,
+                peak_gib=peak, alias_peak_gib=alias_peak)
+
+
+def stream_small_phase():
+    """SMALL's geometry streamed through ``repro_torch.launch.train.main`` in
+    3 segments, dense and alias: an uninterrupted run; a run with a
+    checkpoint at every segment boundary killed after segment 1 of epoch 2
+    (exit 17) and resumed; the same corpus from a ``--corpus-dir``, once
+    under a fault plane that fails the first ``disk.segment_read`` (retried);
+    the same run on the CPU. All must equal the uninterrupted run bit for
+    bit (a dense card/CPU difference must be a near-tie of a held draw)."""
+    import contextlib
+    import io
+    import shutil
+    from repro_torch.data import sources
+    from repro_torch.kernels.alias import ops as alias_ops
+    from repro_torch.kernels.gibbs import ops as gibbs_ops
+    from repro_torch.launch import train
+    from repro_torch.reliability import faults
+
+    S = STREAM_SMALL
+    root = os.path.join(ROOT, "build", "chip_smoke_stream_small")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(sampler, device, ck, extra=()):
+        argv = ["--device", device, "--sampler", sampler, "--docs", str(SMALL["n_docs"]),
+                "--vocab", str(SMALL["vocab"]), "--topics", str(SMALL["n_topics"]),
+                "--true-topics", str(SMALL["gen_topics"]), "--epochs", str(S["epochs"]),
+                "--alpha-opt-from", "99", "--ckpt-every", "2", "--bench-out", "",
+                "--ckpt-dir", os.path.join(root, ck), *extra]
+        with contextlib.redirect_stdout(io.StringIO()):
+            try:
+                return train.main(argv), 0
+            except SystemExit as exc:
+                return None, exc.code
+
+    def counted(sampler, *a, **kw):
+        gibbs_ops.launches = alias_ops.build_launches = alias_ops.mh_launches = 0
+        out = run(sampler, "cuda", *a, **kw)
+        torch.cuda.synchronize()
+        return out, dict(gibbs_argmax=gibbs_ops.launches, alias_build=alias_ops.build_launches,
+                         mh_resample=alias_ops.mh_launches)
+
+    def differ(a, b):
+        return {name: int((x.cpu() != y.cpu()).sum()) for name, x, y in
+                (("phi", a.state[0], b.state[0]), ("psi", a.state[1], b.state[1]),
+                 ("alpha", a.alpha, b.alpha))} | {"z": int((a._z != b._z).sum())}
+
+    seg_flags = ["--n-segments", str(S["segments"])]
+    launches = {}
+    for sampler in ("dense", "alias"):
+        n = launches[sampler] = {}
+        (gold, _), n["uninterrupted"] = counted(sampler, f"{sampler}-gold", seg_flags)
+        (_, code), n["killed"] = counted(sampler, f"{sampler}-killed", seg_flags + [
+            "--ckpt-segments", "1", "--kill-at", str(S["kill_at"]),
+            "--kill-at-segment", str(S["kill_at_segment"])])
+        (res, _), n["resumed"] = counted(sampler, f"{sampler}-killed", seg_flags + ["--resume"])
+        d = os.path.join(root, f"{sampler}-segments")
+        sources.save_segments(gold.source, d)
+        (from_dir, _), n["corpus_dir"] = counted(sampler, f"{sampler}-dir", ["--corpus-dir", d])
+        plane = faults.FaultPlane().fail("disk.segment_read", key="0", nth=1)
+        with faults.injected(plane):
+            (faulted, _), n["fault"] = counted(sampler, f"{sampler}-fault",
+                                               ["--corpus-dir", d])
+        kernel = "gibbs_argmax" if sampler == "dense" else "mh_resample"
+        n_seg = S["segments"]
+        done = (S["kill_at"] - 1) * n_seg + S["kill_at_segment"]
+        want = dict(uninterrupted=S["epochs"] * n_seg, killed=done,
+                    resumed=S["epochs"] * n_seg - done, corpus_dir=S["epochs"] * n_seg,
+                    fault=S["epochs"] * n_seg)
+        if code != 17 or any(n[r][kernel] != want[r] for r in want) \
+                or (sampler == "alias" and n["uninterrupted"]["alias_build"] == 0):
+            raise AssertionError(f"small streamed {sampler} loop: kill exit {code}, launches "
+                                 f"{n} (want {want} {kernel} launches)")
+        if plane.injected("disk.segment_read") != 1:
+            raise AssertionError(f"small streamed {sampler} loop: the fault plane fired "
+                                 f"{plane.injected('disk.segment_read')} times, not once")
+        for name, other in (("resumed", res), ("corpus_dir", from_dir), ("fault", faulted)):
+            diff = differ(gold, other)
+            if any(diff.values()):
+                raise AssertionError(f"small streamed {sampler} loop: the {name} run differs "
+                                     f"from the uninterrupted one {diff}")
+        cpu, _ = run(sampler, "cpu", f"{sampler}-cpu", seg_flags)
+        diff = differ(gold, cpu)
+        held_note = ""
+        if sampler == "alias" and any(diff.values()):
+            raise AssertionError(f"small streamed alias loop: card and CPU differ {diff}")
+        if sampler == "dense":
+            with held(gibbs_ops, "gibbs_argmax", gibbs_check("cpu", "small streamed dense")) \
+                    as seen:
+                again, _ = run(sampler, "cuda", f"{sampler}-held", seg_flags)
+            if any(differ(gold, again).values()):
+                raise AssertionError("small streamed dense loop: the held run left the "
+                                     "card's path")
+            ties = sum(x["mismatches"] for x in seen)
+            if any(diff.values()) and not ties:
+                raise AssertionError(f"small streamed dense loop: card and CPU differ {diff} "
+                                     f"with no differing draw")
+            held_note = (f"; every package ({len(seen)}) held against the plain version on "
+                         f"the CPU: {ties} draws differ, all near-ties (≤ 4 ulp)")
+        log(f"[stream-small] {sampler}: K={SMALL['n_topics']} V={SMALL['vocab']} "
+            f"{SMALL['n_docs']} docs in {n_seg} segments, {S['epochs']} epochs through "
+            f"launch.train.main; killed after segment {S['kill_at_segment']} of epoch "
+            f"{S['kill_at']} (exit 17) and resumed, the --corpus-dir run, and the run whose "
+            f"first disk.segment_read failed (retried): Φ, ψ, α and z equal the uninterrupted "
+            f"run's bit for bit; card vs CPU entries that differ {diff}{held_note}; "
+            f"launches {n}")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 # ------------------------------------------------------- embedding_bag kernel
 BAG_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
@@ -1557,18 +1967,29 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     trainer_launches, ll_launches = trainer_phase(corpus, gibbs_epoch_stats)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stream = stream_phase(corpus)
     small_phase()
     alias_small_phase()
     small_launches = trainer_small_phase()
+    stream_small = stream_small_phase()
     # `launches` is each kernel's count on its first path (gibbs_epoch, the
     # alias cell), as in earlier runs; launches_by_path gives every path
     small = lambda sampler, k: {r: c[k] for r, c in small_launches[sampler].items()}
+    stream_small_of = lambda sampler, k: {r: c[k] for r, c in stream_small[sampler].items()}
     gibbs_paths = dict(gibbs_epoch=launches, trainer=trainer_launches,
                        trainer_ll_dense=ll_launches["dense"]["gibbs_argmax"],
-                       launch_train_small=small("dense", "gibbs_argmax"))
+                       launch_train_small=small("dense", "gibbs_argmax"),
+                       stream_trainer=stream["gibbs"],
+                       stream_ll_dense=stream["ll"]["dense"]["gibbs_argmax"],
+                       stream_launch_train_small=stream_small_of("dense", "gibbs_argmax"))
     alias_paths = {k: dict(alias_cell=alias_launches[k],
                            trainer_ll_alias=ll_launches["alias"][k],
-                           launch_train_small=small("alias", k))
+                           launch_train_small=small("alias", k),
+                           stream_trainer_alias=stream["alias"][k],
+                           stream_ll_alias=stream["ll"]["alias"][k],
+                           stream_launch_train_small=stream_small_of("alias", k))
                    for k in ("alias_build", "mh_resample")}
     gc.collect()                       # the LDA phases' tensors go before the 48 GB table
     torch.cuda.empty_cache()

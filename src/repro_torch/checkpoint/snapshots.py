@@ -18,8 +18,9 @@ pointer in the manifest; :func:`load_snapshot` reconstructs the full model
 by walking the base chain. :func:`rotate_snapshots` keeps base versions
 alive transitively.
 
-The fault-plane hook of the JAX loader (``faults.hit("snapshot.load")``)
-comes with ``reliability/faults.py`` (ROADMAP queue 1, item 10).
+**Fault seam**: every version a load reads first passes
+``faults.hit("snapshot.load", key=str(version))``
+(:mod:`repro_torch.reliability.faults`), as in the JAX loader.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from typing import List, Optional
 import numpy as np
 
 from repro_torch.checkpoint import io
+from repro_torch.reliability import faults
 
 _SNAP_RE = re.compile(r"v_(\d+)")
 # quarantined versions are renamed to "<dir>.corrupt[.N]" — a name
@@ -128,7 +130,11 @@ def _load_tree(root: str, version: int, like):
 
 def _load_arrays(root: str, version: int):
     """(pvk, alpha, r_topic, r_value) numpy arrays and meta of one version,
-    walking the delta chain."""
+    walking the delta chain. Each version of the chain passes the
+    ``snapshot.load`` fault seam before its meta is read, as in the JAX
+    package."""
+    if faults._PLANE is not None:
+        faults.hit("snapshot.load", key=str(version))
     meta = read_meta(root, version)
     if "delta" not in meta:
         tree, meta = _load_tree(root, version, _LIKE)

@@ -237,6 +237,35 @@ def host_counts(sc: ShardedCorpus, n_topics: int, phi=None, psi=None):
     return phi, psi
 
 
+def device_counts(sc: ShardedCorpus, n_topics: int, device="cuda", phi=None, psi=None):
+    """Accumulate one segment's z0 into (phi [M, rows, K], psi [K]) int32 on
+    ``device`` — ``host_counts`` on the device, so a full-width Φ never passes
+    through host memory. Pass the previous segment's output back in to fold
+    several segments into one global count state (the streamed session's
+    initial model). The stacks may be read-only mmaps: they are copied."""
+    dev = resolve_device(device)
+    wl = torch.from_numpy(np.array(sc.word_local, np.int32)).to(dev)
+    z = torch.from_numpy(np.array(sc.z0, np.int32)).to(dev)
+    return _count(wl, z, sc.rows_per_shard, n_topics, phi, psi)
+
+
+def _count(wl, z, rows: int, n_topics: int, phi=None, psi=None):
+    """Add the (word, topic) counts of the valid slots of [S, M, cap] device
+    stacks into int32 (phi, psi), made zero when not given."""
+    dev, M = wl.device, wl.shape[1]
+    if phi is None:
+        phi = torch.zeros((M, rows, n_topics), dtype=torch.int32, device=dev)
+    if psi is None:
+        psi = torch.zeros((n_topics,), dtype=torch.int32, device=dev)
+    valid = wl >= 0
+    m_of = torch.arange(M, device=dev)[None, :, None].expand_as(wl)
+    zv = z[valid].long()
+    one = torch.ones_like(zv, dtype=torch.int32)
+    phi.index_put_((m_of[valid], wl[valid].long(), zv), one, accumulate=True)
+    psi.index_put_((zv,), one, accumulate=True)
+    return phi, psi
+
+
 def device_arrays(sc: ShardedCorpus, n_topics: int, device="cuda"):
     """Host → device: the [S, M, cap] stacks and phi/psi counted from z0.
 
@@ -246,19 +275,13 @@ def device_arrays(sc: ShardedCorpus, n_topics: int, device="cuda"):
     doc_local, uid int64, z0).
     """
     dev = resolve_device(device)
-    wl = torch.from_numpy(np.ascontiguousarray(sc.word_local, np.int32)).to(dev)
-    dl = torch.from_numpy(np.ascontiguousarray(sc.doc_local, np.int32)).to(dev)
+    # copies (np.array), so that an epoch updating z in place on the CPU
+    # never writes through into the source's z0
+    wl = torch.from_numpy(np.array(sc.word_local, np.int32)).to(dev)
+    dl = torch.from_numpy(np.array(sc.doc_local, np.int32)).to(dev)
     uid = torch.from_numpy(np.asarray(sc.uid).astype(np.int64)).to(dev)
-    z = torch.from_numpy(np.ascontiguousarray(sc.z0, np.int32)).to(dev)
-    S, M, _ = wl.shape
-    valid = wl >= 0
-    m_of = torch.arange(M, device=dev)[None, :, None].expand_as(wl)
-    zv = z[valid].long()
-    one = torch.ones_like(zv, dtype=torch.int32)
-    phi = torch.zeros((M, sc.rows_per_shard, n_topics), dtype=torch.int32, device=dev)
-    phi.index_put_((m_of[valid], wl[valid].long(), zv), one, accumulate=True)
-    psi = torch.zeros((n_topics,), dtype=torch.int32, device=dev)
-    psi.index_put_((zv,), one, accumulate=True)
+    z = torch.from_numpy(np.array(sc.z0, np.int32)).to(dev)
+    phi, psi = _count(wl, z, sc.rows_per_shard, n_topics)
     return phi, psi, wl, dl, uid, z
 
 

@@ -6,9 +6,10 @@ Each pod is one Peacock layer-1 configuration. Configurations run
 Φ_global ← Φ_ref + Σ_pods (Φ_pod − Φ_ref). ``run_hierarchical`` is the one
 epoch/boundary loop: with ``agg_fn=None`` it drives a single configuration
 (the ``Trainer``'s one-device ring); with an ``agg_fn`` it merges at every
-boundary. The pod-batched ring epoch and the aggregate functions
-(``make_aggregate``, ``make_elastic_aggregate``) come with the multi-GPU
-port (ROADMAP queue 1, item 11); here ``agg_fn`` is any callable.
+boundary; with ``segments=`` it streams the corpus through a
+``SegmentStream`` (Fig. 3/4). The pod-batched ring epoch and the aggregate
+functions (``make_aggregate``, ``make_elastic_aggregate``) come with the
+multi-GPU port (ROADMAP queue 1, item 11); here ``agg_fn`` is any callable.
 """
 from __future__ import annotations
 
@@ -46,17 +47,41 @@ def run_hierarchical(
     every ``epoch_fn`` call (the alias sampler's stale proposal tables),
     re-invoked per epoch.
 
-    ``segments`` (the out-of-core schedule of Fig. 3/4) comes with the
-    streaming pipeline, ``data/stream.py`` (ROADMAP queue 1); passing it
-    raises ``NotImplementedError``.
+    ``segments`` (a :class:`repro_torch.data.SegmentStream`) switches the
+    loop to the Fig. 3/4 out-of-core schedule: ``state`` is then just
+    ``(phi, psi)`` — the n_t the paper carries across segment swaps — and
+    each epoch iterates the stream's segments, calling ``epoch_fn(phi, psi,
+    wl, dl, uid, z, ...)`` per segment (LoadShard), then ``segments.commit``
+    (SaveShard). The epoch's seed is shared by its segments — tokens carry
+    globally unique uids, so the counter-based RNG stays decorrelated.
+    ``start_segment`` resumes the FIRST replayed epoch at a mid-epoch
+    segment boundary (the visit order is a seeded permutation, so replay
+    regenerates it); ``on_segment_end(ep, seg, (phi, psi))`` fires after
+    each segment's swap. Streaming is single-configuration: ``agg_fn`` must
+    be ``None``. The branch returns ``(phi, psi)``.
     """
-    if segments is not None:
-        raise NotImplementedError(
-            "segment streaming (segments=) comes with data/stream.py, which is not "
-            "ported yet (ROADMAP queue 1, the streaming item)")
-    del start_segment, on_segment_end      # streaming-only arguments
-    phi, psi, wl, dl, uid, z = state
     aux = (lambda: ()) if epoch_aux is None else epoch_aux
+    if segments is not None:
+        if agg_fn is not None:
+            raise ValueError("segment streaming drives a single "
+                             "configuration: agg_fn must be None")
+        phi, psi = state[0], state[1]
+        for ep in range(start_epoch, n_epochs):
+            first = start_segment if ep == start_epoch else 0
+            for seg in segments.epoch(ep, start=first):
+                phi, psi, _, _, _, z = epoch_fn(
+                    phi, psi, seg.wl, seg.dl, seg.uid, seg.z,
+                    alpha, beta, (seed0 + ep) & _M32, *aux())
+                segments.commit(seg, z)                      # SaveShard
+                if on_segment_end is not None:
+                    on_segment_end(ep, seg, (phi, psi))
+            if on_epoch_end is not None:
+                new_alpha = on_epoch_end(ep, (phi, psi), alpha)
+                if new_alpha is not None:
+                    alpha = new_alpha
+        return phi, psi
+
+    phi, psi, wl, dl, uid, z = state
     if agg_fn is not None:
         if refs is not None:
             phi_ref, psi_ref = refs

@@ -1,13 +1,21 @@
 """``CorpusSource`` — the typed corpus API behind the ``Trainer`` (port of
-the resident part of ``repro.data.sources``).
+``repro.data.sources``).
 
-A source describes a corpus as global statistics plus ring-sharded
-**segments**. Ported here: the protocol, :class:`InMemorySource` (a resident
-:class:`Corpus`), :class:`SyntheticSource` (the explicit, logged synthetic
-fallback), the per-epoch visit order :func:`segment_order` and the global
-initial assignment :func:`initial_z`. The on-disk ``DiskSource`` with
-``save_segments``/``open_segments`` comes with the streaming pipeline
-(``data/stream.py``, ROADMAP queue 1).
+The paper trains 10⁵-topic LDA from 10⁹ search queries; that corpus is never
+resident. A source describes a corpus as global statistics plus ring-sharded
+**segments**, and the trainer streams segments through one ring epoch with
+Φ/Ψ carried across the swaps (Fig. 3/4's LoadShard/SaveShard).
+
+  * :class:`InMemorySource`  — a resident :class:`Corpus` (the 1-segment
+    case is the resident path).
+  * :class:`DiskSource`      — segments saved by :func:`save_segments` as
+    per-segment ``.npy`` files plus one ``placement.npz`` + ``meta.json``;
+    opened memory-mapped so only the active segment's tokens are read.
+  * :class:`SyntheticSource` — the explicit, logged synthetic fallback.
+
+The on-disk layout is the JAX package's, file for file (``placement.npz``,
+``segment_<g:05d>/<array>.npy``, ``meta.json`` written last with each file's
+SHA-256), so a directory written by either package opens in the other.
 
 Invariants every source guarantees, as in the JAX package: one stable vocab
 placement across segments, one common static shape, global token uids, and a
@@ -15,11 +23,19 @@ deterministic per-epoch visit order drawn from a seeded permutation.
 """
 from __future__ import annotations
 
+import json
+import os
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.data.corpus import Corpus, ShardedCorpus, segment_corpus
+from repro_torch.reliability import faults
+
+META = "meta.json"
+PLACEMENT = "placement.npz"
+SEGMENT_ARRAYS = ("word_local", "doc_local", "uid", "z0")
 
 
 def segment_order(n_segments: int, epoch: int, seed: int) -> np.ndarray:
@@ -62,7 +78,8 @@ class CorpusSource:
         raise NotImplementedError
 
     def segment(self, g: int) -> ShardedCorpus:
-        """Segment ``g`` in its ring-sharded layout (host arrays)."""
+        """Segment ``g`` in its ring-sharded layout (host arrays; a
+        :class:`DiskSource` returns memory-mapped views)."""
         raise NotImplementedError
 
     def iter_segments(self, epoch: int) -> Iterator[Tuple[int, ShardedCorpus]]:
@@ -130,8 +147,193 @@ class SyntheticSource(InMemorySource):
                          n_topics, seed=seed)
 
 
+def save_segments(source: CorpusSource, directory: str) -> str:
+    """Write a source's segments as a :class:`DiskSource` directory.
+
+    Layout (the JAX package's)::
+
+        <dir>/placement.npz        — shard_of_word, local_of_word,
+                                     word_freq, doc_lengths (small, resident)
+        <dir>/segment_<g>/<a>.npy  — word_local / doc_local / uid / z0
+                                     (the big stacks; mmap'd on open)
+        <dir>/meta.json            — geometry + per-segment stats and each
+                                     file's SHA-256; written LAST — its
+                                     presence marks completeness
+
+    Returns ``directory``.
+    """
+    os.makedirs(directory, exist_ok=True)
+    # drop any previous save's completeness marker FIRST: while this save
+    # rewrites arrays, a stale meta.json would make an interrupted re-save
+    # open as a complete (but mixed old/new) corpus
+    meta_path = os.path.join(directory, META)
+    if os.path.exists(meta_path):
+        os.remove(meta_path)
+    sc0 = source.segment(0)
+    np.savez(os.path.join(directory, PLACEMENT),
+             shard_of_word=np.asarray(sc0.shard_of_word),
+             local_of_word=np.asarray(sc0.local_of_word),
+             word_freq=np.asarray(source.word_freq(), np.int64),
+             doc_lengths=np.asarray(source.doc_lengths(), np.int64))
+    seg_meta = []
+    for g in range(source.n_segments):
+        sc = source.segment(g)
+        seg_dir = os.path.join(directory, f"segment_{g:05d}")
+        os.makedirs(seg_dir, exist_ok=True)
+        digests = {}
+        for name in SEGMENT_ARRAYS:
+            fpath = os.path.join(seg_dir, f"{name}.npy")
+            np.save(fpath, np.asarray(getattr(sc, name)))
+            digests[name] = ckpt_io.sha256_file(fpath)
+        seg_meta.append({"n_real_tokens": int(sc.n_real_tokens),
+                         "sha256": digests})
+    meta = {
+        "version": 1,
+        "n_docs": int(source.n_docs),
+        "n_tokens": int(source.n_tokens),
+        "vocab_size": int(source.vocab_size),
+        "n_topics": int(source.n_topics),
+        "n_segments": int(source.n_segments),
+        "n_data_shards": int(source.n_data_shards),
+        "n_vocab_shards": int(source.n_vocab_shards),
+        "rows_per_shard": int(sc0.rows_per_shard),
+        "docs_per_shard": int(sc0.docs_per_shard),
+        "cap": int(sc0.word_local.shape[-1]),
+        # the word-sharded layout keys of the JAX package's meta: the port
+        # writes only the replicated layout (n_model_shards = 1)
+        "n_model_shards": 1,
+        "rows_coarse": int(sc0.rows_per_shard),
+        "seed": int(source.seed),
+        "segments": seg_meta,
+    }
+    tmp = os.path.join(directory, META + ".tmp")
+    with open(tmp, "w") as f:
+        json.dump(meta, f, indent=1)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, os.path.join(directory, META))
+    return directory
+
+
+class DiskSource(CorpusSource):
+    """Out-of-core source over a :func:`save_segments` directory.
+
+    ``segment(g)`` returns memory-mapped stack views: the OS pages in only
+    what LoadShard touches, so the resident set is about one segment (plus
+    the small placement arrays), whatever the corpus size.
+
+    Robust reads: when ``meta.json`` carries per-file SHA-256 digests, each
+    segment's arrays are verified ONCE per process on first access
+    (``verify=False`` opts out); a truncated or bit-flipped file raises
+    :class:`repro_torch.checkpoint.io.IntegrityError` naming the file.
+    Transient read errors (``OSError``, an injected ``disk.segment_read``
+    fault among them) are retried ``retries`` times before surfacing;
+    corruption is never retried (rot does not heal).
+
+    Directories of the word-sharded layout (``n_model_shards > 1`` in the
+    meta) are refused: that layout is not ported (ROADMAP queue 1, item 11).
+    """
+
+    corpus = None
+
+    def __init__(self, directory: str, *, verify: bool = True,
+                 retries: int = 2):
+        meta_path = os.path.join(directory, META)
+        if not os.path.isfile(meta_path):
+            raise FileNotFoundError(
+                f"{directory!r} is not a segment directory (no {META}; "
+                f"write one with repro_torch.data.save_segments)")
+        with open(meta_path) as f:
+            meta = json.load(f)
+        self.directory = directory
+        self._meta = meta
+        for k in ("n_docs", "n_tokens", "vocab_size", "n_topics",
+                  "n_segments", "n_data_shards", "n_vocab_shards", "seed"):
+            setattr(self, k, int(meta[k]))
+        self.rows_per_shard = int(meta["rows_per_shard"])
+        self.docs_per_shard = int(meta["docs_per_shard"])
+        self.cap = int(meta["cap"])
+        self.n_model_shards = int(meta.get("n_model_shards", 1))
+        if self.n_model_shards != 1:
+            raise NotImplementedError(
+                f"{directory!r} holds the word-sharded layout (n_model_shards="
+                f"{self.n_model_shards}), which is not ported (ROADMAP queue 1, "
+                f"item 11)")
+        self.verify = bool(verify)
+        self.retries = int(retries)
+        self._verified: set = set()    # segment ids verified this process
+        pl = np.load(os.path.join(directory, PLACEMENT))
+        self._shard_of = pl["shard_of_word"]
+        self._local_of = pl["local_of_word"]
+        self._word_freq = pl["word_freq"]
+        self._doc_lengths = pl["doc_lengths"]
+
+    def word_freq(self) -> np.ndarray:
+        return self._word_freq
+
+    def doc_lengths(self) -> np.ndarray:
+        return self._doc_lengths
+
+    def _verify_segment(self, g: int, seg_dir: str) -> None:
+        """First-touch SHA-256 check of segment ``g``'s arrays (memoized by
+        the caller). Directories without digests in meta verify nothing."""
+        digests = self._meta["segments"][g].get("sha256")
+        if not digests:
+            return
+        for name, want in digests.items():
+            fpath = os.path.join(seg_dir, f"{name}.npy")
+            got = ckpt_io.sha256_file(fpath)
+            if got != want:
+                raise ckpt_io.IntegrityError(
+                    f"corpus segment file {fpath} is corrupt: sha256 "
+                    f"{got[:12]}… != meta {want[:12]}… — re-run "
+                    f"save_segments for this directory", path=fpath)
+
+    def segment(self, g: int) -> ShardedCorpus:
+        if not (0 <= g < self.n_segments):
+            raise IndexError(f"segment {g} out of range [0, {self.n_segments})")
+        seg_dir = os.path.join(self.directory, f"segment_{g:05d}")
+        last_exc: Optional[OSError] = None
+        for _attempt in range(self.retries + 1):
+            try:
+                if faults._PLANE is not None:
+                    faults.hit("disk.segment_read", key=str(g))
+                if self.verify and g not in self._verified:
+                    self._verify_segment(g, seg_dir)
+                    self._verified.add(g)
+                arrs = {name: np.load(os.path.join(seg_dir, f"{name}.npy"),
+                                      mmap_mode="r")
+                        for name in SEGMENT_ARRAYS}
+                break
+            except ckpt_io.IntegrityError:
+                raise          # corruption is permanent; retrying re-reads rot
+            except OSError as exc:
+                last_exc = exc # transient (NFS hiccup, injected): retry
+        else:
+            assert last_exc is not None
+            raise last_exc
+        return ShardedCorpus(
+            word_local=arrs["word_local"], doc_local=arrs["doc_local"],
+            uid=arrs["uid"], z0=arrs["z0"],
+            shard_of_word=self._shard_of, local_of_word=self._local_of,
+            rows_per_shard=self.rows_per_shard,
+            docs_per_shard=self.docs_per_shard,
+            n_data_shards=self.n_data_shards,
+            n_vocab_shards=self.n_vocab_shards,
+            vocab_size=self.vocab_size,
+            n_real_tokens=int(self._meta["segments"][g]["n_real_tokens"]),
+        )
+
+
+def open_segments(directory: str) -> DiskSource:
+    """Open a :func:`save_segments` directory as a :class:`DiskSource`."""
+    return DiskSource(directory)
+
+
 def initial_z(source: CorpusSource) -> np.ndarray:
-    """The global [n_tokens] initial topic assignment, scattered by uid."""
+    """The global [n_tokens] initial topic assignment, scattered by uid: the
+    trainer's z store for streamed training (LoadShard gathers ``z[uid]``,
+    SaveShard scatters the sampled z back)."""
     z = np.zeros(source.n_tokens, np.int32)
     for g in range(source.n_segments):
         sc = source.segment(g)

@@ -13,13 +13,20 @@ path §3.1.4) and --kill-at (simulates a mid-run failure for the recovery
 demo, exit 17). ``--publish-dir`` adds a :class:`ModelPublisher`, and
 ``--bench-out`` writes the machine-readable BENCH_train.json record.
 
+Out-of-core training (the ``repro_torch.data`` streaming pipeline):
+``--corpus-dir`` points at a ``save_segments()`` directory — segments are
+memory-mapped and streamed through a double-buffered ``SegmentStream``
+(``--no-prefetch`` disables the overlap), ``--n-segments`` segments a
+synthetic corpus the same way, ``--ckpt-segments N`` adds segment-boundary
+checkpoints, and ``--kill-at E --kill-at-segment S`` kills at an intra-epoch
+segment boundary; ``--resume`` then lands bit for bit on the recorded
+(epoch, segment).
+
 The port trains on one device. Flags it cannot serve yet are refused with an
 error naming the ROADMAP item: ``--pods``, ``--data-shards`` or
 ``--model-shards`` above 1 and ``--sharded-model`` (queue 1, item 11,
-multi-GPU), ``--n-segments`` above 1, ``--corpus-dir``, ``--prefetch`` or
-``--no-prefetch``, ``--ckpt-segments`` and ``--kill-at-segment`` (the
-data/stream.py item), and ``--preflight`` (queue 1, item 13: the static
-analysis passes have no torch counterpart yet).
+multi-GPU), and ``--preflight`` (queue 1, item 13: the static analysis
+passes have no torch counterpart yet).
 """
 import argparse
 import os
@@ -35,12 +42,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--epochs", type=int, default=20)
     ap.add_argument("--n-segments", "--segments", dest="n_segments",
                     type=int, default=1,
-                    help="out-of-core segments per epoch (not ported: only 1)")
+                    help="out-of-core segments per epoch (Fig. 3/4 swaps)")
     ap.add_argument("--corpus-dir", default=None,
-                    help="train from a saved segment directory (not ported)")
+                    help="train from a repro_torch.data.save_segments() "
+                         "directory (DiskSource, memory-mapped) instead of "
+                         "synthetic")
     ap.add_argument("--prefetch", action=argparse.BooleanOptionalAction,
-                    default=None,
-                    help="double-buffer segment loads (streaming; not ported)")
+                    default=True,
+                    help="double-buffer segment loads on a background thread")
     ap.add_argument("--data-shards", type=int, default=1)
     ap.add_argument("--model-shards", type=int, default=1)
     ap.add_argument("--sharded-model", action="store_true",
@@ -52,14 +61,13 @@ def build_parser() -> argparse.ArgumentParser:
                     default=os.path.join(tempfile.gettempdir(), "peacock_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=5)
     ap.add_argument("--ckpt-segments", type=int, default=0,
-                    help="also checkpoint every N segment swaps (0 = off; "
-                         "streaming, not ported)")
+                    help="also checkpoint every N segment swaps (0 = off)")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--kill-at", type=int, default=-1,
                     help="simulate a failure after this epoch (exit 17)")
     ap.add_argument("--kill-at-segment", type=int, default=-1,
                     help="with --kill-at E: die after this many segment "
-                         "swaps of the E-th epoch (streaming, not ported)")
+                         "swaps of the E-th epoch (segment boundary)")
     ap.add_argument("--package-len", type=int, default=0)
     ap.add_argument("--sampler", choices=("dense", "alias"), default="dense",
                     help="inner-loop family: exact dense plane scan, or "
@@ -89,7 +97,7 @@ def config_from_args(args) -> "TrainerConfig":
         n_docs=args.docs, vocab_size=args.vocab, n_topics=args.topics,
         true_topics=args.true_topics, doc_len_mean=8,
         n_segments=args.n_segments, corpus_dir=args.corpus_dir,
-        prefetch=True if args.prefetch is None else args.prefetch,
+        prefetch=args.prefetch,
         n_pods=args.pods, data_shards=args.data_shards,
         model_shards=args.model_shards,
         n_model_shards=args.model_shards if getattr(args, "sharded_model",
@@ -112,12 +120,10 @@ def main(argv=None):
     if args.sharded_model:
         ap.error("--sharded-model: word-sharded model slices are not ported "
                  "(ROADMAP queue 1, item 11 (multi-GPU))")
-    for flag, given in (("--prefetch/--no-prefetch", args.prefetch is not None),
-                        ("--ckpt-segments", args.ckpt_segments > 0),
-                        ("--kill-at-segment", args.kill_at_segment > 0)):
-        if given:
-            ap.error(f"{flag}: segment streaming is not ported (ROADMAP queue 1, "
-                     f"the data/stream.py item)")
+    if args.kill_at_segment > 0 and args.kill_at <= 0:
+        ap.error("--kill-at-segment requires --kill-at (the epoch to die "
+                 "in); without it no KillSwitch is armed and the failure "
+                 "simulation would silently never fire")
 
     from repro_torch.training import (AlphaOptimizer, Checkpointing, KillSwitch,
                                       Metrics, ModelPublisher, Trainer)
@@ -129,9 +135,11 @@ def main(argv=None):
     except NotImplementedError as exc:
         ap.error(str(exc))
     # the JAX driver's order: α-opt → checkpoint → kill → publish → metrics
-    callbacks = [AlphaOptimizer(), Checkpointing()]
+    callbacks = [AlphaOptimizer(),
+                 Checkpointing(every_segments=args.ckpt_segments or None)]
     if args.kill_at > 0:
-        callbacks.append(KillSwitch(args.kill_at))
+        at_seg = args.kill_at_segment if args.kill_at_segment > 0 else None
+        callbacks.append(KillSwitch(args.kill_at, at_segment=at_seg))
     if args.publish_dir:
         callbacks.append(ModelPublisher(args.publish_dir,
                                         every=args.publish_every))

@@ -6,18 +6,16 @@ blocks — periodic checkpoints, Minka α optimization, failure simulation,
 metrics/bench emission, elastic liveness — is a :class:`TrainerCallback`
 here. The Trainer fires events in callback-list order:
 
-    on_train_start                   (once, before the epoch loop;
-                                      checkpoint restore happens here)
-    on_epoch_end(epoch)              (after every epoch, post-merge at
-                                      aggregation boundaries)
-    on_aggregate(epoch)              (after each ΔΦ/ΔΨ boundary merge)
-    on_checkpoint(epoch, path)       (after a checkpoint lands)
-    on_publish(epoch, version, path) (after a model snapshot lands)
-    on_train_end                     (once, after a *completed* run)
-
-The streamed session's ``on_segment_end`` event, the segment checkpoint
-cadence and ``KillSwitch(at_segment=)`` come with segment streaming (ROADMAP
-queue 1, the data/stream.py item): the port trains one resident segment.
+    on_train_start                       (once, before the epoch loop;
+                                          checkpoint restore happens here)
+    on_segment_end(epoch, segments_done) (streamed sessions: after each
+                                          segment's SaveShard swap)
+    on_epoch_end(epoch)                  (after every epoch, post-merge at
+                                          aggregation boundaries)
+    on_aggregate(epoch)                  (after each ΔΦ/ΔΨ boundary merge)
+    on_checkpoint(epoch, path)           (after a checkpoint lands)
+    on_publish(epoch, version, path)     (after a model snapshot lands)
+    on_train_end                         (once, after a *completed* run)
 
 Callbacks read and mutate the trainer: ``trainer.alpha = ...`` inside
 ``on_epoch_end`` feeds the next epoch (the coordinator's hyperparameter
@@ -37,6 +35,9 @@ class TrainerCallback:
     """Base class: every hook is a no-op; override what you need."""
 
     def on_train_start(self, trainer) -> None:
+        pass
+
+    def on_segment_end(self, trainer, epoch: int, segments_done: int) -> None:
         pass
 
     def on_epoch_end(self, trainer, epoch: int) -> None:
@@ -59,7 +60,7 @@ class Checkpointing(TrainerCallback):
     """Periodic checkpoints + the §3.1.4 restore path.
 
     Saves ``trainer.checkpoint_tree()`` through a :class:`CheckpointManager`
-    with rotation, on up to two cadences:
+    with rotation, on up to three cadences:
 
     * ``every`` — every N epochs (defaults to ``config.ckpt_every``);
     * ``every_boundaries`` — every N *aggregation boundaries* (the per-pod
@@ -68,24 +69,30 @@ class Checkpointing(TrainerCallback):
       merge AND after any ``AlphaOptimizer`` listed earlier — never
       mid-window, so a resume replays from a pods-agree point. Setting it
       disables the epoch cadence unless ``every`` is also given explicitly.
+    * ``every_segments`` — streamed sessions: every N segment swaps within
+      an epoch. Checkpoints record ``(epoch, segment)`` so a kill→resume
+      lands bitwise on the exact segment boundary. A due save at the LAST
+      segment of an epoch is deferred to that epoch's end — same state,
+      but post-α — so it is never silently dropped.
 
-    Checkpoints record ``(epoch, segment)`` with segment 0, the JAX
-    package's meta. When ``config.resume`` is set, ``on_train_start``
-    restores the latest complete checkpoint and fast-forwards the trainer to
-    its epoch — deterministic counter-based seeding replays the gap
-    bit-for-bit.
+    When ``config.resume`` is set, ``on_train_start`` restores the latest
+    complete checkpoint and fast-forwards the trainer to its
+    ``(epoch, segment)`` — deterministic counter-based seeding replays the
+    gap bit-for-bit.
     """
 
     def __init__(self, directory: Optional[str] = None,
                  every: Optional[int] = None, keep: Optional[int] = None,
                  async_save: Optional[bool] = None, pod: Optional[int] = None,
-                 every_boundaries: Optional[int] = None):
+                 every_boundaries: Optional[int] = None,
+                 every_segments: Optional[int] = None):
         self.directory = directory
         self.every = every
         self.keep = keep
         self.async_save = async_save
         self.pod = pod
         self.every_boundaries = every_boundaries
+        self.every_segments = every_segments
         self.manager = None
         self._boundary_epoch = None  # epoch of the most recent boundary
 
@@ -111,7 +118,8 @@ class Checkpointing(TrainerCallback):
 
     def on_train_start(self, trainer) -> None:
         # cadences that can never fire are silent data loss — refuse loudly
-        # (same class as a single-pod ElasticLiveness)
+        # (same class as a single-pod ElasticLiveness / unreachable
+        # KillSwitch.at_segment)
         if self.every_boundaries:
             cfg = trainer.config
             n_boundaries = (cfg.n_epochs // cfg.agg_every
@@ -123,6 +131,14 @@ class Checkpointing(TrainerCallback):
                     f"session reaches {n_boundaries} aggregation "
                     f"boundary(ies) (n_pods > 1 and agg_every <= n_epochs "
                     f"required), so no checkpoint would ever be written")
+        if self.every_segments and not (
+                1 < trainer.n_segments
+                and self.every_segments <= trainer.n_segments):
+            raise ValueError(
+                f"Checkpointing(every_segments={self.every_segments}) "
+                f"can never fire: the session streams "
+                f"{trainer.n_segments} segment(s) per epoch, so no "
+                f"segment boundary the cadence could save at is reached")
         mgr = self._ensure_manager(trainer)
         if trainer.config.resume:
             restored = mgr.restore_latest(trainer.checkpoint_like(),
@@ -135,15 +151,28 @@ class Checkpointing(TrainerCallback):
                 trainer.log(f"[recovery] resumed from epoch {trainer.epoch}"
                             f"{at} (deterministic replay covers the gap)")
 
-    # one segment an epoch: the step is the epoch, as in the JAX package's
-    # numbering (epoch * n_segments + segments_done)
-    def _save(self, trainer, epoch: int) -> str:
-        self.manager.save(epoch, trainer.checkpoint_tree(),
-                          meta={"epoch": epoch, "segment": 0,
+    # steps must stay monotonic across mixed epoch/segment saves: the global
+    # step of (epoch, segments_done) is epoch * n_segments + segments_done
+    # (n_segments == 1 keeps the historical step == epoch numbering)
+    def _save(self, trainer, epoch: int, segments_done: int) -> str:
+        n = trainer.n_segments
+        step = epoch * n + segments_done
+        self.manager.save(step, trainer.checkpoint_tree(),
+                          meta={"epoch": epoch, "segment": segments_done,
                                 "n_model_shards":
                                     trainer.config.n_model_shards},
                           pod=self.pod)
-        return self.manager.step_dir(epoch, self.pod)
+        return self.manager.step_dir(step, self.pod)
+
+    def on_segment_end(self, trainer, epoch: int, segments_done: int) -> None:
+        if not self.every_segments or segments_done % self.every_segments:
+            return
+        if segments_done >= trainer.n_segments:
+            return              # epoch-end save covers the last boundary
+        path = self._save(trainer, epoch, segments_done)
+        trainer.log(f"[ckpt] epoch {epoch} +{segments_done}/"
+                    f"{trainer.n_segments} segments saved")
+        trainer.notify("on_checkpoint", epoch, path)
 
     def on_aggregate(self, trainer, epoch: int) -> None:
         self._boundary_epoch = epoch
@@ -156,9 +185,14 @@ class Checkpointing(TrainerCallback):
             n_boundary = (epoch + 1) // trainer.config.agg_every
             if n_boundary % self.every_boundaries == 0:
                 due = True
+        if (self.every_segments and trainer.n_segments > 1
+                and trainer.n_segments % self.every_segments == 0):
+            # the segment cadence's save at the last boundary of the epoch,
+            # deferred here so it lands post-α (on_segment_end skips it)
+            due = True
         if not due:
             return
-        path = self._save(trainer, epoch + 1)
+        path = self._save(trainer, epoch + 1, 0)
         trainer.log(f"[ckpt] epoch {epoch + 1} saved")
         trainer.notify("on_checkpoint", epoch, path)
 
@@ -194,13 +228,46 @@ class KillSwitch(TrainerCallback):
     """Failure simulation: exit mid-run after ``at_epoch`` epochs (post
     checkpoint), so the ``--resume`` recovery path can be demonstrated and
     tested. Mirrors the old ``--kill-at`` inline block, exit code included.
+
+    ``at_segment`` moves the failure INSIDE the ``at_epoch``-th epoch of a
+    streamed session: the run dies after ``at_segment`` segment swaps of
+    epoch index ``at_epoch - 1`` (the epoch that would have been the
+    ``at_epoch``-th to complete), i.e. at a segment boundary — the exact
+    point a segment-cadence checkpoint covers.
     """
 
-    def __init__(self, at_epoch: int, exit_code: int = 17):
+    def __init__(self, at_epoch: int, exit_code: int = 17,
+                 at_segment: Optional[int] = None):
         self.at_epoch = at_epoch
         self.exit_code = exit_code
+        self.at_segment = at_segment
+
+    def on_train_start(self, trainer) -> None:
+        # a segment kill that can never fire is a failure-sim that silently
+        # tests nothing (same class of bug as a single-pod ElasticLiveness)
+        if self.at_segment is None:
+            return
+        if trainer.n_segments <= 1:
+            raise ValueError("KillSwitch(at_segment=) requires a streamed "
+                             "session (n_segments > 1); this session fires "
+                             "no segment events")
+        if not (1 <= self.at_segment <= trainer.n_segments):
+            raise ValueError(f"KillSwitch.at_segment={self.at_segment} can "
+                             f"never fire: the session has "
+                             f"{trainer.n_segments} segments per epoch")
+
+    def on_segment_end(self, trainer, epoch: int, segments_done: int) -> None:
+        if self.at_segment is None:
+            return
+        if epoch == self.at_epoch - 1 and segments_done == self.at_segment:
+            trainer.log(f"[failure-sim] killing run after segment "
+                        f"{segments_done} of epoch {epoch}; restart with "
+                        f"--resume")
+            raise SystemExit(self.exit_code)
 
     def on_epoch_end(self, trainer, epoch: int) -> None:
+        if self.at_segment is not None:
+            return
         if epoch + 1 == self.at_epoch:
             trainer.log(f"[failure-sim] killing run after epoch {epoch + 1}; "
                         f"restart with --resume")

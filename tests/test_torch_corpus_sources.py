@@ -1,10 +1,19 @@
 """The port's corpus preprocessing, segment layout and corpus sources against
-the JAX package's, bit for bit (all of it is host numpy on both sides)."""
+the JAX package's, bit for bit (all of it is host numpy on both sides), and
+the on-disk segment directory: ``save_segments`` writes the JAX package's
+files, either package's ``DiskSource`` opens either directory, and the
+integrity and retry defenses behave as the JAX package's do."""
+import json
+import os
+
 import numpy as np
 import pytest
 
 from repro.data import corpus as jcorpus, sources as jsources, synthetic as jsynthetic
+from repro.reliability import faults as jfaults
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.data import corpus as tcorpus, sources as tsources
+from repro_torch.reliability import faults as tfaults
 
 pytestmark = pytest.mark.port
 
@@ -101,3 +110,158 @@ def test_sources_are_the_same(corpus, n_segments):
         for ep in range(3):
             np.testing.assert_array_equal(tsources.segment_order(n_segments, ep, 9),
                                           jsources.segment_order(n_segments, ep, 9))
+
+
+# ------------------------------ the on-disk segment directory --------------
+
+def _segments(corpus, n_segments=3, S=1):
+    return (tsources.InMemorySource(_tcorpus(corpus), n_segments, S, S, 16, seed=2),
+            jsources.InMemorySource(corpus, n_segments, S, S, 16, seed=2))
+
+
+def _dir_files(d):
+    out = {}
+    for base, _, files in os.walk(d):
+        for f in files:
+            p = os.path.join(base, f)
+            out[os.path.relpath(p, d)] = open(p, "rb").read()
+    return out
+
+
+@pytest.mark.parametrize("S", [1, 2])
+def test_save_segments_writes_the_jax_directory(corpus, tmp_path, S):
+    """Both packages write the same files, byte for byte (meta.json with its
+    SHA-256s included), and each package's DiskSource opens either directory
+    with equal memory-mapped arrays."""
+    tsrc, jsrc = _segments(corpus, S=S)
+    td, jd = str(tmp_path / "port"), str(tmp_path / "jax")
+    assert tsources.save_segments(tsrc, td) == td
+    jsources.save_segments(jsrc, jd)
+    tf, jf = _dir_files(td), _dir_files(jd)
+    assert sorted(tf) == sorted(jf)
+    for name in sorted(tf):
+        if name.endswith(".npz"):      # zip members carry timestamps
+            a, b = np.load(os.path.join(td, name)), np.load(os.path.join(jd, name))
+            assert sorted(a.files) == sorted(b.files)
+            for k in a.files:
+                np.testing.assert_array_equal(a[k], b[k])
+                assert a[k].dtype == b[k].dtype, k
+        else:
+            assert tf[name] == jf[name], name
+    assert json.loads(tf["meta.json"]) == json.loads(jf["meta.json"])
+    for d in (td, jd):
+        t, j = tsources.open_segments(d), jsources.open_segments(d)
+        assert t.describe() == j.describe() == tsrc.describe().replace("InMemory", "Disk")
+        np.testing.assert_array_equal(t.word_freq(), j.word_freq())
+        np.testing.assert_array_equal(t.doc_lengths(), j.doc_lengths())
+        for (tg, ts), (jg, js) in zip(t.iter_segments(epoch=3), j.iter_segments(epoch=3)):
+            assert tg == jg
+            _same_shards(ts, js)
+            _same_shards(ts, tsrc.segment(tg))
+            for name in tsources.SEGMENT_ARRAYS:
+                assert isinstance(getattr(ts, name), np.memmap), \
+                    "disk stacks must be memory-mapped (out-of-core residency)"
+        np.testing.assert_array_equal(tsources.initial_z(t), jsources.initial_z(j))
+
+
+def test_open_segments_rejects_non_corpus_dir(tmp_path):
+    with pytest.raises(FileNotFoundError, match="save_segments"):
+        tsources.open_segments(str(tmp_path))
+
+
+def test_interrupted_resave_is_not_openable(corpus, tmp_path):
+    """Re-saving over a corpus directory drops the old completeness marker
+    FIRST: a crash mid-rewrite must not leave a directory that opens as the
+    previous corpus with mixed contents."""
+    d = str(tmp_path / "segs")
+    tsources.save_segments(_segments(corpus, 2)[0], d)
+    assert tsources.open_segments(d).n_segments == 2
+
+    class Boom(RuntimeError):
+        pass
+
+    class FailingSource(tsources.InMemorySource):
+        def segment(self, g):
+            if g == 1:
+                raise Boom("disk died mid-save")
+            return super().segment(g)
+
+    bad = FailingSource(_tcorpus(corpus), 2, 1, 1, 8, seed=1)
+    with pytest.raises(Boom):
+        tsources.save_segments(bad, d)
+    for pkg in (tsources, jsources):
+        with pytest.raises(FileNotFoundError):
+            pkg.open_segments(d)
+
+
+def _corrupt(path):
+    """Flip a few payload bytes in place (torn write / bit rot)."""
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        block = f.read(8)
+        f.seek(-len(block), os.SEEK_CUR)
+        f.write(bytes(b ^ 0xFF for b in block))
+
+
+def test_disk_source_verifies_once_and_rot_is_never_retried(corpus, tmp_path):
+    d = str(tmp_path / "segs")
+    tsources.save_segments(_segments(corpus, 2)[0], d)
+    src = tsources.DiskSource(d)
+    src.segment(0)                   # verifies on first touch
+    assert src._verified == {0}
+    _corrupt(os.path.join(d, "segment_00001", "word_local.npy"))
+    with pytest.raises(ckpt_io.IntegrityError) as ei:
+        src.segment(1)
+    assert "word_local" in ei.value.path and isinstance(ei.value, OSError)
+    plane = tfaults.FaultPlane()
+    with tfaults.injected(plane):
+        with pytest.raises(ckpt_io.IntegrityError):
+            src.segment(1)
+        assert plane.hits("disk.segment_read", key="1") == 1   # no retry of rot
+        src.segment(0)               # memoized: verified segments read as before
+    # opting out reads the (corrupt) bytes without the check
+    tsources.DiskSource(d, verify=False).segment(1)
+
+
+def test_disk_source_retries_transient_errors_like_jax(corpus, tmp_path):
+    """An injected ``disk.segment_read`` failure is retried ``retries`` times,
+    then surfaces; the port's seam is hit where JAX's is, as often."""
+    d = str(tmp_path / "segs")
+    tsources.save_segments(_segments(corpus, 2)[0], d)
+    counts = {}
+    for name, (sources, faults) in {"port": (tsources, tfaults),
+                                    "jax": (jsources, jfaults)}.items():
+        src = sources.DiskSource(d, retries=2)
+        plane = faults.FaultPlane().fail("disk.segment_read", key="0", nth=1)
+        with faults.injected(plane):
+            sc = src.segment(0)          # first read fails, the retry succeeds
+            assert sc.n_real_tokens > 0
+        plane2 = faults.FaultPlane().fail("disk.segment_read", key="1")
+        with faults.injected(plane2):
+            with pytest.raises(faults.FaultInjected):
+                src.segment(1)           # persistent: surfaces after the retries
+        plane3 = faults.FaultPlane(seed=5).fail("disk.segment_read", rate=0.5)
+        outcomes = []
+        with faults.injected(plane3):
+            for ep in range(6):
+                for g in sources.segment_order(2, ep, 2):
+                    try:
+                        src.segment(int(g))
+                        outcomes.append(int(g))
+                    except faults.FaultInjected:
+                        outcomes.append(-1)
+        counts[name] = (plane.hits("disk.segment_read", key="0"),
+                        plane2.hits("disk.segment_read", key="1"),
+                        plane3.hits("disk.segment_read"), outcomes)
+    assert counts["port"] == counts["jax"]
+    assert counts["port"][:2] == (2, 3)
+
+
+def test_disk_source_refuses_the_word_sharded_layout(corpus, tmp_path):
+    d = str(tmp_path / "segs")
+    tsources.save_segments(_segments(corpus, 2)[0], d)
+    meta = json.load(open(os.path.join(d, tsources.META)))
+    meta["n_model_shards"] = 2
+    json.dump(meta, open(os.path.join(d, tsources.META), "w"))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tsources.open_segments(d)

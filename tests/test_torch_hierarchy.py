@@ -1,7 +1,9 @@
 """The port's coordinator loop ``run_hierarchical`` against the JAX package's,
 driving each package's dense ring on one device: the ``on_epoch_end`` α
-replacement, and a toy ``agg_fn`` at ``agg_every = 2`` with its refs, seeds
-and ``on_aggregate`` events. The states must be equal bit for bit."""
+replacement, a toy ``agg_fn`` at ``agg_every = 2`` with its refs, seeds
+and ``on_aggregate`` events, and the streamed schedule (``segments=``, each
+package's ``SegmentStream``) with its segment events and a mid-epoch
+resume. The states must be equal bit for bit."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -100,6 +102,96 @@ def test_run_hierarchical_seeds_resume_and_refusals():
                            st, torch.ones(2), torch.tensor(0.01), 4, 2, start_epoch=1,
                            refs=(torch.full((2,), 7, dtype=torch.int32), st[1]))
     assert got == [7, 1]
-    with pytest.raises(NotImplementedError, match="stream"):
-        thier.run_hierarchical(epoch, None, st[:2], torch.ones(2), torch.tensor(0.01), 1, 1,
-                               segments=object())
+    # streaming drives a single configuration: an agg_fn is refused
+    with pytest.raises(ValueError, match="agg_fn must be None"):
+        thier.run_hierarchical(epoch, lambda *a, **k: a[:2], st[:2], torch.ones(2),
+                               torch.tensor(0.01), 1, 1, segments=object())
+
+
+# ------------------------------ the streamed schedule (segments=) ----------
+
+@pytest.fixture(scope="module")
+def segmented():
+    from repro.data import sources as jsources
+
+    c, _ = jsynthetic.lda_corpus(seed=4, n_docs=240, n_topics=8, vocab_size=V,
+                                 doc_len_mean=6)
+    src = jsources.InMemorySource(c, 3, 1, 1, K, seed=2)
+    sc = src.segment(0)
+    cap = sc.word_local.shape[2]
+    kw = dict(n_topics=K, vocab_size=V, rows_per_shard=sc.rows_per_shard,
+              docs_per_shard=sc.docs_per_shard, cap=cap, package_len=cap // 2
+              if cap % 2 == 0 else cap, n_rounds=1)
+    return src, kw
+
+
+def _run_streamed(segmented, side, prefetch, start_epoch=0, start_segment=0):
+    """run_hierarchical(segments=) on ``side``; returns (phi, psi), the global
+    z store and the event log."""
+    from repro.data import sources as jsources, stream as jstream
+    from repro_torch.data import stream as tstream
+
+    src, kw = segmented
+    events = []
+    z = jsources.initial_z(src)
+    if side == "jax":
+        mesh = jax.make_mesh((1, 1), ("data", "model"),
+                             axis_types=(jax.sharding.AxisType.Auto,) * 2)
+        inner = jdist.make_ring_epoch(mesh, jdist.RingConfig(**kw))
+        phi = psi = None
+        for g in range(src.n_segments):
+            phi, psi = jdist.host_counts(src.segment(g), K, phi, psi)
+        state = (jnp.asarray(phi.astype(np.int32)), jnp.asarray(psi.astype(np.int32)))
+        alpha, beta = jnp.full((K,), 50.0 / K, jnp.float32), jnp.float32(0.01)
+        stream = jstream.SegmentStream(src, z, prefetch=prefetch)
+    else:
+        inner = tdist.build_epoch_body(tdist.RingConfig(**kw))
+        phi = psi = None
+        for g in range(src.n_segments):
+            phi, psi = tdist.device_counts(src.segment(g), K, "cpu", phi, psi)
+        state = (phi, psi)
+        alpha, beta = torch.full((K,), 50.0 / K), torch.tensor(0.01)
+        stream = tstream.SegmentStream(src, z, prefetch=prefetch, device="cpu")
+
+    def epoch(*args):
+        events.append(("epoch", int(args[8])))
+        return inner(*args)
+
+    def on_segment_end(ep, seg, st):
+        events.append(("segment", ep, seg.pos, seg.gid, int(st[1].sum())))
+
+    def on_epoch_end(ep, st, a):
+        assert len(st) == 2
+        events.append(("on_epoch_end", ep, float(a.sum())))
+        return a * 1.25 if ep == 1 else None
+
+    out = thier.run_hierarchical if side == "port" else jhier.run_hierarchical
+    phi, psi = out(epoch, None, state, alpha, beta, EPOCHS, agg_every=2, seed0=SEED0,
+                   on_epoch_end=on_epoch_end, segments=stream, start_epoch=start_epoch,
+                   start_segment=start_segment, on_segment_end=on_segment_end)
+    return np.asarray(phi), np.asarray(psi), z, events
+
+
+@pytest.mark.parametrize("prefetch", [False, True], ids=["no prefetch", "prefetch"])
+def test_run_hierarchical_segments_matches_jax(segmented, prefetch):
+    jphi, jpsi, jz, jev = _run_streamed(segmented, "jax", False)
+    tphi, tpsi, tz, tev = _run_streamed(segmented, "port", prefetch)
+    assert tev == jev
+    n_seg = segmented[0].n_segments
+    # every segment of an epoch shares the epoch's seed
+    assert [e[1] for e in tev if e[0] == "epoch"] == [
+        SEED0 + ep for ep in range(EPOCHS) for _ in range(n_seg)]
+    np.testing.assert_array_equal(tphi, jphi)
+    np.testing.assert_array_equal(tpsi, jpsi)
+    np.testing.assert_array_equal(tz, jz)
+
+
+def test_run_hierarchical_segments_resumes_mid_epoch_like_jax(segmented):
+    """``start_segment`` applies to the first replayed epoch only: the visit
+    order is regenerated and the loop starts at that position."""
+    _, _, _, jev = _run_streamed(segmented, "jax", False, start_epoch=2, start_segment=2)
+    _, _, _, tev = _run_streamed(segmented, "port", True, start_epoch=2, start_segment=2)
+    assert tev == jev
+    seg_events = [e for e in tev if e[0] == "segment"]
+    assert [e[2] for e in seg_events if e[1] == 2] == [2]
+    assert [e[2] for e in seg_events if e[1] == 3] == [0, 1, 2]
