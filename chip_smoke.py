@@ -51,6 +51,15 @@ serve_p99 batches of 512 (p50/p99), 3 serve_bulk batches of 262,144
 retrieval_scores over 10⁶ candidates; a small loop holds the four small
 recsys configs on the card against the CPU.
 
+Then RT-LDA serving at K = 100,000, V = 32,768: ``launch.serve``'s own model
+(quick_train's first ``gibbs_argmax`` launch held against the plain
+version) served by a ``TopicEngine`` on a fake clock, every response equal to
+``make_serving_fn`` on the same batch and seed, before and after a swap; the
+capacity of an engine and of a fleet of 2 (4,096 queries at once); a served
+batch's time at rows 1 and 256; ``launch.serve.main`` in open loop with a
+mid-run swap, below and above that capacity; publish → watch → swap against
+a CPU fleet; and one chaos scenario.
+
 Prints a ``kernels`` JSON line, the card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. Exits nonzero on any failure,
 and when there is no CUDA card.
@@ -1937,6 +1946,523 @@ def recsys_small_phase():
         f"{worst:.3g}); {ops.launches - before} kernel lookups on the card")
 
 
+# ------------------------------------------------------------ serving phases
+# RT-LDA serving through the port's engine and fleet at peacock-lda's width
+# (FULL's K and V): the model is launch.serve's own (quick_train: the dense
+# sampler, so gibbs_argmax, then build_model), the swap target the model of
+# Φ + 1, built in place so no second Φ exists
+SERVE = dict(buckets=(8, 16, 32, 64), batch=256, n_trials=2, train_iters=25, per_bucket=24,
+             over_long=6, swap_rows=16, profile_rows=(1, 256), profile_reps=5,
+             duration=3, deadline_ms=50, burst=4096, cache_mb=64, zipf_pool=512, replicas=2)
+# launch.serve's open-loop runs: name → (offered queries/s, fleet flags); the
+# 500 and 1,000 queries/s runs sit below the capacity that serve_capacity
+# measures, the 2,000 queries/s ones above it (overload points)
+SERVE_RUNS = {"engine_500": (500, None), "engine": (1000, None), "fleet": (1000, "--shed"),
+              "engine_overload": (2000, None), "fleet_overload": (2000, "--no-shed")}
+
+
+class FakeClock:
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+    def advance_ms(self, ms):
+        self.t += ms / 1e3
+
+
+def same_response(r, pkd, ids, w, label):
+    """A served row against the function's row: ``pkd`` bit for bit; ids and
+    weights bit for bit, or else (the Eq. 5 GEMM on another stream) ids equal
+    but at tied weights and weights within rtol 1e-6. Returns which held."""
+    if r.pkd.dtype != np.float32 or not np.array_equal(r.pkd, pkd):
+        raise AssertionError(f"{label}: pkd differs from the function's "
+                             f"(max |d| {float(np.abs(r.pkd - pkd).max())})")
+    if np.array_equal(r.feature_ids, ids) and np.array_equal(r.feature_weights, w):
+        return "bitwise"
+    if not np.allclose(r.feature_weights, w, rtol=1e-6, atol=0):
+        raise AssertionError(f"{label}: feature weights differ beyond rtol 1e-6")
+    at = dict(zip(ids.tolist(), w.tolist()))
+    for i in np.flatnonzero(r.feature_ids != ids):
+        ref = at.get(int(r.feature_ids[i]), float(w[-1]))
+        if not np.isclose(w[i], ref, rtol=1e-6, atol=0):
+            raise AssertionError(f"{label}: feature id {r.feature_ids[i]} at {i} is no tie")
+    return "pkd bitwise, ids equal but at ties, weights within rtol 1e-6"
+
+
+def chunk_lengths(n, widest):
+    """An over-long query's chunks: the widest bucket's length, then the rest."""
+    return [min(widest, n - i) for i in range(0, n, widest)]
+
+
+def engine_rows(eng, submitted):
+    """The (bucket, row) slots each submitted query takes in the engine's
+    bucket FIFOs (one batch a bucket: each holds at most max_batch rows); an
+    over-long query with chunking on takes one slot per widest-bucket chunk,
+    each chunk in the bucket of its own length."""
+    from repro_torch.core.rtlda import select_bucket
+    pos = {b: 0 for b in eng.buckets}
+    out = []
+    for toks in submitted:
+        if eng.chunk_long and len(toks) > eng.buckets[-1]:
+            lengths = chunk_lengths(len(toks), eng.buckets[-1])
+        else:
+            lengths = [len(toks)]
+        slots = []
+        for n in lengths:
+            b, _ = select_bucket(n, eng.buckets)
+            slots.append((b, pos[b]))
+            pos[b] += 1
+        out.append(slots)
+    if max(pos.values()) > eng.max_batch:
+        raise AssertionError("a bucket holds more than one batch")
+    return out
+
+
+def fold_ref(rows, lengths):
+    """An over-long query's answer from its chunks' rows ``(pkd, ids,
+    weights)``, from the definition: P(k|d) is the token-count-weighted mean
+    of the chunks' pkd (f64, renormalised); each feature id's weight is summed
+    over the chunks, each term times its chunk's weight, and the top-n are
+    taken by weight, then id."""
+    w = np.asarray(lengths, np.float64)
+    w = w / w.sum()
+    pkd = np.zeros(rows[0][0].shape, np.float64)
+    for wc, (p, _, _) in zip(w, rows):
+        pkd = pkd + wc * p.astype(np.float64)
+    pkd = pkd / pkd.sum()
+    ids = np.concatenate([i for _, i, _ in rows])
+    terms = np.concatenate([wc * f.astype(np.float64) for wc, (_, _, f) in zip(w, rows)])
+    keep = ids >= 0
+    uniq, inv = np.unique(ids[keep], return_inverse=True)
+    summed = np.zeros(len(uniq))
+    np.add.at(summed, inv, terms[keep])
+    order = np.lexsort((uniq, -summed))[:rows[0][1].shape[0]]
+    top_ids = np.full(rows[0][1].shape, -1, np.int32)
+    top_w = np.zeros(rows[0][1].shape, np.float32)
+    top_ids[:len(order)], top_w[:len(order)] = uniq[order], summed[order]
+    return pkd.astype(np.float32), top_ids, top_w
+
+
+def check_engine(eng, submitted, futs, calls, fn, model, label):
+    """Each response of ``eng`` (one pump, one batch a bucket, recorded in
+    ``calls``) against ``fn`` on the same padded batch and seed; a chunked
+    query against ``fold_ref`` of the function's rows."""
+    direct = {}
+    for q, seed in calls:
+        if q.shape[1] in direct:
+            raise AssertionError(f"{label}: two batches in bucket {q.shape[1]}")
+        direct[q.shape[1]] = [x.cpu().numpy() for x in fn(model, q, seed)]
+    modes = {}
+    for toks, fut, slots in zip(submitted, futs, engine_rows(eng, submitted)):
+        r = fut.result(timeout=60)
+        if len(slots) == 1:
+            (b, i), = slots
+            pkd, ids, w = (x[i] for x in direct[b])
+            mode = same_response(r, pkd, ids, w, f"{label} bucket {b}")
+        else:
+            pkd, ids, w = fold_ref([[x[i] for x in direct[b]] for b, i in slots],
+                                   chunk_lengths(len(toks), eng.buckets[-1]))
+            mode = same_response(r, pkd, ids, w,
+                                 f"{label} {len(toks)}-token query in {len(slots)} chunks")
+        modes[mode] = modes.get(mode, 0) + 1
+    return modes
+
+
+def serve_engine_phase():
+    """Engine against the function at full width, on the card: a
+    ``start=False`` engine on a fake clock, pumped once over mixed-length
+    queries in every bucket (and over-long ones, chunked; and truncated by a
+    second engine with chunking off); each response equals a direct
+    ``make_serving_fn`` call on the same padded batch and seed. Then a swap
+    to the Φ + 1 model: the next batch equals the function on it, at version
+    1. Then where a served batch's time goes, at rows 1 and 256 in bucket 8.
+    Returns gibbs_argmax's launches in the model's build."""
+    from repro_torch.core import rtlda
+    from repro_torch.core.features import make_serving_fn
+    from repro_torch.kernels.gibbs import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving import TopicEngine
+
+    K, V, S = FULL["n_topics"], FULL["vocab"], SERVE
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ops.launches = 0
+    with held(ops, "gibbs_argmax", gibbs_check("cuda", "launch.serve quick_train"),
+              first_only=True) as seen:
+        model, state = serve.build_model(K, V, S["train_iters"], device="cuda")
+    torch.cuda.synchronize()
+    build_launches = ops.launches
+    if not seen:
+        raise AssertionError("quick_train's gibbs_argmax was not held")
+    phi, beta, alpha = state.phi, state.beta, state.alpha
+    del state
+    phi += 1
+    model_b = rtlda.build_model(phi, beta, alpha, device="cuda")
+    del phi
+    torch.cuda.synchronize()
+    log(f"[serve-engine] K={K} V={V}: launch.serve.build_model (quick_train, "
+        f"{build_launches} gibbs_argmax launches; the first held against the plain "
+        f"version: {seen[0]}) and the Φ + 1 model in "
+        f"{time.perf_counter() - t0:.2f} s; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB")
+    if build_launches == 0:
+        raise AssertionError("launch.serve.build_model launched no gibbs_argmax")
+
+    fn = make_serving_fn(n_iters=5, n_trials=S["n_trials"], top_n=30, device="cuda")
+    rng = np.random.default_rng(5)
+    lo = 1
+    queries = []
+    for b in S["buckets"]:
+        queries += [rng.integers(0, V, size=int(n)) for n in rng.integers(lo, b + 1,
+                                                                            S["per_bucket"])]
+        lo = b + 1
+    longs = [rng.integers(0, V, size=int(n)) for n in rng.integers(65, 200, S["over_long"])]
+
+    def run(queries, chunk_long):
+        clock = FakeClock()
+        eng = TopicEngine(model, buckets=S["buckets"], max_batch=S["batch"],
+                          n_trials=S["n_trials"], clock=clock, chunk_long=chunk_long,
+                          start=False)
+        calls, real = [], eng._infer
+        eng._infer = lambda mm, q, seed: calls.append((q.copy(), seed)) or real(mm, q, seed)
+        futs = [eng.submit(q) for q in queries]
+        if eng.pump() != 0:
+            raise AssertionError("the engine flushed before the slack expired")
+        clock.advance_ms(eng.max_delay_ms + 1)
+        n = eng.pump()
+        return eng, futs, calls, n, clock
+
+    eng, futs, calls, n, clock = run(queries + longs, True)
+    modes = check_engine(eng, queries + longs, futs, calls, fn, model, "engine")
+    trunc_eng, tfuts, tcalls, _, _ = run(longs, False)
+    modes_t = check_engine(trunc_eng, longs, tfuts, tcalls, fn, model, "truncating engine")
+    if not all(f.result().truncated for f in tfuts) or \
+            any(f.result().truncated for f in futs):
+        raise AssertionError("truncated flags wrong")
+    log(f"[serve-engine] {len(queries)} queries in buckets {S['buckets']} and "
+        f"{len(longs)} over-long ones (lengths {sorted(len(q) for q in longs)}), one pump: "
+        f"{n} batches of rows {sorted(q.shape for q, _ in calls)}; every response equals "
+        f"make_serving_fn on the same padded batch and seed: {modes}; with chunking off "
+        f"the over-long ones are truncated to 64 and equal it too: {modes_t}")
+
+    eng.swap_model(model_b)
+    calls.clear()
+    swap_q = [rng.integers(0, V, size=int(n)) for n in rng.integers(1, 9, S["swap_rows"])]
+    sfuts = [eng.submit(q) for q in swap_q]
+    clock.advance_ms(eng.max_delay_ms + 1)
+    eng.pump()
+    modes_s = check_engine(eng, swap_q, sfuts, calls, fn, model_b, "after the swap")
+    if {f.result().model_version for f in sfuts} != {1}:
+        raise AssertionError("the batch after swap_model does not carry version 1")
+    log(f"[serve-engine] swap_model(Φ + 1): the next batch ({len(swap_q)} rows) equals the "
+        f"function on the new model: {modes_s}, all at version 1")
+    del eng, trunc_eng, futs, tfuts, sfuts, calls, tcalls
+
+    capacity = serve_capacity(model)
+    serve_breakdown(model, fn)
+    del model, model_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return build_launches, capacity
+
+
+def serve_capacity(model):
+    """The path's capacity: 4,096 distinct queries of ``launch.serve``'s
+    mixed-length traffic submitted at once, with no deadline, to a warmed
+    engine and to a warmed fleet of 2 replicas without admission control
+    (so every query is served); queries/s from the first submit to the last
+    result."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import Response, TopicEngine, TopicFleet
+
+    S, V = SERVE, FULL["vocab"]
+    kw = dict(buckets=S["buckets"], max_batch=S["batch"], n_trials=S["n_trials"])
+    make = {"engine": lambda: TopicEngine(model, **kw),
+            "fleet": lambda: TopicFleet(model, n_replicas=S["replicas"], cache_mb=S["cache_mb"],
+                                        shed=False, deadline_budget_ms=S["deadline_ms"], **kw)}
+    traffic = serve.make_traffic(S["burst"], V, S["buckets"], seed=11)
+    out = {}
+    for name, build in make.items():
+        target = build()
+        try:
+            serve.warm_shape_grid(target, S["buckets"], S["batch"], V)
+            if name == "fleet":
+                target.cache.clear()
+            t0 = time.perf_counter()
+            futs = [target.submit(q) for q in traffic]
+            res = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+        finally:
+            target.close()
+        if not all(isinstance(r, Response) and np.isfinite(r.pkd).all() for r in res):
+            raise AssertionError(f"capacity {name}: a query was not served, or its pkd "
+                                 f"is not finite")
+        out[name] = len(res) / wall
+        log(f"[serve-capacity] {name}: {len(res)} queries at once in {wall:.3f} s = "
+            f"{out[name]:.1f} queries/s")
+    return out
+
+
+def serve_breakdown(model, fn):
+    """Where a served batch's time goes, at rows 1 and 256 of bucket 8: a
+    ``start=False`` engine on the host clock, the batch run by ``flush_all``;
+    host seconds from the first submit to the launch (``_infer`` entered) and
+    from the launch to the futures' results, medians of a few batches; then
+    one batch under the profiler: device busy time, and the D2H copy of pkd
+    ([rows, K] f32) as a share of it."""
+    from repro_torch.serving import TopicEngine
+
+    V, S = FULL["vocab"], SERVE
+    eng = TopicEngine(model, buckets=(8,), max_batch=max(S["profile_rows"]),
+                      n_trials=S["n_trials"], start=False)
+    marks, real = {}, eng._infer
+
+    def timed(m, q, seed):
+        marks["launch"] = time.perf_counter()
+        return real(m, q, seed)
+
+    eng._infer = timed
+    rng = np.random.default_rng(9)
+    for rows in S["profile_rows"]:
+        qs = [rng.integers(0, V, size=8) for _ in range(rows)]
+
+        def batch():
+            t0 = time.perf_counter()
+            futs = [eng.submit(q) for q in qs]
+            eng.flush_all()
+            out = [f.result() for f in futs]
+            return marks["launch"] - t0, time.perf_counter() - marks["launch"], out
+
+        batch()                                    # warm-up
+        runs = [batch()[:2] for _ in range(S["profile_reps"])]
+        to_launch = float(np.median([a for a, _ in runs]))
+        to_done = float(np.median([b for _, b in runs]))
+        rows_prof = device_breakdown(f"engine batch rows {rows} bucket 8", batch, top=6)
+        busy = sum(r[0] for r in rows_prof)
+        d2h = sum(r[0] for r in rows_prof if "DtoH" in r[2])
+        log(f"[serve-breakdown] rows {rows}: host submit → launch {to_launch * 1e3:.3f} ms, "
+            f"launch → results {to_done * 1e3:.3f} ms (medians of {S['profile_reps']}); "
+            f"device busy {busy:.3f} ms, D2H of pkd ({rows * FULL['n_topics'] * 4 / 1e6:.1f} MB) "
+            f"{d2h:.3f} ms = {d2h / busy if busy else 0:.3f} of it")
+    eng.close()
+
+
+def serve_open_loop_phase(capacity):
+    """The open loop through the entry point at full width: ``launch.serve.main``
+    with one engine (mixed-length all-distinct traffic) and with a fleet of 2
+    replicas (a 64 MB cache, Zipf traffic over 512 queries), each for 3 s
+    with a mid-run swap: below ``capacity`` the engine at 500 and 1,000
+    queries/s and the fleet with admission control at 1,000; above it, at
+    2,000, the engine and the fleet without admission control. Each run's
+    first ``gibbs_argmax`` launch (its quick_train) is held against the plain
+    version. Returns the kernel's launches in each run.
+
+    The swap: no response after it may carry another version than 1, and a
+    run must serve some at version 1, except a fleet that sheds every paying
+    miss from then on. That fleet is caught as it is built and must end the
+    run shedding, its p99 estimate above the level at which it stops
+    (ROADMAP §3: under deadlined traffic its p99 rides the deadline, so it
+    sheds for good). A fleet fails no request and retries none; the
+    shedding one ends with every breaker closed, while the overloaded one
+    may end with breakers that its deadline blowouts tripped (printed)."""
+    import repro_torch.serving as serving
+    from repro_torch.kernels.gibbs import ops
+    from repro_torch.launch import serve
+
+    S = SERVE
+    out = os.path.join(ROOT, "build", "chip_smoke_serve")
+    os.makedirs(out, exist_ok=True)
+    base = ["--topics", str(FULL["n_topics"]), "--vocab", str(FULL["vocab"]),
+            "--batch", str(S["batch"]), "--buckets", ",".join(map(str, S["buckets"])),
+            "--n-trials", str(S["n_trials"]), "--deadline-ms", str(S["deadline_ms"]),
+            "--duration", str(S["duration"]), "--swap-mid", "--train-iters", str(S["train_iters"])]
+    fleet = ["--replicas", str(S["replicas"]), "--cache-mb", str(S["cache_mb"]),
+             "--zipf-pool", str(S["zipf_pool"])]
+    fleets, real_fleet = [], serving.TopicFleet
+
+    class CaughtFleet(real_fleet):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            fleets.append(self)
+
+    launches = {}
+    for name, (qps, shed) in SERVE_RUNS.items():
+        fleets.clear()                 # the last run's fleet holds its model
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops.launches = 0
+        argv = base + ["--qps", str(qps), "--bench-out", os.path.join(out, f"{name}.json")]
+        argv += fleet + [shed] if shed else []
+        serving.TopicFleet = CaughtFleet
+        try:
+            with held(ops, "gibbs_argmax", gibbs_check("cuda", f"launch.serve {name}"),
+                      first_only=True) as seen:
+                rec = serve.main(argv)
+        finally:
+            serving.TopicFleet = real_fleet
+        torch.cuda.synchronize()
+        launches[name] = ops.launches
+        cap = capacity["fleet" if shed else "engine"]
+        log(f"[serve-open-loop] {name}: {json.dumps(rec)}")
+        log(f"[serve-open-loop] {name}: offered {rec['offered_qps']:.0f} queries/s "
+            f"({rec['offered_qps'] / cap:.2f} of the capacity {cap:.1f}) → achieved "
+            f"{rec['achieved_qps']:.1f} queries/s, p50 {rec['p50_ms']:.3f} ms, p99 "
+            f"{rec['p99_ms']:.3f} ms, miss rate {rec['deadline_miss_rate']:.4f} @ "
+            f"{rec['deadline_ms']:.0f} ms, occupancy {rec['mean_batch_occupancy']:.3f}, "
+            + (f"per bucket {rec['per_bucket']}" if not shed else
+               f"routed {rec['routed']}, cache hit rate {rec['cache_hit_rate']:.4f}, shed rate "
+               f"{rec['shed_rate']:.4f} ({rec['shed']} shed, {rec['backed_off']} backed off), "
+               f"hedges {rec['hedges']}, probes {rec['probes']}")
+            + f", versions after the swap {rec['versions_after_swap']}, peak "
+            f"{rec['peak_gib']:.2f} GiB; {launches[name]} gibbs_argmax launches, the first "
+            f"held: {seen[0] if seen else None}")
+        if launches[name] == 0 or not seen:
+            raise AssertionError(f"{name}: launch.serve launched no gibbs_argmax")
+        if rec["pkd_sum_err_max"] > 1e-5 or not rec["ids_in_range"]:
+            raise AssertionError(f"{name}: a pkd row does not sum to 1 within 1e-5 "
+                                 f"({rec['pkd_sum_err_max']}) or an id is outside [0, V)")
+        if shed and (rec["failed"] or rec["retries"]):
+            raise AssertionError(f"{name}: failed {rec['failed']}, retries {rec['retries']}")
+        # the shedding fleet's breakers end closed; without shedding, above
+        # the capacity, a replica's deadline blowouts (3 × the deadline) trip
+        # its breaker by design
+        if shed == "--shed" and any(s != "closed" for s in rec["breakers"]):
+            raise AssertionError(f"{name}: breakers {rec['breakers']} at the end")
+        after = rec["versions_after_swap"]
+        if set(after) - {"1"}:
+            raise AssertionError(f"{name}: a response after the swap is not at version 1 "
+                                 f"({after})")
+        if not after:
+            ended = shed == "--shed" and len(fleets) == 1 and ended_shedding(fleets[0])
+            if not (ended and rec["shed"] > 0):
+                raise AssertionError(f"{name}: no response after the swap carries version 1, "
+                                     f"and no shedding fleet explains it")
+            log(f"[serve-open-loop] {name}: no paying request served after the swap: the "
+                f"fleet ended the run shedding, its p99 estimate {ended[0]:.3f} ms above "
+                f"the {ended[1]:.1f} ms at which it stops")
+    fleets.clear()
+    return launches
+
+
+def ended_shedding(fleet):
+    """``(p99 estimate, the level at which it stops shedding)`` when ``fleet``
+    is shedding and its estimate is above that level, else None."""
+    st = fleet.stats()
+    stop = fleet.deadline_budget_ms * (1 - fleet.shed_hysteresis)
+    return (st.p99_est_ms, stop) if st.shedding and st.p99_est_ms >= stop else None
+
+
+def small_model(device, K=16, V=400, seed=0):
+    from repro_torch.core import rtlda
+    phi = torch.from_numpy(np.random.default_rng(seed).integers(0, 20, (V, K)).astype(np.int32))
+    return rtlda.build_model(phi, torch.tensor(0.01), torch.full((K,), 0.5), device=device)
+
+
+def serve_publish_phase():
+    """Publish → watch → swap on the card at SMALL's width: the small
+    ``launch.train`` loop publishes; a card ``TopicFleet`` of 2 (fake clock,
+    pumped) with a ``SnapshotWatcher`` a replica reaches the newest version,
+    and serves what a CPU fleet serves from the same snapshot (pkd within
+    rtol 1e-6, atol 1e-7). Returns gibbs_argmax's launches in the training."""
+    import io as io_mod
+    import shutil
+    from repro_torch.checkpoint import snapshots
+    from repro_torch.kernels.gibbs import ops
+    from repro_torch.launch import train
+    from repro_torch.serving import TopicEngine, TopicFleet
+
+    root = os.path.join(ROOT, "build", "chip_smoke_serve_publish")
+    shutil.rmtree(root, ignore_errors=True)
+    pub = os.path.join(root, "snap")
+    ops.launches = 0
+    with contextlib.redirect_stdout(io_mod.StringIO()):
+        train.main(["--device", "cuda", "--docs", str(SMALL["n_docs"]), "--vocab",
+                    str(SMALL["vocab"]), "--topics", str(SMALL["n_topics"]), "--epochs", "4",
+                    "--alpha-opt-from", "99", "--ckpt-dir", os.path.join(root, "ck"),
+                    "--publish-dir", pub, "--bench-out", ""])
+    torch.cuda.synchronize()
+    launches = ops.launches
+    versions = snapshots.snapshot_versions(pub)
+    newest = versions[-1]
+
+    def fleet_on(model):
+        clock = FakeClock()
+        engines = [TopicEngine(model, buckets=(8, 16), max_batch=32, clock=clock,
+                               start=False, name=f"replica{i}") for i in range(2)]
+        return TopicFleet(engines=engines, clock=clock, cache_mb=0.0, shed=False)
+
+    card = fleet_on(small_model("cuda", SMALL["n_topics"], SMALL["vocab"]))
+    cpu_model, _ = snapshots.load_snapshot(pub, newest, device="cpu")
+    cpu = fleet_on(cpu_model)
+    cpu.swap_model(cpu_model, version=newest)
+    try:
+        card.attach_watchers(pub, poll_s=0.05)
+        if not card.wait_for_version(newest, timeout_s=60) or card.live_version() != newest:
+            raise AssertionError(f"the card fleet did not reach v{newest}")
+        rng = np.random.default_rng(4)
+        qs = [rng.integers(0, SMALL["vocab"], size=int(n)) for n in rng.integers(1, 17, 64)]
+        got, want = card.infer(qs), cpu.infer(qs)
+    finally:
+        card.close()
+        cpu.close()
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.model_version != newest or g.model_version != w.model_version:
+            raise AssertionError("a served version is not the newest")
+        if not np.allclose(g.pkd, w.pkd, rtol=1e-6, atol=1e-7):
+            raise AssertionError("card and CPU fleets serve different pkd")
+        err = max(err, float(np.abs(g.pkd - w.pkd).max()))
+    log(f"[serve-publish] launch.train published {versions}; a card fleet of 2 with a "
+        f"SnapshotWatcher each reached v{newest} and served {len(qs)} queries as a CPU fleet "
+        f"from the same snapshot (max |card − CPU| pkd {err:.3g}); {launches} gibbs_argmax "
+        f"launches in the training")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def serve_chaos_phase():
+    """``tests/test_chaos.py::test_breaker_trips_and_router_skips_the_sick_replica``
+    on the card: a real ``FaultPlane`` fails every inference of replica 0; its
+    breaker opens, the router sends the next requests to replica 1, and every
+    future resolves."""
+    from repro_torch.reliability import faults
+    from repro_torch.serving import TopicEngine, TopicFleet
+
+    model = small_model("cuda")
+    clock = FakeClock()
+    engines = [TopicEngine(model, buckets=(4, 8, 16), max_batch=4, n_iters=2, n_trials=1,
+                           top_n=3, clock=clock, start=False, name=f"replica{i}")
+               for i in range(2)]
+    fleet = TopicFleet(engines=engines, clock=clock, cache_mb=0.0, shed=False,
+                       breaker_threshold=1)
+    rng = np.random.default_rng(1)
+
+    def drain(futs):
+        for _ in range(4):
+            fleet.flush_all()
+            if all(f.done() for f in futs):
+                return
+        raise AssertionError("chaos: futures still pending after a bounded drain")
+
+    with faults.injected(faults.FaultPlane().fail("engine.infer", key="replica0")):
+        first = fleet.submit(rng.integers(0, 400, size=3))
+        drain([first])
+        state = fleet.stats().breakers[0]["state"]
+        futs = [fleet.submit(rng.integers(0, 400, size=3)) for _ in range(6)]
+        drain(futs)
+    st = fleet.stats()
+    fleet.close()
+    attempts = [first.result().attempts] + [f.result().attempts for f in futs]
+    if state != "open" or attempts != [2] + [1] * 6 or st.routed != (1, 7) or st.failed:
+        raise AssertionError(f"chaos: breaker {state}, attempts {attempts}, routed "
+                             f"{st.routed}, failed {st.failed}")
+    log(f"[serve-chaos] replica0 fails every inference: its breaker opened after the first "
+        f"request (retried on replica1), the next 6 went to replica1 alone (routed "
+        f"{st.routed}), every future resolved")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -1995,6 +2521,14 @@ def main():
     torch.cuda.empty_cache()
     bag_launches, bag_full_err, bag = recsys_phase()
     recsys_small_phase()
+    gc.collect()                       # the recsys table goes before the serving models
+    torch.cuda.empty_cache()
+    serve_build, capacity = serve_engine_phase()
+    serve_launches = serve_open_loop_phase(capacity)
+    serve_publish = serve_publish_phase()
+    serve_chaos_phase()
+    gibbs_paths.update(launch_serve=serve_launches, serve_engine_build=serve_build,
+                       serve_publish_train=serve_publish)
 
     log(json.dumps({"kernels": [
         dict(name="gibbs_argmax", route="cuda", source="src/repro_torch/csrc/gibbs_argmax.cu",
