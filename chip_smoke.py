@@ -43,6 +43,24 @@ streamed segments, killed at a segment boundary and resumed, from a
 ``--corpus-dir``, and with the first segment read failing under a
 ``FaultPlane`` (retried), all bit for bit with the uninterrupted run.
 
+Then Peacock's hierarchical architecture, one process per rank of a (pods,
+data, model) mesh over torch.distributed (gloo; the ranks share the card
+through ``ranks_per_device``, so their times are the process model's
+overhead, not scaling), in one world of 4 ranks: FULL's shard on a 4×1 ring
+at K = 100,000, V = 32,768 ([ring]: 3 dense epochs in each ring form and 3
+alias epochs after one table build, the invariants and a rising word LL,
+``gibbs_argmax`` and ``mh_resample`` held on rank 0, the rotation and the Ψ
+all_reduce timed with their bytes); the shard word-sharded 2×2 against the
+2×1 ring, bit for bit in both samplers ([word-sharded]); SMALL's corpus on a
+2×2 ring, card against CPU ([ring card vs cpu]); 2 pods × a 2×1 ring at V =
+16,384 for 6 epochs ([pods]: the exact and the compressed merge at the
+first boundary, within the quantization bound; at the second pod 1 is dead,
+``restart_pod`` brings it back from its own checkpoint and the elastic merge
+drops its delta). Then ``launch.train`` starting its own ranks
+([launch.train multi-rank]): ``--pods 2 --data-shards 2`` killed between
+boundaries and resumed, equal and publishing the same model, and a
+``--sharded-model`` checkpoint resumed at P = 1.
+
 Then the recsys serving path at full width: dlrm-mlperf (the 187,767,552 ×
 128 bf16 embedding table of the MLPerf Criteo-1TB config, nothing cut) with
 the ``embedding_bag`` kernel checked at the bulk batch's gather, 200 timed
@@ -2463,6 +2481,748 @@ def serve_chaos_phase():
         f"{st.routed}), every future resolved")
 
 
+# ----------------------------------------------------------- multi-rank
+# Peacock's hierarchical architecture on one card: one process per rank of a
+# (pods, data, model) mesh, torch.distributed over gloo, all ranks on cuda:0
+# through ranks_per_device. Ranks that share one card measure the overhead of
+# the process model (time slicing between the ranks' contexts, every
+# collective through pinned host memory), not scaling.
+# [ring]: FULL's shard on a 4×1 ring, 3 dense epochs in each ring form, 3 alias
+# epochs after one table build; [word-sharded]: 2×2 (P = 2) against 2×1, 2
+# epochs each sampler; [ring card vs cpu]: SMALL's corpus on a 2×2 ring; [pods]:
+# 2 pods × a 2×1 ring at V = 16,384 (reduced: two Φ replicas, their refs and
+# four ranks' planes must fit one card), 6 epochs, a merge every 3: exact and
+# compressed at the first boundary, elastic with pod 1 dead and restarted from
+# its own checkpoint at the second.
+RING = dict(data=4, epochs=3, alias_epochs=3, reps=10)
+WSHARD = dict(data=2, model=2, epochs=2)
+RING_SMALL = dict(data=2, model=2, epochs=4)
+PODS = dict(pods=2, data=2, vocab=16_384, epochs=6, agg_every=3)
+LAUNCH_RANKS = dict(epochs=6, agg_every=2, kill_at=3, ckpt_every=3, sharded_ckpt_every=4)
+SEED0 = 11
+
+
+def rank0_log(layout, msg):
+    if layout.rank == 0:
+        log(msg)
+
+
+def sync_ranks(layout=None, group="world"):
+    """Wait for the card, then for the ranks of ``group``."""
+    torch.cuda.synchronize()
+    g, ranks = layout.group(group) if layout is not None else (None, [0, 1])
+    if len(ranks) > 1:
+        torch.distributed.barrier(group=g)
+
+
+def zero_counts():
+    from repro_torch.kernels.alias import ops as alias_ops
+    from repro_torch.kernels.gibbs import ops as gibbs_ops
+    gibbs_ops.launches = alias_ops.build_launches = alias_ops.mh_launches = 0
+
+
+def read_counts():
+    from repro_torch.kernels.alias import ops as alias_ops
+    from repro_torch.kernels.gibbs import ops as gibbs_ops
+    return dict(gibbs_argmax=gibbs_ops.launches, alias_build=alias_ops.build_launches,
+                mh_resample=alias_ops.mh_launches)
+
+
+def sha(t):
+    """SHA-256 of a tensor's bytes: equal digests are equal bits."""
+    import hashlib
+    a = np.ascontiguousarray(t.detach().cpu().numpy())
+    return hashlib.sha256(a.view(np.uint8).reshape(-1)).hexdigest()
+
+
+def ring_config(sc, K, V, M, sampler, P=1, doc_cap=0, **knobs):
+    from repro_torch.core.distributed import RingConfig
+    cap = sc.word_local.shape[-1]
+    return RingConfig(n_topics=K, vocab_size=V, rows_per_shard=sc.rows_per_shard,
+                      docs_per_shard=sc.docs_per_shard, cap=cap, package_len=cap, n_rounds=M,
+                      model_shards=P, sampler=sampler, n_mh=4, doc_topic_cap=doc_cap, **knobs)
+
+
+def rank_invariants(layout, st, cfg, n_tokens, label, pod_axis=False):
+    """Φ of every rank equals the counts of its rows over every pod's
+    travelling z (for pods: right after an exact merge), Σ Φ over the pod's
+    ranks is Ψ, and Σ Ψ is the token count. A collective over the world with
+    ``pod_axis``, else over the rank's ring."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.dist import collectives as coll, sharding as shd
+    torch.cuda.empty_cache()            # the ranks share the card: give back what is free
+    lead, ring = (2 if pod_axis else 1), layout.data * layout.model
+    spec = dist.specs(cfg.model_shards)["stack"]
+    over, pods = ("world", layout.pods) if pod_axis else ("ring", 1)
+    gathered = [coll.all_gather(st[i], layout, over).cpu().numpy() for i in (2, 5)]
+    stacks = [tuple(shd.assemble([v.reshape(v.shape[lead - 1:]) for v in g[p * ring:(p + 1) * ring]],
+                                 spec, dist.pod_layout(layout)) for g in gathered)
+              for p in range(pods)]
+    phi, psi = dist.rank_counts(stacks, cfg.n_topics, cfg.rows_per_shard, cfg.model_shards,
+                                layout, "cuda")
+    same = torch.equal(phi, st[0].reshape(phi.shape))
+    del phi
+    col = st[0].reshape(-1, cfg.n_topics).sum(dim=0, dtype=torch.int64)
+    coll.all_reduce_(col, layout, "ring")
+    psi_l = st[1].reshape(-1)
+    if not (same and torch.equal(col, psi_l.long()) and torch.equal(psi, psi_l)
+            and int(psi_l.sum()) == n_tokens):
+        raise AssertionError(f"{label}: rank {layout.rank}: Φ is not the counts of the "
+                             f"travelling z, or Σ Φ is not Ψ, or Σ Ψ is not {n_tokens}")
+
+
+def max_abs_diff(a, b, rows=2048):
+    """max |a − b| over two equal-shape int tensors, a block of rows at a time."""
+    K = a.shape[-1]
+    a2, b2 = a.reshape(-1, K), b.reshape(-1, K)
+    return max(int((a2[lo:lo + rows] - b2[lo:lo + rows]).abs().max())
+               for lo in range(0, a2.shape[0], rows))
+
+
+def peak_gib():
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def free_card():
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def ring_rank(layout, sc, doc_cap, n_tokens):
+    """[ring] on this rank of the 4×1 mesh."""
+    from repro_torch.core import distributed as dist, sparse
+    from repro_torch.dist import collectives as coll
+    from repro_torch.kernels.alias import ops as alias_ops
+    from repro_torch.kernels.gibbs import ops as gibbs_ops
+    K, V, M = FULL["n_topics"], FULL["vocab"], layout.data * layout.model
+    alpha = torch.full((K,), 50.0 / K, device="cuda")
+    beta = torch.tensor(0.01, device="cuda")
+    out = {}
+    forms = (("default", {}), ("optimized", dict(theta_dtype=torch.int8, column_exclusion=True,
+                                                  small_theta=True)))
+    for form, knobs in forms:
+        free_card()
+        cfg = ring_config(sc, K, V, M, "dense", **knobs)
+        st = dist.rank_arrays([sc], K, layout, device="cuda")
+        epoch = dist.build_epoch_body(cfg, layout)
+        ll0 = dist.ring_word_log_likelihood(st[0], st[1], beta, sc, layout)
+        sync_ranks()
+        # ---- the main path: counts from 0, the epochs ----
+        zero_counts()
+        secs = []
+        for e in range(RING["epochs"]):
+            t0 = time.perf_counter()
+            st = epoch(*st, alpha, beta, SEED0 + e)
+            sync_ranks()
+            secs.append(time.perf_counter() - t0)
+        n = read_counts()
+        # ---- end of the main path ----
+        rank_invariants(layout, st, cfg, n_tokens, f"ring 4x1 {form}")
+        ll = dist.ring_word_log_likelihood(st[0], st[1], beta, sc, layout)
+        if not ll > ll0:
+            raise AssertionError(f"ring 4x1 {form}: the word LL did not rise ({ll0} -> {ll})")
+        res = dict(secs=secs, launches=n["gibbs_argmax"], ll=(ll0, ll), peak=peak_gib())
+        if form == "default":
+            check = (gibbs_check("cuda", "ring 4x1") if layout.rank == 0
+                     else (lambda zk, args: None))
+            with held(gibbs_ops, "gibbs_argmax", check, first_only=True) as seen:
+                epoch(*st, alpha, beta, 99)
+            sync_ranks()
+            res["held"] = seen[0]
+            rot, red = [], []
+            stack_bytes = sum(st[i].numel() * st[i].element_size() for i in (2, 3, 4, 5))
+            for _ in range(RING["reps"]):
+                sync_ranks()
+                t0 = time.perf_counter()
+                coll.Shift(layout, "ring", [st[2][0], st[3][0], st[4][0]]).wait()
+                coll.shift(layout, "ring", [st[5][0]])
+                torch.cuda.synchronize()
+                rot.append((time.perf_counter() - t0) * 1e3)
+                d = st[1].clone()
+                sync_ranks()
+                t0 = time.perf_counter()
+                coll.all_reduce_(d, layout, "ring")
+                torch.cuda.synchronize()
+                red.append((time.perf_counter() - t0) * 1e3)
+            res.update(rotation_ms=float(np.median(rot)), rotation_bytes=stack_bytes,
+                       psi_reduce_ms=float(np.median(red)), psi_bytes=st[1].numel() * 4)
+        out[form] = res
+        del st
+    # ---- alias: one table build, then the epochs ----
+    free_card()
+    cfg = ring_config(sc, K, V, M, "alias", doc_cap=doc_cap)
+    st = dist.rank_arrays([sc], K, layout, device="cuda")
+    epoch = dist.build_epoch_body(cfg, layout)
+    ll0 = dist.ring_word_log_likelihood(st[0], st[1], beta, sc, layout)
+    sync_ranks()
+    zero_counts()
+    t0 = time.perf_counter()
+    tabs = tuple(sparse.make_tables(st[0], st[1], alpha, beta, V))
+    sync_ranks()
+    build_s = time.perf_counter() - t0
+    secs = []
+    for e in range(RING["alias_epochs"]):
+        t0 = time.perf_counter()
+        st = epoch(*st, alpha, beta, SEED0 + e, *tabs)
+        sync_ranks()
+        secs.append(time.perf_counter() - t0)
+    n = read_counts()
+    ll = dist.ring_word_log_likelihood(st[0], st[1], beta, sc, layout)
+    check = mh_check("ring 4x1 alias") if layout.rank == 0 else (lambda zk, args: None)
+    with held(alias_ops, "mh_resample", check, first_only=True) as seen:
+        epoch(*st, alpha, beta, 99, *tabs)
+    sync_ranks()
+    out["alias"] = dict(secs=secs, build_s=build_s, launches=n, ll=(ll0, ll), held=seen[0],
+                        peak=peak_gib())
+    del tabs                            # four ranks' tables and counts would not fit
+    rank_invariants(layout, st, cfg, n_tokens, "ring 4x1 alias")
+    del st
+    free_card()
+    return out
+
+
+def wshard_rank(layout, sc, doc_cap, reference):
+    """[word-sharded] on this rank: 2 epochs of each sampler; the digests of
+    Φ's rows in the P = 2 slice order (``reference``: this rank is a 2×1 rank
+    and digests its rows j::2 for each slice j), Ψ and the rank's stacks.
+    Collectives over the rank's ring only (the reference runs on pod 0 of a
+    2 × 2×1 mesh while pod 1 waits)."""
+    from repro_torch.core import distributed as dist, sparse
+    K, V = FULL["n_topics"], FULL["vocab"]
+    P = layout.model if not reference else 1
+    alpha = torch.full((K,), 50.0 / K, device="cuda")
+    beta = torch.tensor(0.01, device="cuda")
+    out = {}
+    for sampler in ("dense", "alias"):
+        free_card()
+        cfg = ring_config(sc, K, V, layout.data, sampler, P=P, doc_cap=doc_cap)
+        st = dist.rank_arrays([sc], K, layout, device="cuda")
+        epoch = dist.build_epoch_body(cfg, layout)
+        sync_ranks(layout, "ring")
+        zero_counts()
+        tabs = tuple(sparse.make_tables(st[0], st[1], alpha, beta, V)) if sampler == "alias" \
+            else ()
+        secs = []
+        for e in range(WSHARD["epochs"]):
+            t0 = time.perf_counter()
+            st = epoch(*st, alpha, beta, SEED0 + e, *tabs)
+            sync_ranks(layout, "ring")
+            secs.append(time.perf_counter() - t0)
+        n = read_counts()
+        peak = peak_gib()
+        del tabs
+        rank_invariants(layout, st, cfg, sc.n_real_tokens, f"word-sharded P={P} {sampler}")
+        view = st[0][0]
+        rows_coarse = sc.rows_coarse or sc.rows_per_shard
+        if reference:
+            digests = [sha(view[j::WSHARD["model"]]) for j in range(WSHARD["model"])]
+        else:
+            n_j = len(range(layout.model_index, rows_coarse, P))
+            if bool(view[n_j:].any()):
+                raise AssertionError(f"word-sharded rank {layout.rank}: a pad row holds counts")
+            digests = [sha(view[:n_j])]
+        out[sampler] = dict(digests=digests, psi=st[1].cpu().numpy(),
+                            stacks=[st[i].cpu().numpy() for i in (2, 4, 5)], secs=secs,
+                            launches=n, peak=peak)
+        del st, view
+    free_card()
+    return out
+
+
+def small_ring_rank(layout, sc, doc_cap):
+    """[ring card vs cpu] on this rank of a 2×2 ring: each sampler on the card
+    (every dense package held against the plain version on the CPU) and on
+    the CPU, from one z0."""
+    from repro_torch.core import distributed as dist, sparse
+    from repro_torch.kernels.gibbs import ops as gibbs_ops
+    K, V, M = SMALL["n_topics"], SMALL["vocab"], layout.data * layout.model
+    out = {}
+    for sampler in ("dense", "alias"):
+        cfg = ring_config(sc, K, V, M, sampler, doc_cap=doc_cap)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            alpha = torch.full((K,), 50.0 / K, device=dev)
+            beta = torch.tensor(0.01, device=dev)
+            st = dist.rank_arrays([sc], K, layout, device=dev)
+            epoch = dist.build_epoch_body(cfg, layout)
+            zero_counts()
+            tabs = tuple(sparse.make_tables(st[0], st[1], alpha, beta, V)) \
+                if sampler == "alias" else ()
+            seen = []
+            ctx = (held(gibbs_ops, "gibbs_argmax", gibbs_check("cpu", "ring card vs cpu"))
+                   if dev == "cuda" and sampler == "dense" else contextlib.nullcontext(seen))
+            with ctx as seen:
+                for e in range(RING_SMALL["epochs"]):
+                    st = epoch(*st, alpha, beta, SEED0 + e, *tabs)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                res["launches"] = read_counts()
+                res["ties"] = sum(x["mismatches"] for x in seen)
+            res[dev] = [x.cpu().numpy() for x in st]
+        out[sampler] = res
+    return out
+
+
+def pod_checkpoint_tree(layout, st, cfg, alpha):
+    """The pod's state in the single-configuration global layout, assembled
+    on the pod's first rank (``None`` on the others; a collective over the
+    pod's ranks)."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.dist import sharding as shd
+    sp = dist.specs(cfg.model_shards)
+    parts = []
+    for i, x in enumerate(st):
+        v = x[0]                                     # drop the pod dim
+        spec = sp["phi"] if i == 0 else sp["psi"] if i == 1 else sp["stack"]
+        if spec == ():
+            parts.append(v.cpu().numpy())
+            continue
+        views = dist.gather_views(v, layout, "ring")
+        parts.append(None if views is None else shd.assemble(views, spec,
+                                                             dist.pod_layout(layout)))
+    first = layout.rank % (layout.data * layout.model) == 0
+    return {"state": tuple(parts), "alpha": alpha.cpu().numpy()} if first else None
+
+
+def pods_rank(layout, scs, n_tokens, root):
+    """[pods] on this rank of the 2 × (2×1) mesh."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import distributed as dist, hierarchy
+    from repro_torch.dist import collectives as coll, sharding as shd
+    K, V = FULL["n_topics"], PODS["vocab"]
+    free_card()
+    cfg = ring_config(scs[0], K, V, layout.data * layout.model, "dense")
+    alpha = torch.full((K,), 50.0 / K, device="cuda")
+    beta = torch.tensor(0.01, device="cuda")
+    st = hierarchy.init_pod_state(scs, K, layout, device="cuda")
+    epoch_fn = hierarchy.make_pod_ring_epoch(cfg, layout)
+    exact = hierarchy.make_aggregate(layout)
+    compressed = hierarchy.make_aggregate(layout, compressed=True)
+    elastic = hierarchy.make_elastic_aggregate(layout)
+    mgr = CheckpointManager(root, keep=2)
+    pod, first = layout.pod_index, layout.rank % (layout.data * layout.model) == 0
+    pod_sha = lambda x: [s for s in _all_gather_object(sha(x), layout, "pod")]
+    res = dict(epoch_s=[], agg={})
+
+    def timed_epoch(*args):
+        t0 = time.perf_counter()
+        out = epoch_fn(*args)
+        sync_ranks()
+        res["epoch_s"].append(time.perf_counter() - t0)
+        return out
+
+    def agg(phi, psi, phi_ref, psi_ref, live, seed):
+        if (len(res["agg"]) == 0):
+            # boundary 1: the exact merge, and the compressed one on a copy
+            phi_c, psi_c = phi.clone(), psi.clone()
+            amax = torch.tensor(float(max_abs_diff(phi, phi_ref)), device="cuda")
+            scale = float(coll.shared_scale(amax, layout, "pod"))
+            sync_ranks()
+            t0 = time.perf_counter()
+            exact(phi, psi, phi_ref, psi_ref, seed=seed)
+            sync_ranks()
+            t_exact = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            compressed(phi_c, psi_c, phi_ref, psi_ref, seed=seed)
+            sync_ranks()
+            t_comp = time.perf_counter() - t0
+            err = max_abs_diff(phi_c, phi)
+            bound = layout.pods * scale + 0.5
+            if err > bound or not torch.equal(psi_c, psi):
+                raise AssertionError(f"pods: the compressed merge is {err} from the exact one, "
+                                     f"beyond the quantization bound {bound:.3f}")
+            del phi_c, psi_c
+            digests = pod_sha(phi)
+            if len(set(digests)) != 1:
+                raise AssertionError("pods: the pods disagree after the exact merge")
+            rank_invariants(layout, (phi, psi) + tuple(cur[2:]), cfg, n_tokens,
+                            "pods after the exact merge", pod_axis=True)
+            # pod 1 checkpoints itself, assembled on its first rank
+            t0 = time.perf_counter()
+            if pod == 1:
+                tree = pod_checkpoint_tree(layout, (phi, psi) + tuple(cur[2:]), cfg, alpha)
+                if first:
+                    mgr.save(1, tree, meta={"epoch": PODS["agg_every"]}, pod=pod)
+                del tree
+            torch.distributed.barrier()
+            t_ckpt = time.perf_counter() - t0
+            res["agg"]["boundary 1"] = dict(
+                exact_s=t_exact, compressed_s=t_comp, max_err=err, bound=bound, scale=scale,
+                exact_bytes=phi.numel() * 4 + psi.numel() * 4,
+                compressed_bytes=phi.numel() + psi.numel() * 4, ckpt_s=t_ckpt)
+            return phi, psi
+        # boundary 2: pod 1 failed; it restarts from its own checkpoint and
+        # its delta is dropped by the elastic merge
+        t0 = time.perf_counter()
+        if pod == 1:
+            # the pod's first rank reads the checkpoint and hands each rank its view
+            group, members = layout.group("ring")
+            tree = None
+            if first:
+                like = {"state": tuple(np.zeros(0) for _ in range(6)), "alpha": np.zeros(0)}
+                tree, _ = mgr.restart_pod(1, like)
+            sp, lay1 = dist.specs(cfg.model_shards), dist.pod_layout(layout)
+            for i, spec in ((0, sp["phi"]), (1, sp["psi"]), (5, sp["stack"])):
+                buf = torch.empty(cur[i][0].shape, dtype=cur[i][0].dtype)
+                parts = None if tree is None else [
+                    torch.from_numpy(np.ascontiguousarray(shd.local_view(
+                        np.asarray(tree["state"][i]), spec, lay1, rank=r % len(members))))
+                    for r in members]
+                torch.distributed.scatter(buf, parts, src=members[0], group=group)
+                cur[i][0].copy_(buf)
+            del tree
+            # it saved the merged state of boundary 1, which is this window's ref
+            if not (torch.equal(phi, phi_ref) and torch.equal(psi, psi_ref)):
+                raise AssertionError("pods: pod 1's restarted state is not what it saved")
+        torch.distributed.barrier()
+        t_restart = time.perf_counter() - t0
+        before = phi.clone() if pod == 0 else None
+        sync_ranks()
+        t0 = time.perf_counter()
+        elastic(phi, psi, phi_ref, psi_ref, live=live, seed=seed)
+        sync_ranks()
+        t_el = time.perf_counter() - t0
+        # pod 1's delta dropped: pod 0 keeps its state and pod 1 gets it
+        kept = bool(torch.equal(phi, before)) if pod == 0 else True
+        del before
+        if elastic.last_n_live != 1 or not all(_all_gather_object(kept, layout, "world")) \
+                or len(set(pod_sha(phi))) != 1:
+            raise AssertionError(f"pods: the elastic merge with pod 1 dead left n_live "
+                                 f"{elastic.last_n_live}, or the pods off pod 0's state")
+        res["agg"]["boundary 2"] = dict(elastic_s=t_el, restart_s=t_restart,
+                                        n_live=elastic.last_n_live)
+        return phi, psi
+
+    cur = list(st)          # the epochs update these tensors in place
+    sync_ranks()
+    # ---- the main path: counts from 0, run_hierarchical ----
+    zero_counts()
+    out = hierarchy.run_hierarchical(
+        timed_epoch, agg, st, alpha, beta, PODS["epochs"], PODS["agg_every"], seed0=SEED0,
+        liveness=lambda ep: [1, 1] if ep < PODS["agg_every"] else [1, 0])
+    n = read_counts()
+    # ---- end of the main path ----
+    rank_invariants(layout, out, cfg, n_tokens, "pods after the elastic merge", pod_axis=True)
+    res.update(launches=n, peak=peak_gib())
+    del out, st, cur
+    free_card()
+    return res
+
+
+def _all_gather_object(obj, layout, name):
+    group, ranks = layout.group(name)
+    got = [None] * len(ranks)
+    torch.distributed.all_gather_object(got, obj, group=group)
+    return got
+
+
+def world_a(layout, sc4, sc_p2, sc_p1, sc_small, scs_pods, doc_caps, tokens, root):
+    """One world of 4 ranks on the card for [ring], [word-sharded] (2×2, and
+    its 2×1 reference on pod 0 of the pods' mesh), [ring card vs cpu] and
+    [pods], each mesh over the same ranks."""
+    from repro_torch.launch import mesh
+    t = {}
+    t0 = time.perf_counter()
+    out = {"ring": ring_rank(layout, sc4, doc_caps["full"], tokens["full"])}
+    t["ring"] = time.perf_counter() - t0
+    rank0_log(layout, f"[ranks] ring 4x1 done in {t['ring']:.1f} s")
+    lay22 = mesh.relayout(layout, 1, WSHARD["data"], WSHARD["model"])
+    t0 = time.perf_counter()
+    out["wshard"] = wshard_rank(lay22, sc_p2, doc_caps["full"], reference=False)
+    t["wshard"] = time.perf_counter() - t0
+    rank0_log(layout, f"[ranks] word-sharded 2x2 done in {t['wshard']:.1f} s")
+    t0 = time.perf_counter()
+    out["small"] = small_ring_rank(lay22, sc_small, doc_caps["small"])
+    t["small"] = time.perf_counter() - t0
+    rank0_log(layout, f"[ranks] ring card vs cpu done in {t['small']:.1f} s")
+    lay_pods = mesh.relayout(layout, PODS["pods"], PODS["data"], 1)
+    t0 = time.perf_counter()
+    if lay_pods.pod_index == 0:         # the 2x1 reference on pod 0's ring
+        out["wshard_ref"] = wshard_rank(lay_pods, sc_p1, doc_caps["full"], reference=True)
+    torch.distributed.barrier()
+    t["wshard_ref"] = time.perf_counter() - t0
+    rank0_log(layout, f"[ranks] word-sharded 2x1 reference done in {t['wshard_ref']:.1f} s")
+    t0 = time.perf_counter()
+    out["pods"] = pods_rank(lay_pods, scs_pods, tokens["pods"], root)
+    t["pods"] = time.perf_counter() - t0
+    out["seconds"] = t
+    return out
+
+
+def ranks_phase(corpus):
+    """[ring], [word-sharded], [ring card vs cpu] and [pods]: the multi-rank
+    paths at full width on the card, in one spawned world of 4 ranks."""
+    import shutil
+    from repro_torch.core import sparse
+    from repro_torch.data import corpus as corpus_mod, synthetic
+    from repro_torch.launch import mesh
+    K = FULL["n_topics"]
+    t0 = time.perf_counter()
+    sc4 = corpus_mod.shard_corpus(corpus, 4, 4, K, seed=1)
+    sc_p2 = corpus_mod.shard_corpus(corpus, 2, 2, K, seed=1, n_model_shards=2)
+    sc_p1 = corpus_mod.shard_corpus(corpus, 2, 2, K, seed=1)
+    small, _ = synthetic.lda_corpus(seed=0, n_docs=SMALL["n_docs"], n_topics=SMALL["gen_topics"],
+                                    vocab_size=SMALL["vocab"], doc_len_mean=9)
+    sc_small = corpus_mod.shard_corpus(small, 4, 4, SMALL["n_topics"], seed=1)
+    pcorpus, _ = synthetic.lda_corpus(seed=0, n_docs=FULL["n_docs"], n_topics=FULL["gen_topics"],
+                                      vocab_size=PODS["vocab"], query_like=True)
+    scs = corpus_mod.shard_corpus_pods(pcorpus, PODS["pods"], PODS["data"], PODS["data"], K,
+                                       seed=1)
+    doc_caps = dict(full=sparse.suggest_cap(corpus.doc_lengths(), K),
+                    small=sparse.suggest_cap(small.doc_lengths(), SMALL["n_topics"]))
+    tokens = dict(full=corpus.n_tokens, pods=pcorpus.n_tokens)
+    root = os.path.join(ROOT, "build", "chip_smoke_pods")
+    shutil.rmtree(root, ignore_errors=True)
+    # the ranks share the card: segments that grow keep each rank's cache small
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    log(f"[ranks] sharded on the host in {time.perf_counter() - t0:.1f} s: ring 4x1 cap "
+        f"{sc4.word_local.shape[-1]} rows {sc4.rows_per_shard}; word-sharded 2x2 cap "
+        f"{sc_p2.word_local.shape[-1]} rows {sc_p2.rows_per_shard} (coarse {sc_p2.rows_coarse}); "
+        f"pods corpus V={PODS['vocab']}: {pcorpus.n_docs} docs, {pcorpus.n_tokens} tokens, cap "
+        f"{scs[0].word_local.shape[-1]} rows {scs[0].rows_per_shard}; free disk under build/ "
+        f"{shutil.disk_usage(ROOT).free / 2**30:.1f} GiB")
+    t0 = time.perf_counter()
+    a = mesh.spawn(world_a, data=4, device="cuda", ranks_per_device=4, backend="gloo",
+                   args=(sc4, sc_p2, sc_p1, sc_small, scs, doc_caps, tokens, root))
+    t_a = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    card = card_line()
+    secs = a[0]["seconds"]
+    log(f"[ranks] world of 4 ranks on one card: {t_a:.1f} s (ring {secs['ring']:.1f}, "
+        f"word-sharded {secs['wshard']:.1f}, card vs cpu {secs['small']:.1f}, 2x1 reference "
+        f"{secs['wshard_ref']:.1f}, pods {secs['pods']:.1f}); card {card}")
+    return ranks_report(a, [r["wshard_ref"] for r in a[:2]], corpus, card)
+
+
+def _sum_counts(results, key):
+    out = {}
+    for r in results:
+        for k, v in key(r).items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def ranks_report(a, b, corpus, card):
+    """Check and print what the worlds returned; returns the launches by path."""
+    T = corpus.n_tokens
+    ring = [r["ring"] for r in a]
+    for form in ("default", "optimized"):
+        secs = np.max([r[form]["secs"] for r in ring], axis=0)
+        n = sum(r[form]["launches"] for r in ring)
+        want = 4 * RING["epochs"] * RING["data"]
+        if n != want:
+            raise AssertionError(f"ring 4x1 {form}: gibbs_argmax launched {n}, expected {want}")
+        log(f"[ring] 4x1, {form} form ({RING['epochs']} epochs, K={FULL['n_topics']} "
+            f"V={FULL['vocab']}, {T} tokens): epoch s {[round(float(s), 4) for s in secs]}, "
+            f"tokens/s {[round(T / float(s), 1) for s in secs]}; word LL "
+            f"{ring[0][form]['ll'][0]:.6e} -> {ring[0][form]['ll'][1]:.6e}; launches "
+            f"gibbs_argmax={n} (expected {want}); peak GiB per rank "
+            f"{[round(r[form]['peak'], 2) for r in ring]} (sum "
+            f"{sum(r[form]['peak'] for r in ring):.2f}); card {card}")
+    r0 = ring[0]["default"]
+    log(f"[ring] 4x1 default, rank 0, first package of an epoch: gibbs_argmax against its plain "
+        f"version on the card: {r0['held']}; differing draws are near-ties (≤ 4 ulp)")
+    log(f"[ring] rotation (wl, dl, uid, then z; one hop, through pinned host memory): "
+        f"{r0['rotation_ms']:.3f} ms a round (median of {RING['reps']}, rank 0; ranks "
+        f"{[round(r['default']['rotation_ms'], 3) for r in ring]}), {r0['rotation_bytes']} "
+        f"bytes a rank; Ψ all_reduce ({r0['psi_bytes']} bytes) {r0['psi_reduce_ms']:.3f} ms "
+        f"(ranks {[round(r['default']['psi_reduce_ms'], 3) for r in ring]}); card {card}")
+    al = [r["ring"]["alias"] for r in a]
+    n = _sum_counts(al, lambda r: r["launches"])
+    want = dict(mh_resample=4 * RING["alias_epochs"] * RING["data"], alias_build=8)
+    if n["mh_resample"] != want["mh_resample"] or n["alias_build"] != want["alias_build"]:
+        raise AssertionError(f"ring 4x1 alias: launches {n}, expected {want}")
+    secs = np.max([r["secs"] for r in al], axis=0)
+    log(f"[ring] 4x1 alias ({RING['alias_epochs']} epochs after one table build of "
+        f"{max(r['build_s'] for r in al):.3f} s): epoch s {[round(float(s), 4) for s in secs]}, "
+        f"tokens/s {[round(T / float(s), 1) for s in secs]}; word LL {al[0]['ll'][0]:.6e} -> "
+        f"{al[0]['ll'][1]:.6e}; launches {n}; mh_resample held on rank 0: {al[0]['held']}; "
+        f"peak GiB per rank {[round(r['peak'], 2) for r in al]} (sum "
+        f"{sum(r['peak'] for r in al):.2f}); card {card}")
+    # [word-sharded]: 2x2 against the 2x1 reference
+    launches = dict(ring_4x1_gibbs=sum(r["ring"]["default"]["launches"] for r in a),
+                    ring_4x1_optimized=sum(r["ring"]["optimized"]["launches"] for r in a),
+                    ring_4x1_alias=n)
+    for sampler in ("dense", "alias"):
+        got = [r["wshard"][sampler] for r in a]
+        ref = [r[sampler] for r in b]
+        for rank, g in enumerate(got):
+            d, j = rank // WSHARD["model"], rank % WSHARD["model"]
+            if g["digests"][0] != ref[d]["digests"][j]:
+                raise AssertionError(f"word-sharded {sampler}: rank {rank}'s Φ slice differs "
+                                     f"from the 2x1 ring's rows {j}::2 of shard {d}")
+            if not np.array_equal(g["psi"], ref[d]["psi"]):
+                raise AssertionError(f"word-sharded {sampler}: Ψ differs from the 2x1 ring's")
+        zs = []
+        for side in (got, ref):
+            z = np.zeros(T, np.int32)
+            for r in side:
+                wl, uid, zz = r["stacks"]
+                z[uid[wl >= 0]] = zz[wl >= 0]
+            zs.append(z)
+        if not np.array_equal(*zs):
+            raise AssertionError(f"word-sharded {sampler}: z differs from the 2x1 ring's")
+        kern = "gibbs_argmax" if sampler == "dense" else "mh_resample"
+        n22 = _sum_counts(got, lambda r: r["launches"])
+        n21 = _sum_counts(ref, lambda r: r["launches"])
+        want = 4 * WSHARD["epochs"] * WSHARD["data"]
+        if n22[kern] != want or n21[kern] != 2 * WSHARD["epochs"] * WSHARD["data"]:
+            raise AssertionError(f"word-sharded {sampler}: launches 2x2 {n22}, 2x1 {n21}")
+        launches[f"word_sharded_2x2_{sampler}"] = n22
+        launches[f"word_sharded_2x1_{sampler}"] = n21
+        s22 = np.max([g["secs"] for g in got], axis=0)
+        s21 = np.max([r["secs"] for r in ref], axis=0)
+        log(f"[word-sharded] {sampler}: 2x2 (P=2) equals 2x1 bit for bit after "
+            f"{WSHARD['epochs']} epochs (Φ slices by SHA-256 against the 2x1 rows j::2, Ψ, z "
+            f"by uid); epoch s 2x2 {[round(float(s), 4) for s in s22]} (tokens/s "
+            f"{[round(T / float(s), 1) for s in s22]}), 2x1 {[round(float(s), 4) for s in s21]} "
+            f"(tokens/s {[round(T / float(s), 1) for s in s21]}); launches 2x2 {n22}, 2x1 {n21}; "
+            f"peak GiB per rank 2x2 {[round(g['peak'], 2) for g in got]} (sum "
+            f"{sum(g['peak'] for g in got):.2f}), 2x1 {[round(r['peak'], 2) for r in ref]} (sum "
+            f"{sum(r['peak'] for r in ref):.2f}); card {card}")
+    # [ring card vs cpu]
+    for sampler in ("dense", "alias"):
+        res = [r["small"][sampler] for r in a]
+        diff = {name: sum(int((r["cuda"][i] != r["cpu"][i]).sum()) for r in res)
+                for name, i in (("phi", 0), ("psi", 1), ("z", 5))}
+        ties = sum(r["ties"] for r in res)
+        if sampler == "alias" and any(diff.values()):
+            raise AssertionError(f"ring card vs cpu, alias: card and CPU differ {diff}")
+        if sampler == "dense" and any(diff.values()) and not ties:
+            raise AssertionError(f"ring card vs cpu, dense: card and CPU differ {diff} with no "
+                                 f"differing draw")
+        n = _sum_counts(res, lambda r: r["launches"])
+        launches[f"ring_card_vs_cpu_{sampler}"] = n
+        log(f"[ring card vs cpu] {sampler}: 2x2 ring, K={SMALL['n_topics']} V={SMALL['vocab']}, "
+            f"{RING_SMALL['epochs']} epochs on the card and on the CPU: entries that differ "
+            f"{diff}; draws differing from the plain version on the CPU {ties} (near-ties); "
+            f"launches on the card {n}")
+    # [pods]
+    pods = [r["pods"] for r in a]
+    n = _sum_counts(pods, lambda r: r["launches"])
+    want = 4 * PODS["epochs"] * PODS["data"]
+    if n["gibbs_argmax"] != want:
+        raise AssertionError(f"pods: gibbs_argmax launched {n}, expected {want}")
+    launches["pods"] = n
+    b1 = [p["agg"]["boundary 1"] for p in pods]
+    b2 = [p["agg"]["boundary 2"] for p in pods]
+    secs = np.max([p["epoch_s"] for p in pods], axis=0)
+    log(f"[pods] 2 pods x 2x1 ring, K={FULL['n_topics']} V={PODS['vocab']} (reduced from "
+        f"{FULL['vocab']}), {PODS['epochs']} epochs, a merge every {PODS['agg_every']}: epoch s "
+        f"{[round(float(s), 4) for s in secs]}; launches {n}; card {card}")
+    log(f"[pods] boundary 1: exact merge {max(x['exact_s'] for x in b1) * 1e3:.1f} ms "
+        f"({b1[0]['exact_bytes']} bytes a rank through host memory and gloo), compressed "
+        f"{max(x['compressed_s'] for x in b1) * 1e3:.1f} ms ({b1[0]['compressed_bytes']} payload "
+        f"bytes a rank: int8 ΔΦ all-gathered, summed in int16; Ψ exact); compressed vs exact "
+        f"max |Δ| per rank {[x['max_err'] for x in b1]} within the bound "
+        f"{[round(x['bound'], 3) for x in b1]} (2·scale + 0.5); pods agree; pod 1's "
+        f"checkpoint {max(x['ckpt_s'] for x in b1):.1f} s; card {card}")
+    log(f"[pods] boundary 2: pod 1 dead, restart_pod(1) from its own checkpoint "
+        f"{max(x['restart_s'] for x in b2):.1f} s (its Φ equal to what it saved), elastic merge "
+        f"{max(x['elastic_s'] for x in b2) * 1e3:.1f} ms, last_n_live "
+        f"{b2[0]['n_live']}, the pods agree on pod 0's state; peak GiB per rank "
+        f"{[round(p['peak'], 2) for p in pods]} (sum {sum(p['peak'] for p in pods):.2f}); "
+        f"card {card}")
+    return launches
+
+
+def launch_small_model(results, P):
+    """(Φ [V, K], Ψ, z by token) of launch.train's 2-rank data ring (P = 1)
+    or 2×P word-sharded ranks, from the ranks' views."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.data import corpus as corpus_mod, synthetic
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.sharding import RankLayout
+    corpus, _ = synthetic.lda_corpus(seed=0, n_docs=SMALL["n_docs"], n_topics=SMALL["gen_topics"],
+                                     vocab_size=SMALL["vocab"], doc_len_mean=8)
+    sc = corpus_mod.shard_corpus(corpus, 2, 2, SMALL["n_topics"], seed=1, n_model_shards=P)
+    sp, layout = dist.specs(P), RankLayout(1, 2, P)
+    views = [r["state"] for r in results]
+    phi = shd.assemble([v[0] for v in views], sp["phi"], layout)
+    wl, uid, z = (shd.assemble([v[i] for v in views], sp["stack"], layout) for i in (2, 4, 5))
+    zt = np.zeros(corpus.n_tokens, np.int32)
+    zt[uid[wl >= 0]] = z[wl >= 0]
+    return dist.gather_phi(torch.from_numpy(phi), sc).numpy(), views[0][1], zt
+
+
+def launch_ranks_phase():
+    """[launch.train multi-rank]: ``repro_torch.launch.train.main`` starting
+    its own ranks on the card (gloo, ranks_per_device): SMALL's geometry on 2
+    pods × a 2×1 ring — an uninterrupted run that publishes, a run killed
+    after epoch 3 (a mid-window checkpoint) and resumed, which must equal it
+    rank by rank and publish the same model; then a ``--sharded-model``
+    (P = 2) run that checkpoints at epoch 4, and that checkpoint resumed at
+    P = 1 (resharded): its model (Φ by word, Ψ, z by token) must equal the
+    P = 2 run's final one."""
+    import shutil
+    from repro_torch.checkpoint import snapshots
+    from repro_torch.launch import train
+    S = LAUNCH_RANKS
+    root = os.path.join(ROOT, "build", "chip_smoke_ranks")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(ck, *extra, every=S["ckpt_every"]):
+        argv = ["--device", "cuda", "--backend", "gloo", "--docs", str(SMALL["n_docs"]),
+                "--vocab", str(SMALL["vocab"]), "--topics", str(SMALL["n_topics"]),
+                "--true-topics", str(SMALL["gen_topics"]), "--epochs", str(S["epochs"]),
+                "--agg-every", str(S["agg_every"]), "--alpha-opt-from", "2",
+                "--ckpt-every", str(every), "--bench-out", "",
+                "--ckpt-dir", os.path.join(root, ck), *extra]
+        t0 = time.perf_counter()
+        try:
+            out = train.main(argv), 0
+        except SystemExit as exc:
+            out = None, exc.code
+        return out + (time.perf_counter() - t0,)
+
+    def same(a, b, label):
+        for ra, rb in zip(a, b):
+            for i, (x, y) in enumerate(zip(ra["state"], rb["state"])):
+                if x.dtype != y.dtype or not np.array_equal(x, y):
+                    raise AssertionError(f"{label}: rank {ra['rank']}'s state leaf {i} differs")
+            if not np.array_equal(ra["alpha"], rb["alpha"]):
+                raise AssertionError(f"{label}: rank {ra['rank']}'s α differs")
+
+    counts = lambda results: _sum_counts(results, lambda r: r["launches"])
+    pods = ("--pods", "2", "--data-shards", "2", "--ranks-per-device", "4")
+    snap = {k: os.path.join(root, f"snap-{k}") for k in ("gold", "resumed")}
+    gold, _, t_gold = run("gold", *pods, "--publish-dir", snap["gold"])
+    _, code, t_kill = run("killed", *pods, "--kill-at", str(S["kill_at"]))
+    res, _, t_res = run("killed", *pods, "--resume", "--publish-dir", snap["resumed"])
+    n = dict(uninterrupted=counts(gold), resumed=counts(res))
+    want = dict(uninterrupted=4 * S["epochs"] * 2, resumed=4 * (S["epochs"] - S["kill_at"]) * 2)
+    if code != 17 or any(n[k]["gibbs_argmax"] != want[k] for k in want):
+        raise AssertionError(f"launch.train pods: kill exit {code}, launches {n}, want {want}")
+    same(gold, res, "launch.train pods, resumed vs uninterrupted")
+    models = {k: snapshots.load_snapshot(p, device="cuda") for k, p in snap.items()}
+    if not (torch.equal(models["gold"][0].pvk, models["resumed"][0].pvk)
+            and models["gold"][1]["epoch"] == models["resumed"][1]["epoch"] == S["epochs"]):
+        raise AssertionError("launch.train pods: the resumed run published another model")
+    log(f"[launch.train multi-rank] --pods 2 --data-shards 2 --ranks-per-device 4: killed "
+        f"after epoch {S['kill_at']} (exit 17, a checkpoint between boundaries) and resumed: "
+        f"every rank's state and α equal the uninterrupted run's bit for bit, both published "
+        f"v_{models['gold'][1]['version']:06d} models equal; launches {n}; seconds "
+        f"uninterrupted {t_gold:.1f}, killed {t_kill:.1f}, resumed {t_res:.1f}")
+    every = S["sharded_ckpt_every"]
+    p2, _, t_p2 = run("sharded", "--data-shards", "2", "--model-shards", "2", "--sharded-model",
+                      "--ranks-per-device", "4", every=every)
+    p1, _, t_p1 = run("sharded", "--data-shards", "2", "--ranks-per-device", "2", "--resume",
+                      every=every)
+    got = {P: launch_small_model(res, P) for P, res in ((2, p2), (1, p1))}
+    for i, name in enumerate(("phi by word", "psi", "z by token")):
+        if not np.array_equal(got[2][i], got[1][i]):
+            raise AssertionError(f"launch.train: the P = 2 checkpoint resumed at P = 1 ends with "
+                                 f"another {name} than the P = 2 run")
+    n.update(sharded_p2=counts(p2), sharded_resumed_p1=counts(p1))
+    log(f"[launch.train multi-rank] --sharded-model (P = 2, {t_p2:.1f} s) checkpointed at epoch "
+        f"{every}, resumed at P = 1 (resharded, {t_p1:.1f} s): the final Φ by word, Ψ and z by "
+        f"token equal the P = 2 run's bit for bit; launches {n['sharded_p2']} / "
+        f"{n['sharded_resumed_p1']}")
+    shutil.rmtree(root, ignore_errors=True)
+    return n
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -2482,24 +3242,43 @@ def main():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"[setup] {name}: {line.strip()}")
 
+    since = [time.perf_counter()]
+
+    def mark(label):
+        """Log the seconds since the last mark (the phases' share of the run)."""
+        now = time.perf_counter()
+        log(f"[time] {label}: {now - since[0]:.1f} s")
+        since[0] = now
+
     kernel = kernel_phase()
     alias_build, mh_small_err = alias_kernel_phase()
     bag_small_err = bag_kernel_phase()
+    mark("kernel phases")
     corpus = full_corpus()
     launches, gibbs_epoch_stats = full_width_phase(corpus)
     alias_launches, mh, cell_build = alias_phase(corpus)
+    mark("dense and alias cells")
     alias_build.update(cell_build)
     mh["max_abs_err"] = max(mh["max_abs_err"], mh_small_err)
     gc.collect()
     torch.cuda.empty_cache()
     trainer_launches, ll_launches = trainer_phase(corpus, gibbs_epoch_stats)
+    mark("trainer cell")
     gc.collect()
     torch.cuda.empty_cache()
     stream = stream_phase(corpus)
+    mark("stream cell")
     small_phase()
     alias_small_phase()
     small_launches = trainer_small_phase()
     stream_small = stream_small_phase()
+    mark("small loops")
+    gc.collect()                       # the ranks take the card
+    torch.cuda.empty_cache()
+    ranks = ranks_phase(corpus)
+    mark("ranks (ring, word-sharded, card vs cpu, pods)")
+    ranks_small = launch_ranks_phase()
+    mark("launch.train multi-rank")
     # `launches` is each kernel's count on its first path (gibbs_epoch, the
     # alias cell), as in earlier runs; launches_by_path gives every path
     small = lambda sampler, k: {r: c[k] for r, c in small_launches[sampler].items()}
@@ -2509,24 +3288,37 @@ def main():
                        launch_train_small=small("dense", "gibbs_argmax"),
                        stream_trainer=stream["gibbs"],
                        stream_ll_dense=stream["ll"]["dense"]["gibbs_argmax"],
-                       stream_launch_train_small=stream_small_of("dense", "gibbs_argmax"))
+                       stream_launch_train_small=stream_small_of("dense", "gibbs_argmax"),
+                       ring_4x1=ranks["ring_4x1_gibbs"],
+                       ring_4x1_optimized=ranks["ring_4x1_optimized"],
+                       word_sharded_2x2=ranks["word_sharded_2x2_dense"]["gibbs_argmax"],
+                       word_sharded_2x1=ranks["word_sharded_2x1_dense"]["gibbs_argmax"],
+                       ring_card_vs_cpu=ranks["ring_card_vs_cpu_dense"]["gibbs_argmax"],
+                       pods=ranks["pods"]["gibbs_argmax"],
+                       launch_train_ranks={k: v["gibbs_argmax"] for k, v in ranks_small.items()})
     alias_paths = {k: dict(alias_cell=alias_launches[k],
                            trainer_ll_alias=ll_launches["alias"][k],
                            launch_train_small=small("alias", k),
                            stream_trainer_alias=stream["alias"][k],
                            stream_ll_alias=stream["ll"]["alias"][k],
-                           stream_launch_train_small=stream_small_of("alias", k))
+                           stream_launch_train_small=stream_small_of("alias", k),
+                           ring_4x1_alias=ranks["ring_4x1_alias"][k],
+                           word_sharded_2x2=ranks["word_sharded_2x2_alias"][k],
+                           word_sharded_2x1=ranks["word_sharded_2x1_alias"][k],
+                           ring_card_vs_cpu=ranks["ring_card_vs_cpu_alias"][k])
                    for k in ("alias_build", "mh_resample")}
     gc.collect()                       # the LDA phases' tensors go before the 48 GB table
     torch.cuda.empty_cache()
     bag_launches, bag_full_err, bag = recsys_phase()
     recsys_small_phase()
+    mark("recsys")
     gc.collect()                       # the recsys table goes before the serving models
     torch.cuda.empty_cache()
     serve_build, capacity = serve_engine_phase()
     serve_launches = serve_open_loop_phase(capacity)
     serve_publish = serve_publish_phase()
     serve_chaos_phase()
+    mark("serving")
     gibbs_paths.update(launch_serve=serve_launches, serve_engine_build=serve_build,
                        serve_publish_train=serve_publish)
 

@@ -9,9 +9,9 @@ Layout:
 Fault recovery contract (mirrors the paper): configurations checkpoint
 independently; on failure, the failed configuration alone restores its latest
 complete checkpoint and replays its inner epochs (deterministic counter-based
-RNG ⇒ the replay reproduces the lost samples bit for bit). The replay is the
-normal epoch loop. ``restart_pod``, the restore of one pod of a multi-pod
-run, comes with the pods (ROADMAP queue 1, item 11).
+RNG ⇒ the replay reproduces the lost samples bit for bit), then rejoins at
+the next aggregation. ``restart_pod`` implements the restore; the replay is
+the normal epoch loop.
 """
 from __future__ import annotations
 
@@ -104,3 +104,8 @@ class CheckpointManager:
                 except OSError:
                     pass           # raced another restorer; already retired
         return None
+
+    def restart_pod(self, pod: int, like) -> Tuple[Any, dict] | None:
+        """Peacock §3.1.4: restore one failed configuration from its own latest
+        checkpoint; other configurations are untouched."""
+        return self.restore_latest(like, pod=pod)

@@ -1,20 +1,27 @@
-"""Peacock's ring sampler on one device (port of the M = 1 part of
-``repro.core.distributed``).
+"""Peacock layer 1: the diagonal-ring distributed Gibbs sampler (port of
+``repro.core.distributed``), one process per rank.
 
-With a ring of one device (M = 1, one data shard, one vocab shard) the
-diagonal-ring epoch of the JAX package is one round: the device rebuilds the
-doc-topic state of its data shard from the stack's z, samples its one
-sub-block in packages of L tokens against its resident Φ, and writes the new
-z back into the stack. The rotations and the Ψ all-reduce are the identity on
-one device. This is what ``Trainer`` runs on one device, in both sampler
-families:
+Every rank of the flattened ("data", "model") ring is one Peacock data server
+(it owns one document shard's token stack) and one sampling server (it owns
+one vocabulary shard of Φ). The M×M block-diagonal schedule is a ring
+rotation: in round r rank v samples the sub-block of data shard (v−r) mod M
+whose words live in its vocab shard v, against its resident Φ_v, then
+forwards the visiting stack one hop. Θ is never stored: each visiting stack
+carries its z, and the doc-topic state of the visiting shard is rebuilt per
+round. Ψ's deltas are summed once an epoch. With word-sharded model
+parallelism (``model_shards = P > 1``) the ring rotates over "data" only and
+each "model" rank holds rows/P of its coarse shard's Φ (see
+``build_epoch_body``). A ring of one device (``layout=None``) is the M = 1
+case, with every collective the identity; ``Trainer`` runs it on one device.
+
+Both sampler families:
 
 - ``sampler="dense"``: Θ rebuilt as a count plane (dense [docs, K], or
   ``small_theta``'s [cap+1, K] over the sampled docs, int32 or int8), each
   package drawn by the fused Gumbel-max scan ``gibbs_argmax`` over [L, K]
   planes with the token's own assignment removed (¬ivd);
 - ``sampler="alias"``: Θ as sparse (topic, count) pairs and the alias-MH
-  probe against stale proposal tables.
+  probe ``mh_resample`` against stale proposal tables.
 
 ¬ivd in the dense family has two forms. By default ψ goes to the kernel as an
 [L, K] plane with 1 taken off at (t, z_t), like Φ and Θ. With
@@ -23,19 +30,20 @@ into Φ's z column, (φ+β)·(ψ_z+Vβ)/(ψ_z−1+Vβ) − β: the form of the J
 package's kernel branch, taken here on every device. (The JAX package's plain
 branch adds a log difference instead, which can differ in the last ulp.)
 
-The global layout is the JAX package's: phi [1, rows, K] int32, psi [K]
-int32, stacks [S=1, M=1, cap] (word_local, doc_local, uid, z) and, for the
-alias family, the tables appended after the seed (wq/wp/wa shaped like phi,
-ap/aa [K]). uid is int64 holding uint32 values. ``phi``, ``psi`` and ``z``
-are updated in place. Θ is weighted by the stack's valid mask; the ring has
-no sentinel rollback (padding tokens keep their z and move no count).
-
-Rings of more than one device and word-sharded model parallelism are not
-ported yet (ROADMAP queue 1, item 11); the epoch builder raises for them.
+The global layout is the JAX package's (``specs``): phi [M, rows, K] int32,
+psi [K] int32, stacks [S, M, cap] (word_local, doc_local, uid, z) and, for
+the alias family, the tables appended after the seed (wq/wp/wa shaped like
+phi, ap/aa [K]); pods add a leading [pods] dim. A rank holds the block JAX's
+``shard_map`` hands the device of its coordinate (``rank_arrays``,
+``repro_torch.dist.sharding.local_view``). uid is int64 holding uint32
+values. An epoch updates its arguments in place. Θ is weighted by the
+stack's valid mask; the ring has no sentinel rollback (padding tokens keep
+their z and move no count).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,8 +51,12 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import gibbs, sparse
 from repro_torch.data.corpus import ShardedCorpus
+from repro_torch.dist import collectives as coll, sharding as shd
+from repro_torch.dist.sharding import RankLayout
 from repro_torch.kernels.alias import ops as alias_ops
 from repro_torch.kernels.gibbs import ops as gibbs_ops
+
+_M32 = 0xFFFF_FFFF
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,8 +67,11 @@ class RingConfig:
     docs_per_shard: int
     cap: int                   # tokens per (data, vocab) sub-block
     package_len: int           # L — pipeline package size (§3.1.2)
-    n_rounds: int = 1          # = ring size M; only 1 is ported
-    model_shards: int = 1      # P — word-sharded model parallelism; only 1
+    n_rounds: int = 1          # = ring size M
+    model_shards: int = 1      # P — word-sharded model parallelism: P > 1
+                               # rotates over "data" only and keeps Φ row
+                               # slices resident on "model"; rows_per_shard
+                               # and cap stay the totals (P·rpm, P·capb)
     sampler: str = "dense"     # "dense" = exact [T, K] plane scan;
                                # "alias" = sparsity-aware alias-table MH
     n_mh: int = 4              # MH steps per token (alias sampler)
@@ -168,49 +183,147 @@ def _rebuild_theta(flat_d, flat_z, flat_valid, d_sub, cfg: RingConfig):
     return theta, d_sub
 
 
-def build_epoch_body(cfg: RingConfig):
-    """The one-device ring epoch.
+def specs(model_shards: int = 1, pod_axis: bool = False) -> dict:
+    """The JAX package's layout of each epoch argument (``phi``, ``psi``, the
+    ``stack`` arrays and the alias word ``tables``) for a ring with
+    ``model_shards`` slices, with or without the pod axis."""
+    if model_shards > 1:
+        phi_s, stk_s = ((shd.pod_wshard_spec(), shd.pod_wshard_stack_spec()) if pod_axis
+                        else (shd.wshard_spec(), shd.wshard_stack_spec()))
+    else:
+        phi_s = stk_s = shd.pod_ring_spec() if pod_axis else shd.ring_spec()
+    return {"phi": phi_s, "psi": shd.pod_spec() if pod_axis else shd.replicated(),
+            "stack": stk_s, "tables": phi_s}
 
-    ``epoch(phi, psi, wl, dl, uid, z, alpha, beta, seed, *tables)`` runs one
-    round: Θ (dense family) or the pairs (alias family) rebuilt from the
-    stack, the sub-block sampled, z written back. ``tables`` is empty for
-    ``sampler="dense"`` and (wq, wp, wa, ap, aa) for ``sampler="alias"``.
-    Returns (phi, psi, wl, dl, uid, z), phi/psi/z updated in place. Raises
-    for what is not ported: more than one round (a ring of several devices)
-    and model sharding.
+
+def build_epoch_body(cfg: RingConfig, layout: Optional[RankLayout] = None,
+                     pod_axis: bool = False):
+    """One rank's ring epoch: THE round loop, for one device (``layout=None``)
+    and for every rank of a ring, word-sharded or not, in a pod or not.
+
+    ``epoch(phi, psi, wl, dl, uid, z, alpha, beta, seed, *tables)`` takes
+    this rank's views (phi [1, rows(/P), K], psi [K], stacks [1, M,
+    cap(/P)]; with ``pod_axis`` one more leading singleton dim and psi [1,
+    K]) and returns them updated in place. ``tables`` is empty for
+    ``sampler="dense"`` and (wq, wp, wa, ap, aa) for ``sampler="alias"``
+    (wq/wp/wa shaped like phi, ap/aa [K]).
+
+    Each of the M rounds (M = the flattened ring, or the data ring when
+    ``cfg.model_shards = P > 1``): post the one-hop shift of the immutable
+    stack (wl, dl, uid) for the next round, rebuild Θ (or the pairs) from
+    the whole visiting stack, sample this rank's sub-block (index ``me``)
+    against its resident Φ, ship z after its update. With P > 1 every rank
+    samples only its bucket against its slice of rows (words rebased by
+    −j·rows/P); Θ needs the whole visiting stack's (doc, z), all-gathered
+    over "model" in bucket-major order, and Ψ's round deltas are summed over
+    "model" every round, so every draw equals the P = 1 ring's. At the end
+    Ψ's deltas are summed over the rotation group. ``pod_axis`` offsets the
+    seed by pod · 0x9E3779B9 (mod 2³²) so the pods' samplers decorrelate.
     """
     if cfg.sampler not in ("dense", "alias"):
         raise ValueError(f"sampler must be 'dense' or 'alias', got {cfg.sampler!r}")
-    if cfg.n_rounds != 1 or cfg.model_shards != 1:
-        raise NotImplementedError(
-            f"n_rounds={cfg.n_rounds}, model_shards={cfg.model_shards}: only a ring "
-            "of one device (n_rounds = model_shards = 1) is ported; the multi-GPU "
-            "ring is ROADMAP queue 1, item 11")
     if cfg.theta_dtype not in (torch.int32, torch.int8):
         raise ValueError(f"theta_dtype must be torch.int32 or torch.int8, got {cfg.theta_dtype}")
-    _packages(cfg)
-    if cfg.sampler == "alias":
-        cap_p = cfg.doc_topic_cap or cfg.n_topics
+    Pm = cfg.model_shards
+    cfg_l = cfg
+    if layout is None:
+        if cfg.n_rounds != 1 or Pm != 1 or pod_axis:
+            raise ValueError(
+                f"n_rounds={cfg.n_rounds}, model_shards={Pm}, pod_axis={pod_axis}: a ring "
+                "of several ranks needs a RankLayout (repro_torch.launch.mesh.init_ranks)")
+        M, rot = 1, None
+    elif Pm > 1:
+        if shd.model_axis_size(layout) != Pm:
+            raise ValueError(f"the mesh's model axis ({layout.model}) must equal "
+                             f"model_shards ({Pm})")
+        if cfg.rows_per_shard % Pm or cfg.cap % Pm:
+            raise ValueError("rows/cap must be padded to model_shards (shard_corpus does this)")
+        if cfg.package_len != cfg.cap:
+            raise ValueError("word-sharded rounds sample one package (package_len must = cap)")
+        M, rot = shd.data_ring_size(layout), "data"
+        rpm = cfg.rows_per_shard // Pm
+        cfg_l = dataclasses.replace(cfg, cap=cfg.cap // Pm, package_len=cfg.cap // Pm)
+    else:
+        M, rot = shd.ring_size(layout), "ring"
+    if cfg.n_rounds != M:
+        raise ValueError(f"n_rounds={cfg.n_rounds} must equal the ring size {M}")
+    _packages(cfg_l)
+    lead = 2 if pod_axis else 1
+    alias = cfg.sampler == "alias"
+    cap_p = cfg.doc_topic_cap or cfg.n_topics
 
-        def epoch(phi, psi, wl, dl, uid, z, alpha, beta, seed: int, wq, wp, wa, ap, aa):
-            tabs = sparse.AliasTables(wq[0], wp[0], wa[0], ap, aa)
-            flat_valid = wl.reshape(-1) >= 0
-            pairs = sparse.pairs_from_assignments(dl.reshape(-1), z.reshape(-1), flat_valid,
-                                                  cfg.docs_per_shard, cap_p)
-            _, _, _, z_new = _sample_subblock_mh(
-                phi[0], psi, pairs, wl[0, 0], dl[0, 0], z[0, 0], uid[0, 0], alpha, beta,
-                int(seed), cfg, tabs)
-            z[0, 0] = z_new
-            return phi, psi, wl, dl, uid, z
+    def model_gather(a):
+        """[M, capb] bucket view → [M, P·capb] whole sub-blocks, bucket-major
+        (model rank j's bucket at [j·capb, (j+1)·capb)): the P = 1 layout."""
+        g = coll.all_gather(a, layout, "model")               # [P, M, capb]
+        return g.permute(1, 0, 2).reshape(a.shape[0], -1)
 
-        return epoch
-
-    def epoch(phi, psi, wl, dl, uid, z, alpha, beta, seed: int):
-        theta, d_sub = _rebuild_theta(dl.reshape(-1), z.reshape(-1), wl.reshape(-1) >= 0,
-                                      dl[0, 0], cfg)
-        _, _, _, z_new = _sample_subblock(phi[0], psi, theta, wl[0, 0], d_sub, z[0, 0],
-                                          uid[0, 0], alpha, beta, int(seed), cfg)
-        z[0, 0] = z_new
+    def epoch(phi, psi, wl, dl, uid, z, alpha, beta, seed, *tables):
+        if len(tables) != (5 if alias else 0):
+            raise TypeError(f"the {cfg.sampler} epoch takes {5 if alias else 0} tables, "
+                            f"got {len(tables)}")
+        seed = int(seed) & _M32
+        if layout is None:
+            me = 0
+        else:
+            me = layout.data_index if Pm > 1 else shd.flat_ring_index(layout)
+            if pod_axis:
+                seed = (seed + layout.pod_index * 0x9E37_79B9) & _M32
+        sq = lambda a: a.view(a.shape[lead:])
+        phi_l, psi_l = sq(phi), psi.view(psi.shape[lead - 1:])
+        tabs = None
+        if alias:
+            wq, wp, wa, ap, aa = tables
+            tabs = sparse.AliasTables(sq(wq), sq(wp), sq(wa), ap, aa)
+        wl_c, dl_c, uid_c, z_c = (sq(a) for a in (wl, dl, uid, z))      # [M, cap]
+        psi0 = psi_l.clone() if layout is not None else None
+        for _ in range(M):
+            psi_r0 = psi_l.clone() if Pm > 1 else None
+            nxt = coll.Shift(layout, rot, [wl_c, dl_c, uid_c]) if M > 1 else None
+            if Pm > 1:
+                # Θ/pairs need the whole visiting stack's (doc, z): the valid
+                # mask rides as doc = −1 (pads carry doc 0, so max(·, 0)
+                # restores the P = 1 flat views exactly)
+                flat_d = model_gather(torch.where(wl_c >= 0, dl_c, -1)).reshape(-1)
+                flat_z = model_gather(z_c).reshape(-1)
+                flat_valid = flat_d >= 0
+                flat_d = torch.clamp(flat_d, min=0)
+            else:
+                flat_d, flat_z = dl_c.reshape(-1), z_c.reshape(-1)
+                flat_valid = wl_c.reshape(-1) >= 0
+            w_sub, d_sub, u_sub, z_sub = wl_c[me], dl_c[me], uid_c[me], z_c[me]
+            if Pm > 1:
+                w_sub = torch.where(w_sub >= 0, w_sub - layout.model_index * rpm, w_sub)
+            if alias:
+                pairs = sparse.pairs_from_assignments(flat_d, flat_z, flat_valid,
+                                                      cfg.docs_per_shard, cap_p)
+                z_new = _sample_subblock_mh(phi_l, psi_l, pairs, w_sub, d_sub, z_sub, u_sub,
+                                            alpha, beta, seed, cfg_l, tabs)[3]
+            else:
+                theta, d_loc = _rebuild_theta(flat_d, flat_z, flat_valid, d_sub, cfg_l)
+                z_new = _sample_subblock(phi_l, psi_l, theta, w_sub, d_loc, z_sub, u_sub,
+                                         alpha, beta, seed, cfg_l)[3]
+                del theta
+            if Pm > 1:
+                # each slice applied only its bucket's deltas: their sum over
+                # "model" is the P = 1 ring's round-end Ψ
+                d_psi = coll.all_reduce_(psi_l - psi_r0, layout, "model")
+                torch.add(psi_r0, d_psi, out=psi_l)
+            if M > 1:
+                z_upd = z_c.clone()
+                z_upd[me] = z_new
+                wl_c, dl_c, uid_c = nxt.wait()
+                (z_c,) = coll.shift(layout, rot, [z_upd])
+            else:
+                z_c[me] = z_new
+        if layout is not None:
+            # relaxed per-epoch Ψ synchronization over the rotation group
+            # (with P > 1 the model ranks are already replicas)
+            d_psi = coll.all_reduce_(psi_l - psi0, layout, rot)
+            torch.add(psi0, d_psi, out=psi_l)
+        if M > 1:
+            # after M hops every stack is home again: only its z changed
+            sq(z).copy_(z_c)
         return phi, psi, wl, dl, uid, z
 
     return epoch
@@ -292,3 +405,133 @@ def gather_phi(phi_sharded: torch.Tensor, sc: ShardedCorpus) -> torch.Tensor:
     shard = torch.from_numpy(np.asarray(sc.shard_of_word, np.int64)).to(dev)
     local = torch.from_numpy(np.asarray(sc.local_of_word, np.int64)).to(dev)
     return phi_sharded[shard, local]
+
+
+# ------------------------------------------------------------ rank state ---
+
+
+def _shard_of_rank(rows_per_shard: int, n_model_shards: int, layout: RankLayout):
+    """(vocab shard m, model slice j, rows per slice) this rank owns Φ rows of."""
+    if n_model_shards > 1:
+        return layout.data_index, layout.model_index, rows_per_shard // n_model_shards
+    return shd.flat_ring_index(layout), 0, rows_per_shard
+
+
+def rank_counts(stacks: Sequence, n_topics: int, rows_per_shard: int, n_model_shards: int,
+                layout: RankLayout, device="cuda"):
+    """This rank's Φ rows [rows/P, K] and Ψ [K] (int32, on ``device``)
+    counted from global (word_local, z) [S, M, cap] stacks, one pair per pod:
+    the tokens of the rank's vocab shard (and, with P > 1, of its bucket),
+    word ids rebased to the rank's slice."""
+    dev = resolve_device(device)
+    P = n_model_shards
+    m, j, rows = _shard_of_rank(rows_per_shard, P, layout)
+    phi = torch.zeros((rows, n_topics), dtype=torch.int32, device=dev)
+    psi = np.zeros((n_topics,), np.int64)
+    for wl, z0 in stacks:
+        wl, z0 = np.asarray(wl), np.asarray(z0)
+        capb = wl.shape[-1] // P
+        w, zz = wl[:, m, j * capb:(j + 1) * capb], z0[:, m, j * capb:(j + 1) * capb]
+        ok = w >= 0
+        w = torch.from_numpy((w[ok] - j * rows).astype(np.int64)).to(dev)
+        zt = torch.from_numpy(zz[ok].astype(np.int64)).to(dev)
+        phi.index_put_((w, zt), torch.ones_like(w, dtype=torch.int32), accumulate=True)
+        psi += np.bincount(z0[wl >= 0], minlength=n_topics)
+    return phi, torch.from_numpy(psi.astype(np.int32)).to(dev)
+
+
+def rank_arrays(scs: Sequence[ShardedCorpus], n_topics: int, layout: RankLayout,
+                device="cuda", pod_axis: bool = False):
+    """This rank's views of the JAX package's global state: (phi [1, rows/P,
+    K] int32, psi [K] int32, word_local, doc_local, uid int64, z0 [1, M,
+    cap/P]); with ``pod_axis`` one more leading singleton dim and psi [1, K].
+
+    ``scs`` holds one sharded corpus per pod (one for a single pod); the
+    rank's stacks are its pod's, and Φ/Ψ are the counts of every pod's z0
+    (``init_pod_state``: every pod starts from the global replica). Φ rows
+    are counted on the device from this rank's column of the stacks, so a
+    full-width Φ never passes through host memory.
+    """
+    dev = resolve_device(device)
+    sc = scs[layout.pod_index if pod_axis else 0]
+    P = int(getattr(sc, "n_model_shards", 1))
+    phi, psi_t = rank_counts([(s.word_local, s.z0) for s in scs], n_topics, sc.rows_per_shard,
+                             P, layout, dev)
+    stk_spec = specs(P)["stack"]
+    view = lambda a, dt: torch.from_numpy(
+        np.array(shd.local_view(np.asarray(a), stk_spec, pod_layout(layout)), dt)).to(dev)
+    stacks = [view(sc.word_local, np.int32), view(sc.doc_local, np.int32),
+              view(sc.uid, np.int64), view(sc.z0, np.int32)]
+    phi = phi[None]
+    if pod_axis:
+        phi, psi_t, stacks = phi[None], psi_t[None], [a[None] for a in stacks]
+    return (phi, psi_t, *stacks)
+
+
+def gather_views(x: torch.Tensor, layout: RankLayout, group: str = "world", dst: int = 0):
+    """Every member's ``x`` (same shape everywhere) as host numpy arrays in
+    group order on the group's ``dst``-th member; ``None`` on the others.
+    A collective: every member of the group calls it."""
+    import torch.distributed as dist
+
+    g, ranks = layout.group(group)
+    if len(ranks) == 1:
+        return [x.detach().cpu().numpy()]
+    t = x.detach().contiguous()
+    if layout.backend != "nccl":
+        t = t.cpu()
+    root = layout.rank == ranks[dst]
+    bufs = [torch.empty_like(t) for _ in ranks] if root else None
+    dist.gather(t, bufs, dst=ranks[dst], group=g)
+    return [b.cpu().numpy() for b in bufs] if root else None
+
+
+def pod_layout(layout: RankLayout) -> RankLayout:
+    """The one-pod mesh of this rank's pod (for cutting and assembling the
+    views of one configuration)."""
+    return dataclasses.replace(layout, pods=1, rank=layout.rank % (layout.data * layout.model),
+                               groups=None)
+
+
+def gather_phi_ranks(phi: torch.Tensor, sc: ShardedCorpus, layout: RankLayout,
+                     pod_axis: bool = False):
+    """The global [V, K] Φ of pod 0, assembled from its ranks' views, on
+    rank 0 (on the device of ``phi``); ``None`` on the other ranks. A
+    collective over the world."""
+    views = gather_views(phi, layout)
+    if views is None:
+        return None
+    P = int(getattr(sc, "n_model_shards", 1))
+    spec = specs(P)["phi"]
+    lead = 2 if pod_axis else 1
+    pod0 = [v.reshape(v.shape[lead - 1:]) for v in views[:layout.data * layout.model]]
+    full = shd.assemble(pod0, spec, pod_layout(layout))          # [M, rows, K]
+    return gather_phi(torch.from_numpy(full).to(phi.device), sc)
+
+
+def ring_word_log_likelihood(phi: torch.Tensor, psi: torch.Tensor, beta, sc: ShardedCorpus,
+                             layout: RankLayout) -> float:
+    """``lda.word_log_likelihood`` of this rank's pod, from the ranks' rows:
+    each rank sums lnΓ(φ+β) − lnΓ(β) over its rows that hold a word, and the
+    pod's ring sums the [K] parts. A collective over the pod's ring; the
+    same value as the gathered Φ's up to the order of the f32 sums."""
+    from repro_torch.core import lda
+
+    K = phi.shape[-1]
+    phi_l = phi.reshape(-1, K)
+    m, j, rows = _shard_of_rank(sc.rows_per_shard, int(getattr(sc, "n_model_shards", 1)),
+                                layout)
+    owned = (np.asarray(sc.shard_of_word) == m)
+    local = np.asarray(sc.local_of_word)[owned] - j * rows
+    local = local[(local >= 0) & (local < rows)]
+    idx = torch.from_numpy(np.sort(local).astype(np.int64)).to(phi.device)
+    beta = torch.as_tensor(beta, dtype=torch.float32, device=phi.device)
+    part = torch.zeros(K, dtype=torch.float32, device=phi.device)
+    lg_beta = torch.lgamma(beta)
+    for lo in range(0, idx.numel(), lda.LL_ROWS):
+        r = torch.lgamma(phi_l[idx[lo:lo + lda.LL_ROWS]].to(torch.float32) + beta)
+        part += (r - lg_beta).sum(dim=0)
+    coll.all_reduce_(part, layout, "ring")
+    vb = sc.vocab_size * beta
+    per_topic = torch.lgamma(vb) - torch.lgamma(psi.reshape(-1).to(torch.float32) + vb) + part
+    return float(per_topic.sum())

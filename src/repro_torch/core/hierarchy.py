@@ -1,21 +1,122 @@
-"""Peacock layer 2: the coordinator loop (port of
-``repro.core.hierarchy.run_hierarchical``).
+"""Peacock layer 2: replicated configurations with stale-synchronous
+aggregation (port of ``repro.core.hierarchy``).
 
-Each pod is one Peacock layer-1 configuration. Configurations run
-``agg_every`` Gibbs epochs, then the aggregation step merges model deltas,
-Φ_global ← Φ_ref + Σ_pods (Φ_pod − Φ_ref). ``run_hierarchical`` is the one
-epoch/boundary loop: with ``agg_fn=None`` it drives a single configuration
-(the ``Trainer``'s one-device ring); with an ``agg_fn`` it merges at every
-boundary; with ``segments=`` it streams the corpus through a
-``SegmentStream`` (Fig. 3/4). The pod-batched ring epoch and the aggregate
-functions (``make_aggregate``, ``make_elastic_aggregate``) come with the
-multi-GPU port (ROADMAP queue 1, item 11); here ``agg_fn`` is any callable.
+Each pod is one Peacock layer-1 configuration: a full model replica (every Φ
+vocab shard, over the pod's ranks) plus its own partition of the corpus.
+Configurations run ``agg_every`` Gibbs epochs, then the aggregation step
+merges model deltas,
+
+    Φ_global ← Φ_ref + Σ_pods (Φ_pod − Φ_ref)        (ΔΦ aggregation)
+
+which is one all-reduce over the ``"pod"`` group: each rank merges its block
+with the ranks of the same (data, model) coordinate in the other pods (the
+m-th sampling server reporting to the m-th aggregation server).
+
+``run_hierarchical`` is the one epoch/boundary loop: with ``agg_fn=None`` it
+drives a single configuration (the ``Trainer``'s ring); with an ``agg_fn``
+(``make_aggregate``, exact or compressed, or ``make_elastic_aggregate``) it
+merges at every boundary; with ``segments=`` it streams the corpus through a
+``SegmentStream`` (Fig. 3/4). Fault recovery (§3.1.4): a failed pod restores
+from its own checkpoint and rejoins at the next boundary; the elastic merge
+drops the deltas of dead pods, and the other pods never roll back.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import collectives as coll
+from repro_torch.dist.sharding import RankLayout
+
 _M32 = 0xFFFF_FFFF
+
+
+def _exact_merge_(x, ref, layout: RankLayout) -> None:
+    """x ← ref + Σ_pods (x − ref), in place: no temporary the size of x."""
+    x.sub_(ref)
+    coll.all_reduce_(x, layout, "pod")
+    x.add_(ref)
+
+
+def _compressed_merge_(phi, ref, layout: RankLayout, seed: int, chunk_elems: int) -> None:
+    """phi ← ref + round(compressed_psum(phi − ref)), in place, one chunk of
+    rows at a time (each chunk's uniforms use the block's flat element
+    counters, so the result equals the whole-block quantization)."""
+    K = phi.shape[-1]
+    p2, r2 = phi.view(-1, K), ref.view(-1, K)
+    rows = max(1, chunk_elems // K)
+    amax = torch.zeros((), dtype=torch.int32, device=phi.device)
+    for lo in range(0, p2.shape[0], rows):
+        amax = torch.maximum(amax, (p2[lo:lo + rows] - r2[lo:lo + rows]).abs().max())
+    scale = coll.shared_scale(amax.to(torch.float32), layout, "pod")
+    me = coll.group_index(layout, "pod")
+    for lo in range(0, p2.shape[0], rows):
+        x = (p2[lo:lo + rows] - r2[lo:lo + rows]).to(torch.float32)
+        q = coll.quantize(x, scale, seed, me, 0, offset=lo * K)
+        del x
+        total = coll.sum_payload(q, layout, "pod")
+        d = torch.round(total.to(torch.float32) * scale).to(phi.dtype)
+        torch.add(r2[lo:lo + rows], d, out=p2[lo:lo + rows])
+
+
+def make_aggregate(layout: RankLayout, compressed: bool = False,
+                   chunk_elems: int = coll.HOST_CHUNK // 2):
+    """The ΔΦ/ΔΨ merge over the pod group, in place.
+
+    ``call(phi, psi, phi_ref, psi_ref, seed=0)`` takes this rank's views and
+    the refs of the previous boundary and returns the merged (phi, psi) —
+    the same on every pod. ``compressed=True`` sends ΔΦ int8-quantized
+    (``repro_torch.dist.collectives``: all-gathered int8, summed in int16;
+    Ψ stays exact), with the boundary index as ``seed`` so the stochastic
+    rounding decorrelates across boundaries; its f32 temporaries are cut in
+    chunks of ``chunk_elems`` elements.
+    """
+    def call(phi, psi, phi_ref, psi_ref, seed=0):
+        if compressed:
+            _compressed_merge_(phi, phi_ref, layout, int(seed) & _M32, chunk_elems)
+        else:
+            _exact_merge_(phi, phi_ref, layout)
+        _exact_merge_(psi, psi_ref, layout)
+        return phi, psi
+
+    return call
+
+
+def make_elastic_aggregate(layout: RankLayout):
+    """§3.1.4's fault-tolerant merge: aggregate over the live pods only.
+
+    ``call(phi, psi, phi_ref, psi_ref, live, seed=0)`` with ``live`` the
+    [n_pods] flags (nonzero = alive): dead pods' deltas are dropped, and every
+    pod, dead ones included, receives the merged state. ``call.last_n_live``
+    records the live count of the last boundary.
+    """
+    def call(phi, psi, phi_ref, psi_ref, live, seed=0):
+        del seed  # uncompressed: nothing stochastic at the boundary
+        alive = int(live[layout.pod_index])
+        _, n_live = coll.elastic_aggregate({"phi": phi, "psi": psi},
+                                           {"phi": phi_ref, "psi": psi_ref}, alive, layout)
+        call.last_n_live = n_live
+        return phi, psi
+
+    call.last_n_live = None
+    return call
+
+
+def make_pod_ring_epoch(cfg, layout: RankLayout):
+    """The layer-1 ring epoch of this rank's pod: the same round loop as the
+    single-pod ring (``distributed.build_epoch_body``) with the pod axis
+    named, so every view carries a leading pod dim and the sampler seed is
+    offset per pod. Pods never talk inside an epoch."""
+    from repro_torch.core import distributed as dist
+
+    return dist.build_epoch_body(cfg, layout, pod_axis=True)
+
+
+def init_pod_state(scs, n_topics: int, layout: RankLayout, device="cuda"):
+    """This rank's pod-layout views: its pod's stacks, and Φ/Ψ counted over
+    every pod's z0 — every pod starts from the same global replica."""
+    from repro_torch.core import distributed as dist
+
+    return dist.rank_arrays(scs, n_topics, layout, device=device, pod_axis=True)
 
 
 def run_hierarchical(

@@ -66,7 +66,7 @@ class CorpusSource:
     n_segments: int
     n_data_shards: int
     n_vocab_shards: int
-    n_model_shards: int = 1     # word-sharded layouts are not ported
+    n_model_shards: int = 1     # word-sharded layout (P > 1)
     seed: int
 
     def word_freq(self) -> np.ndarray:
@@ -99,7 +99,8 @@ class InMemorySource(CorpusSource):
     """A resident :class:`Corpus`, segmented and sharded on first access."""
 
     def __init__(self, corpus: Corpus, n_segments: int, n_data_shards: int,
-                 n_vocab_shards: int, n_topics: int, seed: int = 0):
+                 n_vocab_shards: int, n_topics: int, seed: int = 0,
+                 n_model_shards: int = 1):
         self.corpus = corpus
         self.n_docs = int(corpus.n_docs)
         self.n_tokens = int(corpus.n_tokens)
@@ -109,6 +110,7 @@ class InMemorySource(CorpusSource):
         self.n_data_shards = int(n_data_shards)
         self.n_vocab_shards = int(n_vocab_shards)
         self.seed = int(seed)
+        self.n_model_shards = int(n_model_shards)
         self._segments = None
 
     def word_freq(self) -> np.ndarray:
@@ -121,7 +123,8 @@ class InMemorySource(CorpusSource):
         if self._segments is None:
             self._segments = segment_corpus(
                 self.corpus, self.n_segments, self.n_data_shards,
-                self.n_vocab_shards, self.n_topics, seed=self.seed).segments
+                self.n_vocab_shards, self.n_topics, seed=self.seed,
+                n_model_shards=self.n_model_shards).segments
         return self._segments[g]
 
 
@@ -135,7 +138,7 @@ class SyntheticSource(InMemorySource):
     def __init__(self, n_docs: int, vocab_size: int, true_topics: int,
                  doc_len_mean: float, gen_seed: int, n_segments: int,
                  n_data_shards: int, n_vocab_shards: int, n_topics: int,
-                 seed: int = 0):
+                 seed: int = 0, n_model_shards: int = 1):
         from repro_torch.data import synthetic
 
         corpus, truth = synthetic.lda_corpus(
@@ -144,7 +147,7 @@ class SyntheticSource(InMemorySource):
         self.truth = truth
         self.gen_seed = int(gen_seed)
         super().__init__(corpus, n_segments, n_data_shards, n_vocab_shards,
-                         n_topics, seed=seed)
+                         n_topics, seed=seed, n_model_shards=n_model_shards)
 
 
 def save_segments(source: CorpusSource, directory: str) -> str:
@@ -199,10 +202,9 @@ def save_segments(source: CorpusSource, directory: str) -> str:
         "rows_per_shard": int(sc0.rows_per_shard),
         "docs_per_shard": int(sc0.docs_per_shard),
         "cap": int(sc0.word_local.shape[-1]),
-        # the word-sharded layout keys of the JAX package's meta: the port
-        # writes only the replicated layout (n_model_shards = 1)
-        "n_model_shards": 1,
-        "rows_coarse": int(sc0.rows_per_shard),
+        "n_model_shards": int(getattr(sc0, "n_model_shards", 1)),
+        "rows_coarse": int(getattr(sc0, "rows_coarse", 0)
+                           or sc0.rows_per_shard),
         "seed": int(source.seed),
         "segments": seg_meta,
     }
@@ -231,7 +233,8 @@ class DiskSource(CorpusSource):
     corruption is never retried (rot does not heal).
 
     Directories of the word-sharded layout (``n_model_shards > 1`` in the
-    meta) are refused: that layout is not ported (ROADMAP queue 1, item 11).
+    meta) are refused: a streamed session is one device, and the streamed
+    ring of several ranks is not ported (ROADMAP queue 1, item 11).
     """
 
     corpus = None
@@ -257,8 +260,8 @@ class DiskSource(CorpusSource):
         if self.n_model_shards != 1:
             raise NotImplementedError(
                 f"{directory!r} holds the word-sharded layout (n_model_shards="
-                f"{self.n_model_shards}), which is not ported (ROADMAP queue 1, "
-                f"item 11)")
+                f"{self.n_model_shards}); the streamed ring of several ranks is not "
+                f"ported (ROADMAP queue 1, item 11)")
         self.verify = bool(verify)
         self.retries = int(retries)
         self._verified: set = set()    # segment ids verified this process

@@ -22,14 +22,27 @@ checkpoints, and ``--kill-at E --kill-at-segment S`` kills at an intra-epoch
 segment boundary; ``--resume`` then lands bit for bit on the recorded
 (epoch, segment).
 
-The port trains on one device. Flags it cannot serve yet are refused with an
-error naming the ROADMAP item: ``--pods``, ``--data-shards`` or
-``--model-shards`` above 1 and ``--sharded-model`` (queue 1, item 11,
-multi-GPU), and ``--preflight`` (queue 1, item 13: the static analysis
-passes have no torch counterpart yet).
+Several ranks: ``--pods``, ``--data-shards``, ``--model-shards`` and
+``--sharded-model`` shape the (pods, data, model) mesh, one process per
+rank. Under a launcher that sets ``WORLD_SIZE`` (torchrun) this process is
+one rank; otherwise the driver starts the whole world itself on this host
+(the counterpart of the JAX driver's XLA host-device flag), so one command
+still trains. ``--backend`` names the process-group backend (gloo by
+default; NCCL with one rank per card) and ``--ranks-per-device`` lets
+several ranks share one card (gloo only), e.g. on one H100::
+
+    python -m repro_torch.launch.train --pods 2 --data-shards 2 \
+        --ranks-per-device 4 --docs 1500 --vocab 400 --topics 16 --epochs 6
+
+Rank 0 prints, checkpoints and publishes; a started world returns each
+rank's :func:`rank_summary`. Refused, naming the ROADMAP item: a streamed
+corpus (``--n-segments`` > 1 or ``--corpus-dir``) on several ranks (queue 1,
+item 11), and ``--preflight`` (queue 1, item 13: the static analysis passes
+have no torch counterpart yet).
 """
 import argparse
 import os
+import sys
 import tempfile
 
 
@@ -53,7 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--data-shards", type=int, default=1)
     ap.add_argument("--model-shards", type=int, default=1)
     ap.add_argument("--sharded-model", action="store_true",
-                    help="word-sharded model parallelism (not ported)")
+                    help="word-sharded model parallelism: the model axis holds "
+                         "resident V/P slices of Φ and the alias tables instead "
+                         "of extending the flattened ring")
     ap.add_argument("--pods", type=int, default=1)
     ap.add_argument("--agg-every", type=int, default=3)
     ap.add_argument("--alpha-opt-from", type=int, default=10)
@@ -86,6 +101,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="with --preflight: machine-readable report")
     ap.add_argument("--device", default="cuda",
                     help="where the session runs: cuda (default) or cpu")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo",
+                    help="process-group backend of a session of several ranks")
+    ap.add_argument("--ranks-per-device", type=int, default=1,
+                    help="ranks sharing one card (gloo only)")
     return ap
 
 
@@ -111,29 +130,12 @@ def config_from_args(args) -> "TrainerConfig":
     )
 
 
-def main(argv=None):
-    ap = build_parser()
-    args = ap.parse_args(argv)
-    if args.preflight:
-        ap.error("--preflight: the static analysis passes are not ported "
-                 "(ROADMAP queue 1, item 13)")
-    if args.sharded_model:
-        ap.error("--sharded-model: word-sharded model slices are not ported "
-                 "(ROADMAP queue 1, item 11 (multi-GPU))")
-    if args.kill_at_segment > 0 and args.kill_at <= 0:
-        ap.error("--kill-at-segment requires --kill-at (the epoch to die "
-                 "in); without it no KillSwitch is armed and the failure "
-                 "simulation would silently never fire")
-
+def _train(args, layout=None):
+    """Build the callback stack and the Trainer of this rank, fit, export."""
     from repro_torch.training import (AlphaOptimizer, Checkpointing, KillSwitch,
                                       Metrics, ModelPublisher, Trainer)
-    from repro_torch.training.trainer import refuse_unported
 
     cfg = config_from_args(args)
-    try:
-        refuse_unported(cfg)
-    except NotImplementedError as exc:
-        ap.error(str(exc))
     # the JAX driver's order: α-opt → checkpoint → kill → publish → metrics
     callbacks = [AlphaOptimizer(),
                  Checkpointing(every_segments=args.ckpt_segments or None)]
@@ -146,17 +148,79 @@ def main(argv=None):
     callbacks.append(Metrics())
 
     # setup() logs the data source (type / docs / tokens / segments)
-    trainer = Trainer(cfg, callbacks=callbacks).setup()
+    trainer = Trainer(cfg, callbacks=callbacks, layout=layout).setup()
 
     trainer.fit()
 
     # ----------------------- dedup + serving export -------------------------
     model, info = trainer.export_model()
-    print(f"[dedup] duplicate fraction {info['duplicate_fraction']:.2f}; "
-          f"{info['n_topics_raw']} → {info['n_topics']} topics")
-    print(f"[export] RT-LDA model ready: V={model.pvk.shape[0]} "
-          f"K={model.pvk.shape[1]}")
+    if model is not None:
+        print(f"[dedup] duplicate fraction {info['duplicate_fraction']:.2f}; "
+              f"{info['n_topics_raw']} → {info['n_topics']} topics")
+        print(f"[export] RT-LDA model ready: V={model.pvk.shape[0]} "
+              f"K={model.pvk.shape[1]}")
     return trainer
+
+
+def rank_summary(trainer) -> dict:
+    """What a started rank hands back: its views of the state, α, the epoch
+    reached, its metrics, its publisher's last version and its process's
+    kernel launch counts."""
+    from repro_torch.kernels.alias import ops as alias_ops
+    from repro_torch.kernels.gibbs import ops as gibbs_ops
+    from repro_torch.training import ModelPublisher
+
+    pubs = [cb for cb in trainer.callbacks if isinstance(cb, ModelPublisher)]
+    return {"rank": trainer.layout.rank if trainer.layout is not None else 0,
+            "state": [x.cpu().numpy() for x in trainer.state],
+            "alpha": trainer.alpha.cpu().numpy(), "epoch": trainer.epoch,
+            "metrics": {k: list(v) for k, v in trainer.metrics.items()},
+            "last_version": pubs[0].last_version if pubs else None,
+            "launches": {"gibbs_argmax": gibbs_ops.launches,
+                         "alias_build": alias_ops.build_launches,
+                         "mh_resample": alias_ops.mh_launches}}
+
+
+def _rank_main(layout, argv):
+    return rank_summary(_train(build_parser().parse_args(argv), layout))
+
+
+def main(argv=None):
+    ap = build_parser()
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = ap.parse_args(argv)
+    if args.preflight:
+        ap.error("--preflight: the static analysis passes are not ported "
+                 "(ROADMAP queue 1, item 13)")
+    if args.kill_at_segment > 0 and args.kill_at <= 0:
+        ap.error("--kill-at-segment requires --kill-at (the epoch to die "
+                 "in); without it no KillSwitch is armed and the failure "
+                 "simulation would silently never fire")
+
+    from repro_torch.launch import mesh
+    from repro_torch.training.trainer import refuse_unported
+
+    try:
+        cfg = config_from_args(args)
+        refuse_unported(cfg)
+        if cfg.n_devices > 1:
+            mesh.check_world(cfg.n_devices, args.device, args.backend,
+                             args.ranks_per_device)
+    except (NotImplementedError, RuntimeError, ValueError) as exc:
+        ap.error(str(exc))
+    if cfg.n_devices == 1:
+        return _train(args)
+    shape = dict(pods=cfg.n_pods, data=cfg.data_shards, model=cfg.model_shards,
+                 backend=args.backend, device=args.device,
+                 ranks_per_device=args.ranks_per_device)
+    if "WORLD_SIZE" in os.environ:              # a launcher started this rank
+        return _train(args, mesh.init_ranks(**shape))
+    import torch.multiprocessing as mp
+
+    try:
+        return mesh.spawn(_rank_main, **shape, args=(argv,))
+    except mp.ProcessExitedException as exc:    # a KillSwitch (exit 17), or a crash
+        raise SystemExit(exc.exit_code) from None
 
 
 if __name__ == "__main__":

@@ -23,6 +23,10 @@ redistribution), and ``trainer.metrics`` is the shared scratchpad the bench
 record is assembled from. Peacock §3.1.4 fault recovery is literally
 ``Checkpointing`` restoring in ``on_train_start`` + deterministic replay of
 the epochs after ``meta["step"]`` — no trainer code knows about it.
+
+In a session of several ranks every rank runs the same callbacks on its own
+``Trainer``, so the collectives they reach (the word LL, the α statistics,
+the checkpoint assembly, the export) line up; only rank 0 writes.
 """
 from __future__ import annotations
 
@@ -157,11 +161,13 @@ class Checkpointing(TrainerCallback):
     def _save(self, trainer, epoch: int, segments_done: int) -> str:
         n = trainer.n_segments
         step = epoch * n + segments_done
-        self.manager.save(step, trainer.checkpoint_tree(),
-                          meta={"epoch": epoch, "segment": segments_done,
-                                "n_model_shards":
-                                    trainer.config.n_model_shards},
-                          pod=self.pod)
+        tree = trainer.checkpoint_tree()        # a collective on several ranks
+        if tree is not None:                    # rank 0 (or the one device)
+            self.manager.save(step, tree,
+                              meta={"epoch": epoch, "segment": segments_done,
+                                    "n_model_shards":
+                                        trainer.config.n_model_shards},
+                              pod=self.pod)
         return self.manager.step_dir(step, self.pod)
 
     def on_segment_end(self, trainer, epoch: int, segments_done: int) -> None:
@@ -263,7 +269,15 @@ class KillSwitch(TrainerCallback):
             trainer.log(f"[failure-sim] killing run after segment "
                         f"{segments_done} of epoch {epoch}; restart with "
                         f"--resume")
-            raise SystemExit(self.exit_code)
+            self._exit(trainer)
+
+    def _exit(self, trainer) -> None:
+        # every rank dies together, after rank 0's checkpoint has landed
+        for cb in trainer.callbacks:
+            if isinstance(cb, Checkpointing) and cb.manager is not None:
+                cb.manager.wait()
+        trainer.barrier()
+        raise SystemExit(self.exit_code)
 
     def on_epoch_end(self, trainer, epoch: int) -> None:
         if self.at_segment is not None:
@@ -271,16 +285,17 @@ class KillSwitch(TrainerCallback):
         if epoch + 1 == self.at_epoch:
             trainer.log(f"[failure-sim] killing run after epoch {epoch + 1}; "
                         f"restart with --resume")
-            raise SystemExit(self.exit_code)
+            self._exit(trainer)
 
 
 class ElasticLiveness(TrainerCallback):
     """Wires §3.1.4 elastic aggregation: ``probe(epoch) -> [n_pods]`` flags.
 
-    Its presence asks for a merge over live pods only at every aggregation
-    boundary. The port runs no pods yet (ROADMAP queue 1, item 11): a
-    single-pod session refuses it in ``Trainer.setup``, as the JAX package's
-    does, since its probe would never be consulted.
+    Its presence makes the Trainer build ``make_elastic_aggregate`` (merge
+    over live pods only) instead of the all-live aggregate; the probe is
+    consulted at every boundary, on every rank (it must give every rank the
+    same flags). ``last_n_live`` records the live count of the most recent
+    boundary. A single-pod session refuses it in ``Trainer.setup``.
     """
 
     def __init__(self, probe):
@@ -324,7 +339,7 @@ class Metrics(TrainerCallback):
 
     def on_train_end(self, trainer) -> None:
         out = self.bench_out or trainer.config.bench_out
-        if not out:
+        if not out or not getattr(trainer, "is_writer", True):
             return
         record = trainer.bench_record()
         with open(out, "w") as f:

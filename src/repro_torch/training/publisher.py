@@ -109,6 +109,11 @@ class ModelPublisher(TrainerCallback):
         t0 = time.perf_counter()
         model, info = trainer.export_model(merge_l1=self.merge_l1,
                                            dup_l1=self.dup_l1)
+        self._last_publish_epoch = epoch + 1
+        if model is None:
+            # a rank of a multi-rank session that does not write: it took
+            # part in the export's gather; rank 0 publishes
+            return -1
         latest = snapshots.latest_version(self.snapshot_dir)
         version = 0 if latest is None else latest + 1
         meta = {"epoch": epoch + 1, **info}
@@ -132,7 +137,6 @@ class ModelPublisher(TrainerCallback):
         latency = time.perf_counter() - t0
         trainer.metrics["publish_s"].append(latency)
         self.last_version, self.last_path = version, path
-        self._last_publish_epoch = epoch + 1
         if as_delta:
             d = snapshots.read_meta(self.snapshot_dir, version)["delta"]
             kind = f"delta {d['n_rows']}/{d['n_rows_total']} rows"

@@ -1,11 +1,11 @@
 """``Trainer`` — the typed training driver that owns the train side of the
-loop (port of ``repro.training.trainer`` for a ring of one device).
+loop (port of ``repro.training.trainer``).
 
-Corpus sharding, state init on the session's device, the epoch loop, and the
-event protocol through which checkpointing, α optimization, metrics and model
-publication plug in (``training/callbacks.py``). The loop itself is
-``hierarchy.run_hierarchical``: the Trainer supplies a timed epoch fn and
-adapts the loop's epoch hook into the callback events.
+Corpus sharding, state init on the session's device, the epoch/aggregation
+loop, and the event protocol through which checkpointing, α optimization,
+liveness, metrics and model publication plug in (``training/callbacks.py``).
+The loop itself is ``hierarchy.run_hierarchical``: the Trainer supplies timed
+epoch/aggregate fns and adapts the loop's hooks into the callback events.
 
     cfg = TrainerConfig(n_docs=3000, n_topics=32, ckpt_dir="/tmp/ck", device="cuda")
     tr = Trainer(cfg, callbacks=[Checkpointing(), AlphaOptimizer(),
@@ -13,15 +13,25 @@ adapts the loop's epoch hook into the callback events.
     result = tr.fit()
     model, info = tr.export_model()        # dedup + merge → RT-LDA
 
-What one device serves: one pod, a ring of one device
-(``data_shards = model_shards = 1``), a resident corpus or a streamed one.
-With more than one segment, or a source with no resident corpus (a
-``corpus_dir``), the epoch loop streams: (phi, psi) stay on the device across
-segment swaps while the token stacks ride through a double-buffered
-``SegmentStream`` (pinned host memory, a side CUDA stream) and the global z
-store lives on the host. Pods, a ring of several devices, word-sharded model
-slices and resharded checkpoints (ROADMAP queue 1, item 11) raise
-``NotImplementedError`` naming what is missing; nothing falls back.
+One device runs a ring of one device, a resident corpus or a streamed one:
+with more than one segment, or a source with no resident corpus (a
+``corpus_dir``), (phi, psi) stay on the device across segment swaps while
+the token stacks ride through a double-buffered ``SegmentStream``.
+
+A session of several ranks (``n_pods × data_shards × model_shards > 1``)
+runs one ``Trainer`` per rank, each built with the rank's
+:class:`repro_torch.dist.sharding.RankLayout` (``launch.mesh``; ``python -m
+repro_torch.launch.train`` starts the ranks itself). Every rank holds its
+views of the JAX package's global state and runs the same loop; the rings
+rotate within each pod and the pods merge at the aggregation boundaries.
+What needs the whole model is a collective that every rank calls: the word
+LL (each rank's rows, summed over the pod's ring), the α statistics (pod
+0's stacks), ``gather_phi``/``export_model`` and ``checkpoint_tree`` (rank 0
+assembles, the others get ``None``). Only rank 0 logs and writes metrics,
+checkpoints and snapshots; every rank reads a checkpoint itself and keeps
+its views. Checkpoints hold the JAX package's global layout, so they cross
+packages both ways. A streamed session of several ranks is not ported
+(ROADMAP queue 1) and raises ``NotImplementedError``; nothing falls back.
 """
 from __future__ import annotations
 
@@ -34,11 +44,12 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.dist.sharding import RankLayout
 from repro_torch.training.callbacks import (AlphaOptimizer, ElasticLiveness,
                                             TrainerCallback)
 from repro_torch.training.config import TrainerConfig
 
-_MULTI_GPU = "ROADMAP queue 1, item 11 (multi-GPU)"
+_STREAMED_RING = "ROADMAP queue 1, item 11: the streamed ring of several ranks"
 
 
 @dataclasses.dataclass
@@ -55,17 +66,16 @@ class TrainResult:
 
 
 def refuse_unported(cfg: TrainerConfig) -> None:
-    """Raise ``NotImplementedError`` for a session one device cannot serve yet."""
-    if cfg.n_pods > 1:
-        raise NotImplementedError(f"n_pods={cfg.n_pods}: pods are not ported ({_MULTI_GPU})")
-    if cfg.data_shards * cfg.model_shards > 1:
+    """Raise ``NotImplementedError`` for a session the port cannot serve yet:
+    a streamed corpus (``n_segments > 1`` or a ``corpus_dir``) on more than
+    one rank."""
+    if (cfg.n_segments > 1 or cfg.corpus_dir) and cfg.n_devices > 1:
         raise NotImplementedError(
-            f"data_shards*model_shards={cfg.data_shards * cfg.model_shards}: only a ring "
-            f"of one device is ported ({_MULTI_GPU})")
-    if cfg.n_model_shards > 1:
-        raise NotImplementedError(
-            f"n_model_shards={cfg.n_model_shards}: word-sharded model slices are not "
-            f"ported ({_MULTI_GPU})")
+            f"a streamed session (n_segments={cfg.n_segments}, corpus_dir="
+            f"{cfg.corpus_dir!r}) runs on one device; data_shards*model_shards="
+            f"{cfg.data_shards * cfg.model_shards} (sharded_model="
+            f"{cfg.n_model_shards > 1}) needs the streamed ring of several ranks, "
+            f"which is not ported ({_STREAMED_RING})")
 
 
 class Trainer:
@@ -76,13 +86,16 @@ class Trainer:
     (wrapped in an ``InMemorySource``), set ``config.corpus_dir`` (opened as
     a ``DiskSource``), or pass nothing — the synthetic fallback is an
     explicit ``SyntheticSource``, and ``setup()`` logs which source the
-    session trains on.
+    session trains on. A session of several ranks passes this rank's
+    ``layout`` (its mesh shape must be the config's (n_pods, data_shards,
+    model_shards)).
     """
 
     def __init__(self, config: TrainerConfig,
                  callbacks: Sequence[TrainerCallback] = (),
-                 corpus=None, source=None):
+                 corpus=None, source=None, layout: Optional[RankLayout] = None):
         self.config = config
+        self.layout = layout if layout is not None and layout.world_size > 1 else None
         self.callbacks = list(callbacks)
         self.metrics: Dict[str, list] = collections.defaultdict(list)
         self.epoch = 0               # completed epochs (resume fast-forwards)
@@ -93,9 +106,12 @@ class Trainer:
         self.alpha = None
         self.beta = None
         self.device = None
-        self.sc0 = None              # segment 0's shards (the placement)
+        self.sc0 = None              # pod-0 / single-pod / segment-0 shards
         self.ring_cfg = None
+        self._scs = None             # per-pod shards (multi-pod)
         self._epoch_fn = None
+        self._agg_fn = None
+        self._refs = None            # (phi_ref, psi_ref) of the last boundary
         self._doc_len_hist = None
         self._z = None               # global [n_tokens] z store (streaming)
         self._tables = None          # alias sampler proposal tables (§9)
@@ -109,8 +125,25 @@ class Trainer:
 
     # ------------------------------------------------------------ build ----
 
+    @property
+    def is_writer(self) -> bool:
+        """Whether this rank logs and writes (rank 0; the one device)."""
+        return self.layout is None or self.layout.is_writer
+
+    @property
+    def _pod_axis(self) -> bool:
+        return self.config.multi_pod
+
     def log(self, msg: str) -> None:
-        print(msg, flush=True)
+        if self.is_writer:
+            print(msg, flush=True)
+
+    def barrier(self) -> None:
+        """Wait for every rank of the session (nothing on one device)."""
+        if self.layout is not None:
+            import torch.distributed as dist
+
+            dist.barrier()
 
     def notify(self, event: str, *args) -> None:
         """Fire one event on every callback, in list order."""
@@ -129,14 +162,16 @@ class Trainer:
                 self.source = data_sources.open_segments(cfg.corpus_dir)
             elif self.corpus is not None:
                 self.source = data_sources.InMemorySource(
-                    self.corpus, cfg.n_segments, M, M, K, seed=cfg.shard_seed)
+                    self.corpus, cfg.n_segments, M, M, K, seed=cfg.shard_seed,
+                    n_model_shards=cfg.n_model_shards)
             else:
                 self.source = data_sources.SyntheticSource(
                     n_docs=cfg.n_docs, vocab_size=cfg.vocab_size,
                     true_topics=cfg.true_topics,
                     doc_len_mean=cfg.doc_len_mean, gen_seed=cfg.seed,
                     n_segments=cfg.n_segments, n_data_shards=M,
-                    n_vocab_shards=M, n_topics=K, seed=cfg.shard_seed)
+                    n_vocab_shards=M, n_topics=K, seed=cfg.shard_seed,
+                    n_model_shards=cfg.n_model_shards)
         src = self.source
         self.corpus = src.corpus
         if src.n_data_shards != M or src.n_vocab_shards != M:
@@ -147,6 +182,12 @@ class Trainer:
         if src.n_topics != K:
             raise ValueError(f"source was sharded for K={src.n_topics}, "
                              f"session has n_topics={K}")
+        if getattr(src, "n_model_shards", 1) != cfg.n_model_shards:
+            raise ValueError(
+                f"source was bucketed for n_model_shards="
+                f"{getattr(src, 'n_model_shards', 1)} but the session has "
+                f"n_model_shards={cfg.n_model_shards} (re-save the segments "
+                f"or match the config)")
         if cfg.corpus_dir and cfg.n_segments not in (1, src.n_segments):
             raise ValueError(
                 f"config n_segments={cfg.n_segments} but {cfg.corpus_dir!r} "
@@ -156,38 +197,63 @@ class Trainer:
 
     @property
     def n_segments(self) -> int:
-        """Segments per epoch (1 on the resident path)."""
+        """Segments per epoch (1 on the resident and multi-pod paths)."""
         return self.source.n_segments if self._streaming else 1
 
     def setup(self) -> "Trainer":
-        """Build source and device state and the epoch fn. Idempotent;
-        ``fit()`` calls it automatically."""
+        """Build source and device state and the epoch (and aggregate) fns.
+        Idempotent; ``fit()`` calls it automatically."""
         if self._built:
             return self
-        from repro_torch.core import distributed as dist
+        from repro_torch.core import distributed as dist, hierarchy
 
         cfg = self.config
         refuse_unported(cfg)
-        if any(isinstance(cb, ElasticLiveness) for cb in self.callbacks):
+        lay = self.layout
+        if cfg.n_devices > 1 and lay is None:
+            raise ValueError(
+                f"n_pods*data_shards*model_shards={cfg.n_devices}: a session of several "
+                "ranks needs each rank's RankLayout (repro_torch.launch.mesh; python -m "
+                "repro_torch.launch.train starts the ranks itself)")
+        if lay is not None and lay.shape != (cfg.n_pods, cfg.data_shards, cfg.model_shards):
+            raise ValueError(f"the layout's mesh {lay.shape} is not the config's "
+                             f"{(cfg.n_pods, cfg.data_shards, cfg.model_shards)}")
+        elastic = any(isinstance(cb, ElasticLiveness) for cb in self.callbacks)
+        if elastic and not cfg.multi_pod:
             raise ValueError(
                 "ElasticLiveness requires aggregation boundaries "
                 "(n_pods > 1); a single-pod session would silently "
                 "never consult the probe")
-        self.device = resolve_device(cfg.device)
+        self.device = resolve_device(cfg.device if lay is None else lay.device)
+        if lay is not None and torch.device(cfg.device).type != self.device.type:
+            raise ValueError(f"the layout's device {lay.device} is not the config's "
+                             f"{cfg.device}")
         K = cfg.n_topics
         src = self._build_source()
         # streaming = any session whose stacks are not resident device state:
         # more than one segment, or an out-of-core (corpus-less) source
         self._streaming = src.n_segments > 1 or src.corpus is None
-        self.sc0 = src.segment(0)
-        if self._streaming:
-            # (phi, psi) + the global z store materialize lazily in fit(): a
-            # resume restores all three from the checkpoint, and the init
-            # pass over every segment would be thrown away
-            self.state = None
-            self._z = None
+        if cfg.multi_pod:
+            from repro_torch.data import corpus as corpus_mod
+
+            M = cfg.ring_size
+            self._scs = corpus_mod.shard_corpus_pods(
+                self.corpus, cfg.n_pods, M, M, K, seed=cfg.shard_seed,
+                n_model_shards=cfg.n_model_shards)
+            self.sc0 = self._scs[0]
+            self.state = hierarchy.init_pod_state(self._scs, K, lay, device=self.device)
         else:
-            self.state = dist.device_arrays(self.sc0, K, device=self.device)
+            self.sc0 = src.segment(0)
+            if self._streaming:
+                # (phi, psi) + the global z store materialize lazily in fit():
+                # a resume restores all three from the checkpoint, and the
+                # init pass over every segment would be thrown away
+                self.state = None
+                self._z = None
+            elif lay is not None:
+                self.state = dist.rank_arrays([self.sc0], K, lay, device=self.device)
+            else:
+                self.state = dist.device_arrays(self.sc0, K, device=self.device)
         doc_cap = 0
         if cfg.sampler == "alias":
             from repro_torch.core import sparse
@@ -201,7 +267,16 @@ class Trainer:
             cap=cap, package_len=cfg.package_len or cap, n_rounds=cfg.ring_size,
             sampler=cfg.sampler, n_mh=cfg.n_mh, doc_topic_cap=doc_cap,
             model_shards=cfg.n_model_shards)
-        self._epoch_fn = dist.build_epoch_body(self.ring_cfg)
+        if cfg.multi_pod:
+            self._epoch_fn = hierarchy.make_pod_ring_epoch(self.ring_cfg, lay)
+            self._agg_fn = (hierarchy.make_elastic_aggregate(lay) if elastic
+                            else hierarchy.make_aggregate(lay))
+            # every pod starts from the same global replica: the initial
+            # state is its own aggregation ref (cloned: epochs run in place)
+            self._refs = (torch.clone(self.state[0]), torch.clone(self.state[1]))
+        else:
+            self._epoch_fn = dist.build_epoch_body(self.ring_cfg, lay)
+            self._agg_fn = None
         self.alpha = torch.full((K,), cfg.alpha0 / K, dtype=torch.float32,
                                 device=self.device)
         self.beta = torch.tensor(cfg.beta, dtype=torch.float32, device=self.device)
@@ -251,6 +326,10 @@ class Trainer:
         if start_epoch >= cfg.n_epochs:
             self.log(f"[train] nothing to do: resumed at epoch {start_epoch} "
                      f"of {cfg.n_epochs}")
+        liveness = None
+        for cb in self.callbacks:
+            if isinstance(cb, ElasticLiveness):
+                liveness = cb.probe
         stream = None
         if self._streaming:
             from repro_torch.data.stream import SegmentStream
@@ -265,9 +344,11 @@ class Trainer:
             self._rebuild_tables()
             self._tables_built_at = self.epoch
         state = hierarchy.run_hierarchical(
-            self._timed_epoch, None, self.state, self.alpha, self.beta,
-            cfg.n_epochs, cfg.agg_every, seed0=cfg.seed * 131 + 7,
+            self._timed_epoch, self._timed_agg if self._agg_fn else None,
+            self.state, self.alpha, self.beta, cfg.n_epochs, cfg.agg_every,
+            seed0=cfg.seed * 131 + 7, liveness=liveness,
             start_epoch=start_epoch, on_epoch_end=self._hook_epoch_end,
+            on_aggregate=self._hook_aggregate, refs=self._refs,
             segments=stream, start_segment=self.segment,
             on_segment_end=self._hook_segment_end if stream else None,
             epoch_aux=self._epoch_tables if self._alias else None,
@@ -297,6 +378,26 @@ class Trainer:
         else:
             self.metrics["epoch_s"].append(dt)
         return out
+
+    def _timed_agg(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = self._agg_fn(*args, **kwargs)
+        self._sync()
+        self.metrics["agg_s"].append(time.perf_counter() - t0)
+        return out
+
+    def _hook_aggregate(self, ep: int, state) -> None:
+        self.state = tuple(state)
+        # the merged state is the new ref; a clone survives the next epochs'
+        # in-place updates, so mid-window checkpoints carry the exact refs a
+        # resume must replay against
+        self._refs = (torch.clone(state[0]), torch.clone(state[1]))
+        if self._alias:
+            # word tables refresh from the just-merged Φ, before notify, so
+            # boundary checkpoints capture the tables the next epoch uses
+            self._rebuild_tables()
+            self._tables_built_at = ep + 1
+        self.notify("on_aggregate", ep)
 
     def _hook_segment_end(self, ep: int, seg, state) -> None:
         self.state = tuple(state)
@@ -372,7 +473,8 @@ class Trainer:
         correction assumes the drawn proposal and the q ratio share one α).
         """
         ep = self.epoch
-        if ep > 0 and ep % self.config.agg_every == 0 and self._tables_built_at != ep:
+        if (not self.has_aggregation and ep > 0 and ep % self.config.agg_every == 0
+                and self._tables_built_at != ep):
             self._rebuild_tables()
             self._tables_built_at = ep
         elif self._tables_alpha is not self.alpha:
@@ -381,30 +483,44 @@ class Trainer:
 
     @property
     def has_aggregation(self) -> bool:
-        """Whether this session has aggregation boundaries (multi-pod: never
-        on one device)."""
-        return False
+        """Whether this session has aggregation boundaries (multi-pod)."""
+        return self._agg_fn is not None
 
     @property
     def agg_fn(self):
-        """The boundary-merge callable (None: a single-pod session)."""
-        return None
+        """The boundary-merge callable (None in single-pod sessions)."""
+        return self._agg_fn
 
     def local_model(self):
-        """(phi_shards, psi) of the single pod."""
-        return self.state[0], self.state[1]
+        """(phi, psi) of this rank's pod, without the pod dim: the shards
+        [M, rows, K] on one device, this rank's view [1, rows/P, K] on a
+        rank."""
+        phi, psi = self.state[0], self.state[1]
+        if self.config.multi_pod:
+            return phi[0], psi[0]
+        return phi, psi
 
-    def gather_phi(self) -> torch.Tensor:
-        """Reassembled global [V, K] topic-count matrix, on the session's device."""
+    def gather_phi(self) -> Optional[torch.Tensor]:
+        """Reassembled global [V, K] topic-count matrix (pod 0's), on the
+        session's device. On several ranks a collective: rank 0 gets it, the
+        others ``None``."""
         from repro_torch.core import distributed as dist
 
+        if self.layout is not None:
+            return dist.gather_phi_ranks(self.state[0], self.sc0, self.layout,
+                                         pod_axis=self._pod_axis)
         phi0, _ = self.local_model()
         return dist.gather_phi(phi0, self.sc0)
 
     def log_likelihood(self) -> float:
-        from repro_torch.core import lda
+        """The word LL of this rank's pod (a collective over the pod's ring
+        on several ranks)."""
+        from repro_torch.core import distributed as dist, lda
 
-        _, psi0 = self.local_model()
+        phi0, psi0 = self.local_model()
+        if self.layout is not None:
+            return dist.ring_word_log_likelihood(phi0, psi0, self.beta, self.sc0,
+                                                 self.layout)
         return float(lda.word_log_likelihood(self.gather_phi(), psi0, self.beta))
 
     def alpha_statistics(self):
@@ -431,6 +547,9 @@ class Trainer:
                         torch.from_numpy(self._z[np.asarray(sc.uid)]).to(dev),
                         torch.from_numpy(np.asarray(sc.word_local) >= 0).to(dev))
                     omega = o if omega is None else omega + o
+        elif self.layout is not None:
+            wl, dl, z = self._pod0_stacks()
+            omega = self._segment_omega(dl, z, wl >= 0)
         else:
             wl, dl, z = self.state[2], self.state[3], self.state[5]
             omega = self._segment_omega(dl, z, wl >= 0)
@@ -439,14 +558,41 @@ class Trainer:
                 torch.from_numpy(self.source.doc_lengths()).to(self.device))
         return omega, self._doc_len_hist
 
+    def _pod0_stacks(self):
+        """Pod 0's global (wl, dl, z) stacks on every rank (the JAX package's
+        Ω reads pod 0's), all-gathered from the ranks' views."""
+        from repro_torch.core import distributed as dist
+        from repro_torch.dist import collectives as coll, sharding as shd
+
+        lay = self.layout
+        spec = dist.specs(self.ring_cfg.model_shards)["stack"]
+        lead = 2 if self._pod_axis else 1
+        ring = lay.data * lay.model
+        out = []
+        for i in (2, 3, 5):
+            views = coll.all_gather(self.state[i], lay, "world")[:ring].cpu().numpy()
+            views = [v.reshape(v.shape[lead - 1:]) for v in views]
+            out.append(torch.from_numpy(shd.assemble(views, spec, dist.pod_layout(lay)))
+                       .to(self.device))
+        return out
+
     # ------------------------------------------------- checkpoint plumbing -
 
-    def checkpoint_tree(self) -> dict:
-        """The session's state as the JAX package lays it out: uid as uint32;
-        leaves numbered in sorted-key order (alpha, state, tables, z)."""
+    def _leaf_specs(self) -> dict:
+        """The JAX package's layout of each checkpoint leaf, by key."""
+        from repro_torch.core import distributed as dist
+
+        sp = dist.specs(self.ring_cfg.model_shards, self._pod_axis)
+        return {"state": (sp["phi"], sp["psi"]) + (sp["stack"],) * 4,
+                "tables": (sp["tables"],) * 3 + ((), ()),
+                "refs": (sp["phi"], sp["psi"])}
+
+    def checkpoint_tree(self) -> Optional[dict]:
+        """The session's state in the JAX package's global layout: uid as
+        uint32; leaves numbered in sorted-key order (alpha, refs, state,
+        tables, z). On several ranks a collective that assembles the tree on
+        rank 0 (the other ranks get ``None``)."""
         state = list(self.state)
-        if len(state) == 6:
-            state[4] = state[4].cpu().numpy().astype(np.uint32)
         tree = {"state": tuple(state), "alpha": self.alpha}
         if self._alias and self._tables is not None:
             # the stale proposal tables are part of the sampler's state: a
@@ -457,7 +603,39 @@ class Trainer:
             # the stacks are reproducible from the source, z is not — and a
             # resume must land bit for bit on the recorded (epoch, segment)
             tree["z"] = np.array(self._z)
+        if self.config.multi_pod:
+            # the refs of the last boundary: a resume from a mid-window
+            # checkpoint must replay against them (re-deriving them from the
+            # per-pod states would break the pods-agree invariant)
+            tree["refs"] = tuple(self._refs)
+        if self.layout is not None:
+            tree = self._assemble_tree(tree)
+        if tree is not None and len(tree["state"]) == 6:
+            st = list(tree["state"])
+            st[4] = np.asarray(st[4].cpu().numpy() if isinstance(st[4], torch.Tensor)
+                               else st[4]).astype(np.uint32)
+            tree["state"] = tuple(st)
         return tree
+
+    def _assemble_tree(self, tree: dict) -> Optional[dict]:
+        """Every rank's views → the global tree on rank 0 (a collective)."""
+        from repro_torch.core import distributed as dist
+        from repro_torch.dist import sharding as shd
+
+        out = {}
+        for key, leaves in tree.items():
+            if key not in ("state", "tables", "refs"):
+                out[key] = leaves.cpu().numpy() if isinstance(leaves, torch.Tensor) else leaves
+                continue
+            parts = []
+            for x, spec in zip(leaves, self._leaf_specs()[key]):
+                if spec == ():
+                    parts.append(x.cpu().numpy())
+                    continue
+                views = dist.gather_views(x, self.layout)
+                parts.append(None if views is None else shd.assemble(views, spec, self.layout))
+            out[key] = tuple(parts)
+        return out if self.is_writer else None
 
     def _tables_like(self, phi_shape) -> tuple:
         """Structure-only stand-in for the alias tables (wq, wp, wa, ap, aa)."""
@@ -469,13 +647,15 @@ class Trainer:
                 np.zeros((K,), np.int32))
 
     def checkpoint_like(self) -> dict:
+        """The structure of ``checkpoint_tree()`` (leaf count and order) for
+        a restore; no collective."""
         self.setup()
+        cfg = self.config
+        K = cfg.n_topics
         if self._streaming and self.state is None:
             # restore template before the lazy init pass: the loader only
             # needs the tree STRUCTURE (leaf count + order), not values
-            cfg = self.config
-            K, M = cfg.n_topics, cfg.ring_size
-            phi_shape = (M, self.sc0.rows_per_shard, K)
+            phi_shape = (cfg.ring_size, self.sc0.rows_per_shard, K)
             like = {"state": (np.zeros(phi_shape, np.int32),
                               np.zeros((K,), np.int32)),
                     "alpha": np.zeros((K,), np.float32),
@@ -483,34 +663,60 @@ class Trainer:
             if self._alias:
                 like["tables"] = self._tables_like(phi_shape)
             return like
-        tree = self.checkpoint_tree()
-        if self._alias and "tables" not in tree:
-            # restore runs before fit()'s lazy table build — synthesize the
-            # template from the phi shape (values never reach the loader)
-            tree["tables"] = self._tables_like(tuple(self.state[0].shape))
-        return tree
+        phi_shape = tuple(self.state[0].shape)
+        like = {"state": tuple(np.zeros((0,)) for _ in self.state),
+                "alpha": np.zeros((K,), np.float32)}
+        if self._alias:
+            like["tables"] = self._tables_like(phi_shape)
+        if self._streaming:
+            like["z"] = np.zeros(self.source.n_tokens, np.int32)
+        if cfg.multi_pod:
+            like["refs"] = (np.zeros((0,)), np.zeros((0,)))
+        return like
 
     def load_checkpoint(self, tree: dict, meta: dict) -> None:
+        """Restore from a checkpoint tree in the JAX package's global layout
+        (numpy leaves), resharded first when it was written under another
+        ``n_model_shards``; each rank keeps its views."""
+        from repro_torch.dist import sharding as shd
+
         ck_p = int(meta.get("n_model_shards", 1))
         if ck_p != self.config.n_model_shards:
-            raise NotImplementedError(
-                f"the checkpoint was written with n_model_shards={ck_p}; resharding "
-                f"(training/reshard.py) is not ported ({_MULTI_GPU})")
+            # another word-shard layout: permute Φ/tables/refs rows through
+            # the coarse vocabulary ids and rebuild the stacks from this
+            # session's sharding
+            from repro_torch.training import reshard
+
+            scs = self._scs if self.config.multi_pod else [self.sc0]
+            tree = reshard.reshard_checkpoint(tree, ck_p, self.config.n_model_shards, scs)
+            self.log(f"[ckpt] resharded checkpoint n_model_shards={ck_p} -> "
+                     f"{self.config.n_model_shards}")
         dev = self.device
-        leaf = lambda x: torch.from_numpy(np.array(x)).to(dev)
-        state = [leaf(x) for x in tree["state"]]
-        if len(state) == 6:
-            state[4] = leaf(np.asarray(tree["state"][4]).astype(np.int64))
-        self.state = tuple(state)
-        self.alpha = leaf(tree["alpha"])
+        specs = self._leaf_specs() if self.layout is not None else {}
+
+        def leaves(key):
+            out = []
+            for i, x in enumerate(tree[key]):
+                x = np.asarray(x)
+                if key in specs and specs[key][i] != ():
+                    x = shd.local_view(x, specs[key][i], self.layout)
+                if key == "state" and i == 4:
+                    x = x.astype(np.int64)
+                out.append(torch.from_numpy(np.array(x)).to(dev))
+            return tuple(out)
+
+        self.state = leaves("state")
+        self.alpha = torch.from_numpy(np.array(tree["alpha"])).to(dev)
         if "z" in tree:
             self._z = np.array(tree["z"], np.int32)
+        if "refs" in tree:
+            self._refs = leaves("refs")
         self.epoch = int(meta.get("epoch", meta["step"]))
         self.segment = int(meta.get("segment", 0))
         if "tables" in tree:
             from repro_torch.core import sparse
 
-            self._tables = sparse.AliasTables(*(leaf(x) for x in tree["tables"]))
+            self._tables = sparse.AliasTables(*leaves("tables"))
             # mid-epoch (segment) checkpoints already carry this epoch's
             # tables; an epoch-boundary one lets _epoch_tables re-derive a due
             # rebuild from the restored state; the α table is rebuilt at the
@@ -530,7 +736,8 @@ class Trainer:
         the duplicate-fraction diagnostic and the cluster merge; merged
         counts + merged α become the serving model on the session's device.
         Returns ``(RTLDAModel, info)`` with ``info = {duplicate_fraction,
-        n_topics, n_topics_raw}``.
+        n_topics, n_topics_raw}``; on several ranks a collective (pod 0's
+        model, on rank 0; the other ranks get ``(None, None)``).
         """
         from repro_torch.core import dedup, rtlda
 
@@ -539,6 +746,9 @@ class Trainer:
         dup_l1 = cfg.dedup_dup_l1 if dup_l1 is None else dup_l1
         _, psi0 = self.local_model()
         phi_full = self.gather_phi()
+        if phi_full is None:
+            return None, None
+        psi0 = psi0.reshape(-1)
         d_l1 = dedup.pairwise_l1(phi_full, self.beta)
         frac = dedup.duplicate_fraction(phi_full, self.beta, dup_l1, dist=d_l1)
         cl, ncl = dedup.cluster_topics(phi_full, self.beta,
@@ -557,6 +767,7 @@ class Trainer:
         cfg = self.config
         ep_s = self.metrics.get("epoch_s", [])
         seg_s = self.metrics.get("segment_s", [])
+        agg_s = self.metrics.get("agg_s", [])
         pub_s = self.metrics.get("publish_s", [])
         ll = self.metrics.get("ll", [])
         src = self.source
@@ -584,8 +795,8 @@ class Trainer:
             "epoch_s_last": ep_s[-1] if ep_s else None,
             "tokens_per_s": (tokens / mean(ep_s)) if ep_s else None,
             "segment_s_mean": mean(seg_s),
-            "agg_s_mean": None,
-            "n_aggregates": 0,
+            "agg_s_mean": mean(agg_s),
+            "n_aggregates": len(agg_s),
             "publish_s_mean": mean(pub_s),
             "n_publishes": len(pub_s),
             "ll_final": ll[-1] if ll else None,

@@ -1,0 +1,186 @@
+"""Rank bodies and the JAX host-mesh runner shared by the port's multi-rank
+tests (``tests/test_torch_ring.py``, ``test_torch_shard_model.py``,
+``test_torch_pods.py``, ``test_torch_trainer_multipod.py``).
+
+The rank bodies run in processes started by ``repro_torch.launch.mesh.spawn``
+(gloo over CPU processes), so this module imports torch and the port only,
+never jax. ``jax_run`` runs a JAX script on XLA host devices in a subprocess
+(``conftest.run_with_devices``) and reads back the arrays it saved.
+"""
+import os
+import tempfile
+
+import numpy as np
+import torch
+
+from repro_torch.dist import sharding as shd
+
+BETA = 0.01
+# a rank that waits this long in a collective fails the test instead of hanging it
+TIMEOUT_S = 300
+
+
+def alpha0(K):
+    return torch.full((K,), 50.0 / K)
+
+
+def rank_tables(st, alpha, V, pod_axis=False):
+    """This rank's alias tables from its own Φ rows and the α row."""
+    from repro_torch.core import sparse
+
+    wq, wp, wa = sparse.make_word_tables(st[0], st[1], torch.tensor(BETA), V)
+    ap, aa = sparse.make_alpha_table(alpha)
+    return (wq, wp, wa, ap, aa)
+
+
+def ring_body(layout, scs, cfg, epochs, pod_axis=False):
+    """``epochs`` ring epochs of one rank from its views of ``scs``; returns
+    the rank's (phi, psi, wl, dl, uid, z) views as numpy."""
+    from repro_torch.core import distributed as dist
+
+    K = cfg.n_topics
+    st = dist.rank_arrays(scs, K, layout, device="cpu", pod_axis=pod_axis)
+    epoch = dist.build_epoch_body(cfg, layout, pod_axis=pod_axis)
+    alpha = alpha0(K)
+    tabs = rank_tables(st, alpha, cfg.vocab_size) if cfg.sampler == "alias" else ()
+    for ep in range(epochs):
+        st = epoch(*st, alpha, torch.tensor(BETA), ep * 977 + 3, *tabs)
+    return [x.numpy().copy() for x in st]
+
+
+def ring_forms(layout, scs, cfgs, epochs, pod_axis=False):
+    """``ring_body`` for each labelled RingConfig of ``cfgs``, in one world."""
+    return {label: ring_body(layout, scs, cfg, epochs, pod_axis)
+            for label, cfg in cfgs.items()}
+
+
+def assemble_state(views, cfg, layout, pod_axis=False):
+    """The ranks' views → the JAX package's global (phi, psi, wl, dl, uid,
+    z). Ψ must be the same on every rank of a pod."""
+    from repro_torch.core import distributed as dist
+
+    sp = dist.specs(cfg.model_shards, pod_axis)
+    per = list(zip(*views))
+    out = [shd.assemble(per[0], sp["phi"], layout), shd.assemble(per[1], sp["psi"], layout)]
+    out += [shd.assemble(per[i], sp["stack"], layout) for i in range(2, 6)]
+    ring = layout.data * layout.model
+    for r, v in enumerate(per[1]):
+        first = per[1][(r // ring) * ring]
+        assert np.array_equal(v, first), f"rank {r}: Ψ differs from its pod's first rank"
+    return out
+
+
+def jax_run(subproc, code, n_devices):
+    """Run JAX ``code`` (which must ``np.savez(OUT, **arrays)``) on
+    ``n_devices`` XLA host devices through the ``subproc`` fixture; returns
+    the saved arrays by name."""
+    fd, path = tempfile.mkstemp(suffix=".npz")
+    os.close(fd)
+    try:
+        subproc(f"OUT = {path!r}\n" + code, n_devices=n_devices, timeout=900)
+        with np.load(path) as f:
+            return {k: f[k] for k in f.files}
+    finally:
+        os.remove(path)
+
+
+def z_by_uid(wl, uid, z, n_tokens):
+    valid = wl >= 0
+    out = np.zeros(n_tokens, np.int32)
+    out[uid[valid]] = z[valid]
+    return out
+
+
+def pod_body(layout, scs, cfg, n_epochs, agg_every, modes, seed0=11, chunk_elems=64,
+             schedule=None):
+    """``run_hierarchical`` over pods, once per aggregate mode ("exact",
+    "compressed", "elastic" with ``schedule`` {epoch: live flags}); returns
+    {mode: (views, last_n_live)}."""
+    from repro_torch.core import hierarchy
+
+    out = {}
+    for mode in modes:
+        st = hierarchy.init_pod_state(scs, cfg.n_topics, layout, device="cpu")
+        epoch = hierarchy.make_pod_ring_epoch(cfg, layout)
+        if mode == "elastic":
+            agg = hierarchy.make_elastic_aggregate(layout)
+            liveness = lambda ep: schedule[ep]
+        else:
+            agg = hierarchy.make_aggregate(layout, compressed=mode == "compressed",
+                                           chunk_elems=chunk_elems)
+            liveness = None
+        st = hierarchy.run_hierarchical(epoch, agg, st, alpha0(cfg.n_topics),
+                                        torch.tensor(BETA), n_epochs, agg_every,
+                                        seed0=seed0, liveness=liveness)
+        out[mode] = ([x.numpy().copy() for x in st], getattr(agg, "last_n_live", None))
+    return out
+
+
+def compressed_body(layout, g, seeds):
+    """``compressed_psum`` of this pod's row of ``g`` for each seed."""
+    from repro_torch.dist import collectives as coll
+
+    x = torch.from_numpy(g[layout.pod_index])
+    return [coll.compressed_psum({"w": x}, layout, "pod", seed=s)["w"].numpy() for s in seeds]
+
+
+def elastic_body(layout, phi_ref, deltas, live):
+    """``elastic_aggregate`` of (ref + this pod's delta) over the live pods."""
+    from repro_torch.dist import collectives as coll
+
+    ref = torch.from_numpy(phi_ref)
+    phi = ref + int(deltas[layout.pod_index])
+    merged, n_live = coll.elastic_aggregate(phi, ref, live[layout.pod_index], layout)
+    return merged.numpy(), n_live
+
+
+def collectives_body(layout, device):
+    """Shift, all_reduce (sum, max) and all_gather over the flattened ring on
+    ``device``; returns what this rank received."""
+    from repro_torch.dist import collectives as coll
+
+    me = layout.rank
+    x = torch.arange(6, dtype=torch.int32, device=device) + 10 * me
+    got = coll.shift(layout, "ring", [x, x.to(torch.int64) * 2])
+    s = coll.all_reduce_(x.clone(), layout, "ring")
+    mx = coll.all_reduce_(x.to(torch.float32), layout, "ring", "max")
+    g = coll.all_gather(x, layout, "ring")
+    return [t.cpu().numpy() for t in (*got, s, mx, g)]
+
+
+def trainer_run(layout, cfg_kw, ckpt=None, kill=None, resume=False, schedule=None,
+                publish=None, ckpt_every=None):
+    """One multi-rank ``Trainer`` session on the CPU; returns the global
+    checkpoint tree (rank 0; ``None`` elsewhere) and the session's counters,
+    or ``{"killed": code}``."""
+    from repro_torch.training import (Checkpointing, ElasticLiveness, KillSwitch, Metrics,
+                                      ModelPublisher, Trainer, TrainerConfig)
+
+    cfg = TrainerConfig(device="cpu", ckpt_dir=ckpt, resume=resume,
+                        ckpt_every=ckpt_every or 5, **cfg_kw)
+    cbs, live, pub = [], None, None
+    if schedule:
+        live = ElasticLiveness(lambda ep: np.array(schedule[ep]))
+        cbs.append(live)
+    if ckpt:
+        cbs.append(Checkpointing())
+    if kill:
+        cbs.append(KillSwitch(kill))
+    if publish:
+        pub = ModelPublisher(publish, every=1)
+        cbs.append(pub)
+    cbs.append(Metrics(printer=lambda m: None))
+    tr = Trainer(cfg, callbacks=cbs, layout=layout)
+    tr.log = lambda m: None
+    try:
+        tr.fit()
+    except SystemExit as exc:
+        return {"killed": exc.code}
+    return {"tree": tr.checkpoint_tree(), "n_live": live.last_n_live if live else None,
+            "n_agg": len(tr.metrics["agg_s"]), "version": pub.last_version if pub else None,
+            "ll": tr.metrics["ll"], "epoch": tr.epoch}
+
+
+def trainer_runs(layout, runs):
+    """``trainer_run`` for each (label, kwargs) of ``runs``, in one world."""
+    return {label: trainer_run(layout, **kw) for label, kw in runs}

@@ -106,8 +106,9 @@ def test_device_arrays_match_jax(corpus):
 
 def test_epoch_builder_refuses_what_is_not_ported(corpus):
     _, kw = _ring(corpus, 1)
+    # a ring of several ranks, or model slices, need the rank's RankLayout
     for bad in (dict(n_rounds=2), dict(model_shards=2)):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="RankLayout"):
             tdist.build_epoch_body(tdist.RingConfig(**{**kw, **bad}))
 
 

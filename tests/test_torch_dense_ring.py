@@ -147,8 +147,9 @@ def test_ring_config_geometry():
 
 def test_dense_epoch_builder_refuses_what_is_not_ported(sharded):
     _, sc = sharded
+    # a ring of several ranks, or model slices, need the rank's RankLayout
     for bad in (dict(n_rounds=2), dict(model_shards=2)):
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(ValueError, match="RankLayout"):
             tdist.build_epoch_body(tdist.RingConfig(**{**_kw(sc), **bad}))
     with pytest.raises(ValueError, match="package_len"):
         tdist.build_epoch_body(tdist.RingConfig(**{**_kw(sc), "package_len": 7}))

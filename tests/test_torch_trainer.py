@@ -490,8 +490,14 @@ class TrainResultView:
 
 # ------------------------------ refusals ----------------------------------
 
-@pytest.mark.parametrize("flags", [["--pods", "2"], ["--data-shards", "2"],
-                                   ["--model-shards", "2"], ["--sharded-model"],
+# the mesh flags train across ranks now; what stays refused is a streamed
+# corpus on several ranks, and --preflight
+@pytest.mark.parametrize("flags", [["--data-shards", "2", "--model-shards", "2",
+                                    "--n-segments", "3"],
+                                   ["--data-shards", "2", "--n-segments", "2"],
+                                   ["--model-shards", "2", "--n-segments", "2"],
+                                   ["--sharded-model", "--model-shards", "2",
+                                    "--n-segments", "2"],
                                    ["--preflight"]])
 def test_launch_train_refuses_unported_flags(capsys, flags):
     with pytest.raises(SystemExit) as exc:
@@ -510,17 +516,25 @@ def test_launch_train_refuses_a_segment_kill_without_an_epoch(capsys):
     assert "--kill-at-segment requires --kill-at" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("bad", [dict(n_pods=2), dict(data_shards=2), dict(model_shards=2),
-                                 dict(n_model_shards=2, model_shards=2)])
+# a streamed corpus on several ranks is not ported
+@pytest.mark.parametrize("bad", [dict(data_shards=2, model_shards=2, n_segments=3),
+                                 dict(data_shards=2, n_segments=2),
+                                 dict(model_shards=2, n_segments=2),
+                                 dict(n_model_shards=2, model_shards=2, n_segments=2)])
 def test_trainer_refuses_unported_sessions(bad):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port_trainer(**bad).setup()
 
 
 def test_trainer_refuses_a_resharded_checkpoint():
+    """A checkpoint of another word-shard layout is resharded on load; one
+    whose Φ rows do not split into the slices its meta records is refused."""
     t = _port_trainer().setup()
-    with pytest.raises(NotImplementedError, match="reshard"):
-        t.load_checkpoint(t.checkpoint_like(), {"step": 2, "n_model_shards": 2})
+    tree = t.checkpoint_tree()
+    phi = np.asarray(tree["state"][0])
+    odd = {**tree, "state": (np.zeros((1, 7, phi.shape[2]), phi.dtype),) + tree["state"][1:]}
+    with pytest.raises(ValueError, match="slice count"):
+        t.load_checkpoint(odd, {"step": 2, "n_model_shards": 2})
 
 
 def test_entry_points_refuse_to_run_without_cuda(tmp_path):
