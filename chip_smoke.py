@@ -61,6 +61,24 @@ drops its delta). Then ``launch.train`` starting its own ranks
 boundaries and resumed, equal and publishing the same model, and a
 ``--sharded-model`` checkpoint resumed at P = 1.
 
+Then the streamed ring of several ranks, in a second world of 4 ranks on the
+card ([stream-ranks]): the streamed cell's 163,840 docs saved as 10 segments
+for a 4×1 ring and trained from the mmap'd directory by each rank's
+``Trainer`` (each rank streams only its block of every segment): dense 3
+epochs in packages of 2,412 with α re-estimated, a profiled epoch on rank 0,
+one epoch each with prefetch on and off (bit for bit), the alias sampler 3
+epochs after one table build a rank, count invariants over the global z
+store, ``gibbs_argmax`` and ``mh_resample`` held on rank 0, the rotation and
+Ψ all_reduce of a segment timed; the corpus as 20 segments word-sharded 2×2
+(P = 2) against 2×1, bit for bit; SMALL's corpus in 3 segments on a 2×2 ring,
+card against CPU; and ``lookup_sharded`` over dlrm-mlperf's 187,767,552 ×
+128 bf16 table row-sharded 4 ways (11.2 GiB a rank), the serve_p99 batch and
+one of 16,384, each rank's rows equal to its local gather, every id hit
+once. Then ``launch.train`` starts its own 4 ranks streamed in 3 segments
+([launch.train streamed ranks]): killed at a segment boundary and resumed,
+from memory and from a ``--corpus-dir`` (the latter resume with rank 1's
+first segment read failing), each equal to the uninterrupted run.
+
 Then the recsys serving path at full width: dlrm-mlperf (the 187,767,552 ×
 128 bf16 embedding table of the MLPerf Criteo-1TB config, nothing cut) with
 the ``embedding_bag`` kernel checked at the bulk batch's gather, 200 timed
@@ -255,9 +273,14 @@ def device_breakdown(label, fn, top=8):
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                   reverse=True)
+    # gloo's host-side waits come back booked as device time: not kernels
+    gloo = [r for r in rows if r[2].startswith("gloo:")]
+    rows = [r for r in rows if not r[2].startswith("gloo:")]
     busy = sum(r[0] for r in rows)
     log(f"[profile] {label}: window {wall_ms:.3f} ms (profiled), device busy {busy:.3f} ms "
-        f"= {busy / wall_ms:.3f} of it, idle {1 - busy / wall_ms:.3f}")
+        f"= {busy / wall_ms:.3f} of it, idle {1 - busy / wall_ms:.3f}"
+        + (f"; gloo host-side waits (not device time) {sum(r[0] for r in gloo):.3f} ms in "
+           f"{sum(r[1] for r in gloo)} calls" if gloo else ""))
     for ms, n, name in rows[:top]:
         log(f"[profile]   {ms:10.3f} ms {n:5d}x {100 * ms / busy:5.1f}%  {name[:80]}")
     return rows
@@ -1224,9 +1247,10 @@ def trainer_small_phase():
 # card. Dense: packages of at most 10,000 tokens, 3 epochs with α re-estimated
 # from the second (index 1); then one epoch each with prefetch on and off from
 # one start. Alias: 6 epochs, tables rebuilt every 3, α held. Then both
-# samplers 8 epochs from one z0 with α held (LL curves)
+# samplers 4 epochs from one z0 with α held (LL curves; 8 until the streamed
+# ring's phases joined the script)
 STREAM = dict(tiles=40, segments=10, max_package=10_000, epochs=3, alpha_from=1,
-              alias_epochs=6, agg_every=3, n_mh=4, ll_epochs=8)
+              alias_epochs=6, agg_every=3, n_mh=4, ll_epochs=4)
 # the small streamed launch.train loop: SMALL's geometry in 3 segments, a
 # checkpoint at every segment boundary, killed after segment 1 of epoch 2
 STREAM_SMALL = dict(segments=3, epochs=4, kill_at=2, kill_at_segment=1)
@@ -1282,6 +1306,20 @@ def stream_stats(tr, n_seg, label, first=0):
     return rows
 
 
+def epoch_peak():
+    """A ``Trainer`` callback (put it last): this process's peak device
+    memory in each epoch (its segments, Ω folds and the callbacks before
+    it) into ``metrics["peak_gib"]``, then a reset for the next epoch."""
+    from repro_torch.training import TrainerCallback
+
+    class EpochPeak(TrainerCallback):
+        def on_epoch_end(self, trainer, epoch):
+            trainer.metrics["peak_gib"].append(torch.cuda.max_memory_allocated() / 2**30)
+            torch.cuda.reset_peak_memory_stats()
+
+    return EpochPeak()
+
+
 def stream_phase(base):
     """The streamed cell through the port's Trainer from a save_segments
     directory (DiskSource, mmap'd), at K = 100,000, V = 32,768."""
@@ -1322,13 +1360,6 @@ def stream_phase(base):
         tr.log = lambda m: None
         return tr
 
-    class EpochPeak(TrainerCallback):
-        """Last callback: the epoch's peak device memory (its segments, Ω
-        folds and the callbacks before this one), then a reset for the next."""
-        def on_epoch_end(self, trainer, epoch):
-            trainer.metrics["peak_gib"].append(torch.cuda.max_memory_allocated() / 2**30)
-            torch.cuda.reset_peak_memory_stats()
-
     def release(*trainers):
         for t in trainers:
             t.state = t._tables = None
@@ -1338,7 +1369,7 @@ def stream_phase(base):
     # ---- the main path: counts from 0, the dense Trainer's fit ----
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tr = trainer("dense", S["epochs"], [AlphaOptimizer(), Metrics(printer=say), EpochPeak()],
+    tr = trainer("dense", S["epochs"], [AlphaOptimizer(), Metrics(printer=say), epoch_peak()],
                  alpha_opt_from=S["alpha_from"])
     t0 = time.perf_counter()
     ops.launches = 0
@@ -1412,7 +1443,7 @@ def stream_phase(base):
 
     # ---- the alias Trainer from the same directory ----
     torch.cuda.reset_peak_memory_stats()
-    ta = trainer("alias", S["alias_epochs"], [Metrics(printer=say), EpochPeak()],
+    ta = trainer("alias", S["alias_epochs"], [Metrics(printer=say), epoch_peak()],
                  alpha_opt_from=99)
     alias_ops.build_launches = alias_ops.mh_launches = 0
     t0 = time.perf_counter()
@@ -3223,6 +3254,623 @@ def launch_ranks_phase():
     return n
 
 
+# ------------------------------------------------- the streamed ring of ranks
+# the streamed cell's corpus on a 4×1 ring in 10 segments (packages of at most
+# 2,500: two a sub-block), then word-sharded 2×2 (P = 2) against 2×1 in 20
+# segments (the 2×1 ranks' one-package planes stay near 15 GiB)
+STREAM_RANKS = dict(ring=4, segments=10, max_package=2_500, epochs=3, alpha_from=1,
+                    alias_epochs=3, wshard_segments=20, wshard_epochs=2, reps=10)
+# SMALL's corpus on a 2×2 ring in 3 segments, and launch.train's streamed worlds
+STREAM_RANKS_SMALL = dict(segments=3, epochs=4, kill_at=2, kill_at_segment=1)
+# lookup_sharded: dlrm-mlperf's table row-sharded 4 ways, the serve_p99 batch and one of 16,384
+LOOKUP = dict(batches=(512, 16_384), reps=20, seed=0)
+
+
+def stream_trainer(layout, root, sampler, n_epochs, callbacks=(), **kw):
+    """A streamed ``Trainer`` of this rank over the directory ``root``."""
+    from repro_torch.training import Trainer, TrainerConfig
+    cfg = TrainerConfig(n_topics=FULL["n_topics"], vocab_size=FULL["vocab"], corpus_dir=root,
+                        sampler=sampler, n_epochs=n_epochs, agg_every=STREAM["agg_every"],
+                        n_mh=STREAM["n_mh"], device="cuda", data_shards=layout.data,
+                        model_shards=layout.model, **kw)
+    tr = Trainer(cfg, callbacks=list(callbacks), layout=layout)
+    tr.log = lambda m: None
+    return tr
+
+
+def stream_rank_invariants(layout, tr, label):
+    """Φ rows of this rank equal the counts of the global z store over every
+    segment (``rank_counts``), Σ Φ over the ring is Ψ, and Σ Ψ is the token
+    count. A collective over the ring."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.dist import collectives as coll
+    torch.cuda.empty_cache()
+    z, src, K = tr.global_z(), tr.source, tr.config.n_topics
+    scs = [src.segment(g) for g in range(src.n_segments)]
+    phi, psi = dist.rank_counts([(sc.word_local, z[np.asarray(sc.uid)]) for sc in scs], K,
+                                tr.sc0.rows_per_shard, tr.config.n_model_shards, layout, "cuda")
+    view, psi_l = tr.state[0].reshape(phi.shape), tr.state[1]
+    same = torch.equal(phi, view)
+    del phi
+    col = view.sum(dim=0, dtype=torch.int64)
+    coll.all_reduce_(col, layout, "ring")
+    if not (same and torch.equal(psi, psi_l) and torch.equal(col, psi_l.long())
+            and int(psi_l.sum()) == src.n_tokens):
+        raise AssertionError(f"{label}: rank {layout.rank}: Φ is not the counts of the global z "
+                             f"store, or Σ Φ is not Ψ, or Σ Ψ is not {src.n_tokens}")
+    return z
+
+
+def stream_rank_stats(tr, first=0):
+    """This rank's per-epoch stream numbers from epoch ``first`` on: epoch
+    seconds, and the means of LoadShard, the consumer's wait and SaveShard
+    (ms a segment)."""
+    m, n = tr.metrics, tr.source.n_segments
+    rows = []
+    for e, ep_s in enumerate(m["epoch_s"][first:], start=first):
+        sl = slice(e * n, (e + 1) * n)
+        rows.append(dict(epoch_s=ep_s, **{f"{k[:-2]}_ms": 1e3 * float(np.mean(m[k][sl]))
+                                         for k in ("load_shard_s", "load_wait_s",
+                                                   "save_shard_s")}))
+    return rows
+
+
+def stream_held_epoch(tr, layout, kernel, tables=False):
+    """One uncounted epoch body over this rank's block of the first segment,
+    with ``kernel``'s wrapper held against its plain version on rank 0 (the
+    first call); every rank runs it (collectives). It moves the counts, so
+    it comes last."""
+    from repro_torch.data.stream import SegmentStream
+    from repro_torch.kernels.alias import ops as alias_ops
+    from repro_torch.kernels.gibbs import ops as gibbs_ops
+    seg = next(iter(SegmentStream(tr.source, tr._z.copy(), prefetch=False, device=tr.device,
+                                  layout=layout).epoch(0)))
+    mod, check = ((gibbs_ops, gibbs_check("cuda", "streamed ring"))
+                  if kernel == "gibbs_argmax" else (alias_ops, mh_check("streamed ring alias")))
+    if layout.rank != 0:
+        check = lambda zk, args: None       # noqa: E731
+    aux = tr._epoch_tables() if tables else ()
+    with held(mod, kernel, check, first_only=True) as seen:
+        tr._epoch_fn(*tr.state, seg.wl, seg.dl, seg.uid, seg.z, tr.alpha, tr.beta, 4000, *aux)
+    sync_ranks()
+    return seen[0]
+
+
+def stream_ring_rank(layout, root, L):
+    """[stream-ranks] 4×1 on this rank: the dense Trainer from the directory
+    (3 epochs, α from the second; the main path), a profiled epoch (rank 0),
+    the rotation and Ψ reduce on a segment's block, prefetch on vs off, then
+    the alias Trainer (one table build, 3 epochs)."""
+    from repro_torch.data.stream import SegmentStream
+    from repro_torch.dist import collectives as coll
+    from repro_torch.training import AlphaOptimizer, Metrics
+    S, out = STREAM_RANKS, {}
+    free_card()
+    say = (lambda m: log(f"[stream-ranks] 4x1 dense {m}")) if layout.rank == 0 \
+        else (lambda m: None)
+    tr = stream_trainer(layout, root, "dense", S["epochs"],
+                        [AlphaOptimizer(), Metrics(printer=say), epoch_peak()],
+                        alpha_opt_from=S["alpha_from"], package_len=L)
+    tr.setup()
+    sync_ranks()
+    # ---- the main path: counts from 0, the streamed ring Trainer's fit ----
+    zero_counts()
+    t0 = time.perf_counter()
+    tr.fit()
+    sync_ranks()
+    fit_s = time.perf_counter() - t0
+    n = read_counts()
+    # ---- end of the main path ----
+    lls = tr.metrics["ll"]
+    if not all(np.isfinite(lls)) or not lls[-1] > lls[0]:
+        raise AssertionError(f"streamed 4x1 ring: the word LL did not rise: {lls}")
+    alpha = tr.alpha.cpu().numpy()
+    if not (np.isfinite(alpha).all() and (alpha > 0).all()) or abs(alpha.sum() - 50.0) < 1e-3:
+        raise AssertionError("streamed 4x1 ring: α is non-finite, non-positive or unmoved")
+    stream_rank_invariants(layout, tr, "streamed 4x1 dense")
+    res = dict(launches=n, fit_s=fit_s, ll=lls, rows=stream_rank_stats(tr),
+               peak=max(tr.metrics["peak_gib"]), alpha_sum=float(alpha.sum()),
+               by_rank=tr.metrics["stream_by_rank"])
+    # ---- one more epoch through fit (no callbacks), profiled on rank 0 ----
+    tr.callbacks, before = [], len(tr.metrics["epoch_s"])
+    tr.config = tr.config.replace(n_epochs=S["epochs"] + 1)
+    if layout.rank == 0:
+        device_breakdown("streamed 4x1 ring epoch, rank 0", tr.fit, top=10)
+    else:
+        tr.fit()
+    sync_ranks()
+    res["profiled"] = stream_rank_stats(tr, first=before)
+    # ---- the rotation and the Ψ all_reduce on one segment's block ----
+    seg = next(iter(SegmentStream(tr.source, tr._z.copy(), prefetch=False, device=tr.device,
+                                  layout=layout).epoch(0)))
+    rot, red = [], []
+    for _ in range(S["reps"]):
+        sync_ranks()
+        t0 = time.perf_counter()
+        coll.Shift(layout, "ring", [seg.wl[0], seg.dl[0], seg.uid[0]]).wait()
+        coll.shift(layout, "ring", [seg.z[0]])
+        torch.cuda.synchronize()
+        rot.append((time.perf_counter() - t0) * 1e3)
+        d = tr.state[1].clone()
+        sync_ranks()
+        t0 = time.perf_counter()
+        coll.all_reduce_(d, layout, "ring")
+        torch.cuda.synchronize()
+        red.append((time.perf_counter() - t0) * 1e3)
+    res.update(rotation_ms=float(np.median(rot)), psi_reduce_ms=float(np.median(red)),
+               rotation_bytes=sum(t.numel() * t.element_size()
+                                  for t in (seg.wl, seg.dl, seg.uid, seg.z)),
+               psi_bytes=tr.state[1].numel() * 4)
+    del seg
+    res["held"] = stream_held_epoch(tr, layout, "gibbs_argmax")
+    out["dense"] = res
+    tr.state = None
+    del tr
+    # ---- prefetch on and off, one epoch each from one start ----
+    free_card()
+    pre = {}
+    for prefetch in (True, False):
+        t = stream_trainer(layout, root, "dense", 1, prefetch=prefetch, alpha_opt_from=99,
+                           package_len=L)
+        t.fit()
+        sync_ranks()
+        pre[prefetch] = dict(phi=sha(t.state[0]), psi=t.state[1].cpu().numpy(), z=t.global_z(),
+                             rows=stream_rank_stats(t))
+        t.state = None
+        del t
+        free_card()
+    same = dict(phi=pre[True]["phi"] == pre[False]["phi"],
+                psi=bool(np.array_equal(pre[True]["psi"], pre[False]["psi"])),
+                z=bool(np.array_equal(pre[True]["z"], pre[False]["z"])))
+    if not all(same.values()):
+        raise AssertionError(f"streamed 4x1 ring, rank {layout.rank}: prefetch on and off "
+                             f"differ: equal {same}")
+    out["prefetch"] = {p: v["rows"] for p, v in pre.items()}
+    # ---- the alias Trainer: one table build a rank, then the epochs ----
+    say = (lambda m: log(f"[stream-ranks] 4x1 alias {m}")) if layout.rank == 0 \
+        else (lambda m: None)
+    ta = stream_trainer(layout, root, "alias", S["alias_epochs"], [Metrics(printer=say),
+                                                                   epoch_peak()],
+                        alpha_opt_from=99)
+    ta.setup()
+    sync_ranks()
+    zero_counts()
+    t0 = time.perf_counter()
+    ta.fit()
+    sync_ranks()
+    fit_s = time.perf_counter() - t0
+    n = read_counts()
+    peak = max(ta.metrics["peak_gib"])
+    ta._tables = None                 # four ranks' tables and the count check would not fit
+    stream_rank_invariants(layout, ta, "streamed 4x1 alias")
+    ta._rebuild_tables()              # for the held epoch only (not counted)
+    ta._tables_built_at = ta.epoch
+    held_mh = stream_held_epoch(ta, layout, "mh_resample", tables=True)
+    out["alias"] = dict(launches=n, fit_s=fit_s, ll=ta.metrics["ll"], rows=stream_rank_stats(ta),
+                        peak=peak, held=held_mh)
+    ta.state = ta._tables = None
+    del ta
+    free_card()
+    return out
+
+
+def stream_wshard_rank(layout, root, reference):
+    """[stream-ranks] word-sharded: 2 dense epochs from the P = 2 directory
+    on a 2×2 mesh, or (``reference``) from the 2×1 directory on a 2-rank
+    ring; returns the digests of Φ's rows in the P = 2 slice order, Ψ and
+    the global z store."""
+    S = STREAM_RANKS
+    free_card()
+    tr = stream_trainer(layout, root, "dense", S["wshard_epochs"], [epoch_peak()],
+                        alpha_opt_from=99, n_model_shards=1 if reference else layout.model)
+    tr.setup()
+    sync_ranks(layout, "ring")
+    zero_counts()
+    tr.fit()
+    sync_ranks(layout, "ring")
+    n = read_counts()
+    stream_rank_invariants(layout, tr, f"streamed word-sharded {'2x1' if reference else '2x2'}")
+    view, P = tr.state[0][0], 2
+    if reference:
+        digests = [sha(view[j::P]) for j in range(P)]
+    else:
+        rows_coarse = tr.sc0.rows_coarse or tr.sc0.rows_per_shard
+        n_j = len(range(layout.model_index, rows_coarse, P))
+        if bool(view[n_j:].any()):
+            raise AssertionError(f"streamed word-sharded rank {layout.rank}: a pad row holds "
+                                 f"counts")
+        digests = [sha(view[:n_j])]
+    out = dict(digests=digests, psi=tr.state[1].cpu().numpy(), z=tr.global_z(), launches=n,
+               rows=stream_rank_stats(tr), peak=max(tr.metrics["peak_gib"]))
+    tr.state = None
+    del tr, view
+    free_card()
+    return out
+
+
+def pod0_ring_layout(lay_pods):
+    """Pod 0's ring of a (2, D, 1) mesh as a one-pod (1, D, 1) layout over
+    the same process groups (its ranks are 0 … D−1, the ring's own numbers),
+    so a single-pod session runs on pod 0 while pod 1 waits."""
+    from repro_torch.dist.sharding import RankLayout
+    g = lay_pods.groups
+    return RankLayout(pods=1, data=lay_pods.data, model=1, rank=lay_pods.rank,
+                      backend=lay_pods.backend, device=lay_pods.device,
+                      ranks_per_device=lay_pods.ranks_per_device,
+                      groups={"world": g["ring"], "ring": g["ring"], "data": g["data"],
+                              "model": g["model"], "pod": (None, [lay_pods.rank])})
+
+
+def stream_small_rank(layout, small):
+    """[stream-ranks card vs cpu]: SMALL's corpus in 3 segments on this rank
+    of a 2×2 ring, each sampler on the card (every dense package held
+    against the plain version on the CPU) and on the CPU."""
+    import dataclasses
+    from repro_torch.data import sources
+    from repro_torch.kernels.gibbs import ops as gibbs_ops
+    from repro_torch.training import Trainer, TrainerConfig
+    K, S = SMALL["n_topics"], STREAM_RANKS_SMALL
+    out = {}
+    for sampler in ("dense", "alias"):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            lay = layout if dev == "cuda" else dataclasses.replace(layout, device="cpu")
+            src = sources.InMemorySource(small, S["segments"], 4, 4, K, seed=1)
+            cfg = TrainerConfig(n_topics=K, vocab_size=SMALL["vocab"], sampler=sampler,
+                                n_epochs=S["epochs"], agg_every=2, alpha_opt_from=99,
+                                data_shards=2, model_shards=2, device=dev)
+            tr = Trainer(cfg, source=src, layout=lay)
+            tr.log = lambda m: None
+            zero_counts()
+            ctx = (held(gibbs_ops, "gibbs_argmax", gibbs_check("cpu", "streamed ring card vs cpu"))
+                   if dev == "cuda" and sampler == "dense" else contextlib.nullcontext([]))
+            with ctx as seen:
+                tr.fit()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                res["launches"] = read_counts()
+                res["ties"] = sum(x["mismatches"] for x in seen)
+            res[dev] = [tr.state[0].cpu().numpy(), tr.state[1].cpu().numpy(), tr.global_z()]
+        out[sampler] = res
+    return out
+
+
+def lookup_rank(layout):
+    """[lookup_sharded] on this rank of a (1, 1, 4) mesh: its quarter of
+    dlrm-mlperf's 187,767,552 × 128 bf16 table, drawn on the card; each
+    batch's rows equal the rank's local gather where it owns the id, every
+    id is hit by exactly one rank; ms a batch and of its all_reduce."""
+    from repro_torch.configs import recsys_archs as ra
+    from repro_torch.dist import collectives as coll, sharding as shd
+    from repro_torch.models import recsys
+    free_card()
+    spec = ra.DLRM.embedding
+    lo, hi = shd.row_slice(spec.padded_rows, layout, "model")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(LOOKUP["seed"] * 131 + layout.rank)
+    shard = torch.empty((hi - lo, spec.dim), dtype=torch.bfloat16, device="cuda")
+    t0 = time.perf_counter()
+    for a in range(0, hi - lo, 1 << 22):
+        b = min(hi - lo, a + (1 << 22))
+        shard[a:b] = torch.randn((b - a, spec.dim), generator=g, device="cuda")
+    sync_ranks()
+    out = dict(rows=hi - lo, gib=shard.numel() * 2 / 2**30, draw_s=time.perf_counter() - t0,
+               batches={})
+    offs = torch.from_numpy(spec.offsets).long().cuda()[None, :]
+    sizes = np.array(spec.vocab_sizes)
+    for B in LOOKUP["batches"]:
+        rng = np.random.default_rng(LOOKUP["seed"] + B)
+        ids = torch.from_numpy((rng.random((B, spec.n_fields)) * sizes).astype(np.int32)).cuda()
+        rows = recsys.lookup_sharded(shard, spec, ids, layout)
+        flat = ids.long() + offs
+        mine = (flat >= lo) & (flat < hi)
+        local = shard.index_select(0, (flat[mine] - lo))
+        same = torch.equal(rows[mine].view(torch.int16), local.view(torch.int16))
+        hits = coll.all_reduce_(mine.to(torch.int32), layout, "model")
+        if not same or not bool((hits == 1).all()):
+            raise AssertionError(f"lookup_sharded B={B}, rank {layout.rank}: owned rows differ "
+                                 f"from the local gather ({not same}) or an id is not hit "
+                                 f"exactly once")
+        secs, red = [], []
+        for _ in range(LOOKUP["reps"]):
+            sync_ranks()
+            t0 = time.perf_counter()
+            recsys.lookup_sharded(shard, spec, ids, layout)
+            torch.cuda.synchronize()
+            secs.append((time.perf_counter() - t0) * 1e3)
+            x = rows.clone()
+            sync_ranks()
+            t0 = time.perf_counter()
+            coll.all_reduce_(x, layout, "model")
+            torch.cuda.synchronize()
+            red.append((time.perf_counter() - t0) * 1e3)
+        out["batches"][B] = dict(ms=float(np.median(secs)), p99_ms=float(np.percentile(secs, 99)),
+                                 reduce_ms=float(np.median(red)),
+                                 reduce_bytes=rows.numel() * rows.element_size(),
+                                 owned=int(mine.sum()), dtype=str(rows.dtype))
+        del rows, x
+    out["peak"] = peak_gib()
+    del shard
+    free_card()
+    return out
+
+
+def stream_world(layout, dirs, L, small):
+    """One world of 4 ranks on the card: [stream-ranks] 4×1 (dense, prefetch
+    on/off, alias), word-sharded 2×2 against 2×1 (pod 0 of a 2 × 2×1 mesh),
+    SMALL's streamed 2×2 ring card vs CPU, then [lookup_sharded]."""
+    from repro_torch.launch import mesh
+    t, out = {}, {}
+    t0 = time.perf_counter()
+    out["ring"] = stream_ring_rank(layout, dirs["4x1"], L)
+    t["ring"] = time.perf_counter() - t0
+    rank0_log(layout, f"[stream-ranks] 4x1 done in {t['ring']:.1f} s")
+    lay22 = mesh.relayout(layout, 1, 2, 2)
+    t0 = time.perf_counter()
+    out["wshard"] = stream_wshard_rank(lay22, dirs["2x2_p2"], reference=False)
+    t["wshard"] = time.perf_counter() - t0
+    lay_pods = mesh.relayout(layout, 2, 2, 1)
+    t0 = time.perf_counter()
+    if lay_pods.pod_index == 0:
+        out["wshard_ref"] = stream_wshard_rank(pod0_ring_layout(lay_pods), dirs["2x1"],
+                                               reference=True)
+    torch.distributed.barrier()
+    t["wshard_ref"] = time.perf_counter() - t0
+    rank0_log(layout, f"[stream-ranks] word-sharded 2x2 {t['wshard']:.1f} s, 2x1 "
+                      f"{t['wshard_ref']:.1f} s")
+    t0 = time.perf_counter()
+    out["small"] = stream_small_rank(lay22, small)
+    t["small"] = time.perf_counter() - t0
+    lay14 = mesh.relayout(layout, 1, 1, 4)
+    t0 = time.perf_counter()
+    out["lookup"] = lookup_rank(lay14)
+    t["lookup"] = time.perf_counter() - t0
+    out["seconds"] = t
+    return out
+
+
+def stream_ranks_phase(base):
+    """[stream-ranks], [stream-ranks card vs cpu] and [lookup_sharded]: the
+    streamed ring of several ranks at full width (the streamed cell's corpus
+    from save_segments directories) and the row-sharded lookup at full
+    width, in one spawned world of 4 ranks on the card."""
+    import shutil
+    from repro_torch.data import sources, synthetic
+    from repro_torch.launch import mesh
+    K, S = FULL["n_topics"], STREAM_RANKS
+    root = os.path.join(ROOT, "build", "chip_smoke_stream_ranks")
+    shutil.rmtree(root, ignore_errors=True)
+    corpus = tile_corpus(base, STREAM["tiles"])
+    dirs, caps = {}, {}
+    t0 = time.perf_counter()
+    for name, M, P, n_seg in (("4x1", 4, 1, S["segments"]), ("2x2_p2", 2, 2, S["wshard_segments"]),
+                              ("2x1", 2, 1, S["wshard_segments"])):
+        dirs[name] = os.path.join(root, name)
+        sources.save_segments(sources.InMemorySource(corpus, n_seg, M, M, K, seed=1,
+                                                     n_model_shards=P), dirs[name])
+        caps[name] = sources.open_segments(dirs[name]).cap
+    save_s = time.perf_counter() - t0
+    T = corpus.n_tokens
+    del corpus
+    L = package_len_for(caps["4x1"], S["max_package"])
+    small, _ = synthetic.lda_corpus(seed=0, n_docs=SMALL["n_docs"], n_topics=SMALL["gen_topics"],
+                                    vocab_size=SMALL["vocab"], doc_len_mean=9)
+    log(f"[stream-ranks] {T} tokens saved as {S['segments']} segments for a 4x1 ring (cap "
+        f"{caps['4x1']}, package_len {L}) and {S['wshard_segments']} for 2x2 P=2 (cap "
+        f"{caps['2x2_p2']}) and 2x1 (cap {caps['2x1']}) in {save_s:.1f} s")
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    t0 = time.perf_counter()
+    res = mesh.spawn(stream_world, data=4, device="cuda", ranks_per_device=4, backend="gloo",
+                     args=(dirs, L, small))
+    t_w = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    card = card_line()
+    secs = res[0]["seconds"]
+    log(f"[stream-ranks] world of 4 ranks on one card: {t_w:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()) + f"); card {card}")
+    return stream_ranks_report(res, T, caps, L, card)
+
+
+def stream_ranks_report(res, T, caps, L, card):
+    """Check and print what the streamed world returned; returns the
+    launches by path."""
+    S = STREAM_RANKS
+    launches = {}
+    ring = [r["ring"]["dense"] for r in res]
+    n = _sum_counts(ring, lambda r: r["launches"])
+    want = S["epochs"] * S["segments"] * S["ring"] * (caps["4x1"] // L) * S["ring"]
+    if n["gibbs_argmax"] != want:
+        raise AssertionError(f"streamed 4x1 dense: gibbs_argmax launched {n}, expected {want}")
+    launches["stream_ring_4x1_dense"] = n
+    for e in range(S["epochs"]):
+        ep_s = max(r["rows"][e]["epoch_s"] for r in ring)
+        log(f"[stream-ranks] 4x1 dense epoch {e}: {T / ep_s:.1f} tokens/s (slowest rank's "
+            f"epoch_s {ep_s:.4f}); per rank LoadShard / wait / SaveShard ms a segment "
+            + "; ".join(f"r{i} {r['rows'][e]['load_shard_ms']:.2f} / {r['rows'][e]['load_wait_ms']:.2f}"
+                        f" / {r['rows'][e]['save_shard_ms']:.2f}" for i, r in enumerate(ring)))
+    r0 = ring[0]
+    log(f"[stream-ranks] 4x1 dense ({S['epochs']} epochs, α from epoch {S['alpha_from']}, "
+        f"{S['segments']} segments, packages of {L}): launches {n} (expected {want}); word LL "
+        f"{[f'{x:.6e}' for x in r0['ll']]}; α sum {r0['alpha_sum']:.4f}; fit s per rank "
+        f"{[round(r['fit_s'], 2) for r in ring]}; peak GiB per rank "
+        f"{[round(r['peak'], 2) for r in ring]} (sum {sum(r['peak'] for r in ring):.2f}); stream "
+        f"ms a segment by rank over the fit (LoadShard / wait / SaveShard) "
+        + "; ".join(f"{x['load_shard_ms']:.2f} / {x['load_wait_ms']:.2f} / {x['save_shard_ms']:.2f}"
+                    for x in r0["by_rank"]) + f"; card {card}")
+    log(f"[stream-ranks] rotation of a segment's block (wl, dl, uid, then z; one hop through "
+        f"pinned host memory): {r0['rotation_ms']:.3f} ms a round (ranks "
+        f"{[round(r['rotation_ms'], 3) for r in ring]}), {r0['rotation_bytes']} bytes a rank; Ψ "
+        f"all_reduce ({r0['psi_bytes']} bytes) {r0['psi_reduce_ms']:.3f} ms (ranks "
+        f"{[round(r['psi_reduce_ms'], 3) for r in ring]}); rounds an epoch "
+        f"{S['segments'] * S['ring']}")
+    log(f"[stream-ranks] 4x1 dense profiled epoch: "
+        f"{T / max(r['profiled'][0]['epoch_s'] for r in ring):.1f} tokens/s; rank 0's first "
+        f"package held against the plain version on the card: {r0['held']}")
+    pre = [r["ring"]["prefetch"] for r in res]
+    for p in (True, False):
+        ep_s = max(x[p][0]["epoch_s"] for x in pre)
+        log(f"[stream-ranks] 4x1 dense one epoch, prefetch {'on' if p else 'off'}: "
+            f"{T / ep_s:.1f} tokens/s; per rank wait ms a segment "
+            f"{[round(x[p][0]['load_wait_ms'], 2) for x in pre]}; Φ, Ψ and z equal between "
+            f"the two on every rank")
+    al = [r["ring"]["alias"] for r in res]
+    n = _sum_counts(al, lambda r: r["launches"])
+    want = dict(mh_resample=S["alias_epochs"] * S["segments"] * S["ring"] * S["ring"],
+                alias_build=2 * S["ring"])
+    if any(n[k] != v for k, v in want.items()):
+        raise AssertionError(f"streamed 4x1 alias: launches {n}, expected {want}")
+    launches["stream_ring_4x1_alias"] = n
+    log(f"[stream-ranks] 4x1 alias ({S['alias_epochs']} epochs after one table build a rank): "
+        f"tokens/s per epoch {[round(T / max(r['rows'][e]['epoch_s'] for r in al), 1) for e in range(S['alias_epochs'])]}; "
+        f"fit s {[round(r['fit_s'], 2) for r in al]}; launches {n}; word LL "
+        f"{[f'{x:.6e}' for x in al[0]['ll']]}; mh_resample held on rank 0: {al[0]['held']}; peak "
+        f"GiB per rank {[round(r['peak'], 2) for r in al]} (sum "
+        f"{sum(r['peak'] for r in al):.2f}); card {card}")
+    got, ref = [r["wshard"] for r in res], [r["wshard_ref"] for r in res[:2]]
+    for rank, g in enumerate(got):
+        d, j = rank // 2, rank % 2
+        if g["digests"][0] != ref[d]["digests"][j]:
+            raise AssertionError(f"streamed word-sharded: rank {rank}'s Φ slice differs from the "
+                                 f"2x1 ring's rows {j}::2 of shard {d}")
+        if not (np.array_equal(g["psi"], ref[d]["psi"]) and np.array_equal(g["z"], ref[0]["z"])):
+            raise AssertionError("streamed word-sharded: Ψ or the global z differ from the 2x1 "
+                                 "ring's")
+    n22 = _sum_counts(got, lambda r: r["launches"])
+    n21 = _sum_counts(ref, lambda r: r["launches"])
+    want22 = S["wshard_epochs"] * S["wshard_segments"] * 2 * 4
+    if n22["gibbs_argmax"] != want22 or n21["gibbs_argmax"] != want22 // 2:
+        raise AssertionError(f"streamed word-sharded: launches 2x2 {n22}, 2x1 {n21}")
+    launches.update(stream_word_sharded_2x2=n22, stream_word_sharded_2x1=n21)
+    tps = lambda side: [round(T / max(r["rows"][e]["epoch_s"] for r in side), 1)  # noqa: E731
+                        for e in range(S["wshard_epochs"])]
+    log(f"[stream-ranks] word-sharded 2x2 (P=2) equals 2x1 bit for bit after "
+        f"{S['wshard_epochs']} epochs from {S['wshard_segments']} segments (Φ slices by SHA-256, "
+        f"Ψ, the global z): tokens/s 2x2 {tps(got)}, 2x1 {tps(ref)}; launches 2x2 {n22}, 2x1 "
+        f"{n21}; peak GiB per rank 2x2 {[round(g['peak'], 2) for g in got]}, 2x1 "
+        f"{[round(r['peak'], 2) for r in ref]}; card {card}")
+    for sampler in ("dense", "alias"):
+        sm = [r["small"][sampler] for r in res]
+        diff = {name: sum(int((np.asarray(r["cuda"][i]) != np.asarray(r["cpu"][i])).sum())
+                          for r in sm) for name, i in (("phi", 0), ("psi", 1), ("z", 2))}
+        ties = sum(r["ties"] for r in sm)
+        if any(diff.values()) and (sampler == "alias" or not ties):
+            raise AssertionError(f"streamed ring card vs cpu, {sampler}: differ {diff} "
+                                 f"(near-ties {ties})")
+        launches[f"stream_ring_card_vs_cpu_{sampler}"] = n = _sum_counts(sm, lambda r: r["launches"])
+        log(f"[stream-ranks card vs cpu] {sampler}: 2x2 ring, K={SMALL['n_topics']} "
+            f"V={SMALL['vocab']}, {STREAM_RANKS_SMALL['segments']} segments, "
+            f"{STREAM_RANKS_SMALL['epochs']} epochs on the card and on the CPU: entries that "
+            f"differ {diff}; held draws differing from the plain version on the CPU {ties} "
+            f"(near-ties); launches on the card {n}")
+    lk = [r["lookup"] for r in res]
+    for B, b in lk[0]["batches"].items():
+        log(f"[lookup_sharded] dlrm-mlperf {sum(x['rows'] for x in lk)} rows x 128 bf16 row-sharded 4 ways "
+            f"({lk[0]['rows']} rows, {lk[0]['gib']:.2f} GiB a rank, drawn in "
+            f"{max(x['draw_s'] for x in lk):.1f} s), B={B} x 26: owned rows equal the local "
+            f"gather bit for bit, every id hit once; {b['ms']:.3f} ms a batch (p99 "
+            f"{b['p99_ms']:.3f}; ranks {[round(x['batches'][B]['ms'], 3) for x in lk]}), its "
+            f"all_reduce ({b['reduce_bytes']} bytes, {b['dtype']}) {b['reduce_ms']:.3f} ms; ids "
+            f"owned per rank {[x['batches'][B]['owned'] for x in lk]}; peak GiB per rank "
+            f"{[round(x['peak'], 2) for x in lk]}; card {card}")
+    return launches
+
+
+def stream_launch_fault_main(layout, argv):
+    """A ``launch.train`` rank; on rank 1 only, its process's first read of
+    segment 0 fails (a ``FaultPlane``; retried there)."""
+    from repro_torch.launch import train
+    from repro_torch.reliability import faults
+    if layout.rank != 1:
+        return train._rank_main(layout, argv)
+    plane = faults.FaultPlane().fail("disk.segment_read", key="0", nth=1)
+    with faults.injected(plane):
+        out = train._rank_main(layout, argv)
+    out["injected"] = plane.injected("disk.segment_read")
+    return out
+
+
+def stream_launch_ranks_phase():
+    """[launch.train streamed ranks]: ``launch.train.main`` starting its own
+    4 ranks on the card (``--data-shards 2 --model-shards 2
+    --ranks-per-device 4``) on SMALL's geometry in 3 segments, α from epoch
+    2: an uninterrupted run from memory; killed after segment 1 of epoch 2
+    (exit 17) and resumed, from memory; the same from a ``--corpus-dir``,
+    the resume with rank 1's first read of segment 0 failing (retried on
+    rank 1). Each resumed run must equal the uninterrupted one (every rank's
+    views, α and the global z) bit for bit."""
+    import shutil
+    from repro_torch.data import sources
+    from repro_torch.launch import mesh, train
+    S = STREAM_RANKS_SMALL
+    root = os.path.join(ROOT, "build", "chip_smoke_stream_launch")
+    shutil.rmtree(root, ignore_errors=True)
+    shape = ("--data-shards", "2", "--model-shards", "2", "--ranks-per-device", "4")
+
+    def argv(ck, *extra):
+        return ["--device", "cuda", "--backend", "gloo", "--docs", str(SMALL["n_docs"]),
+                "--vocab", str(SMALL["vocab"]), "--topics", str(SMALL["n_topics"]),
+                "--true-topics", str(SMALL["gen_topics"]), "--epochs", str(S["epochs"]),
+                "--alpha-opt-from", "2", "--ckpt-every", "2", "--bench-out", "",
+                "--ckpt-dir", os.path.join(root, ck), *shape, *extra]
+
+    def run(*a):
+        t0 = time.perf_counter()
+        try:
+            out = train.main(argv(*a)), 0
+        except SystemExit as exc:
+            out = None, exc.code
+        return out + (time.perf_counter() - t0,)
+
+    def same(a, b, label):
+        for ra_, rb in zip(a, b):
+            for i, (x, y) in enumerate(zip(ra_["state"], rb["state"])):
+                if x.dtype != y.dtype or not np.array_equal(x, y):
+                    raise AssertionError(f"{label}: rank {ra_['rank']}'s state leaf {i} differs")
+            if not (np.array_equal(ra_["alpha"], rb["alpha"]) and np.array_equal(ra_["z"], rb["z"])):
+                raise AssertionError(f"{label}: rank {ra_['rank']}'s α or global z differs")
+
+    counts = lambda results: _sum_counts(results, lambda r: r["launches"])  # noqa: E731
+    seg = ("--n-segments", str(S["segments"]))
+    kill = ("--ckpt-segments", "1", "--kill-at", str(S["kill_at"]), "--kill-at-segment",
+            str(S["kill_at_segment"]))
+    cfg = train.config_from_args(train.build_parser().parse_args(argv("x", *seg)))
+    d = os.path.join(root, "segments")
+    sources.save_segments(sources.SyntheticSource(
+        n_docs=cfg.n_docs, vocab_size=cfg.vocab_size, true_topics=cfg.true_topics,
+        doc_len_mean=cfg.doc_len_mean, gen_seed=cfg.seed, n_segments=S["segments"],
+        n_data_shards=4, n_vocab_shards=4, n_topics=cfg.n_topics, seed=cfg.shard_seed), d)
+    secs = {}
+    gold, _, secs["uninterrupted"] = run("gold", *seg)
+    _, code_mem, secs["killed"] = run("mem", *seg, *kill)
+    res, _, secs["resumed"] = run("mem", *seg, "--resume")
+    _, code_dir, secs["killed --corpus-dir"] = run("dir", "--corpus-dir", d, *kill)
+    t0 = time.perf_counter()
+    faulted = mesh.spawn(stream_launch_fault_main, data=2, model=2, device="cuda",
+                         ranks_per_device=4, backend="gloo",
+                         args=(argv("dir", "--corpus-dir", d, "--resume"),))
+    secs["resumed --corpus-dir, fault"] = time.perf_counter() - t0
+    n = dict(uninterrupted=counts(gold), resumed=counts(res), resumed_corpus_dir_fault=counts(faulted))
+    n_seg, per = S["segments"], 4 * 4                   # 4 ranks × 4 rounds a segment
+    done = (S["kill_at"] - 1) * n_seg + S["kill_at_segment"]
+    want = dict(uninterrupted=S["epochs"] * n_seg * per, resumed=(S["epochs"] * n_seg - done) * per,
+                resumed_corpus_dir_fault=(S["epochs"] * n_seg - done) * per)
+    if (code_mem, code_dir) != (17, 17) or any(n[k]["gibbs_argmax"] != v for k, v in want.items()):
+        raise AssertionError(f"launch.train streamed ranks: kill exits {code_mem} / {code_dir}, "
+                             f"launches {n}, want gibbs_argmax {want}")
+    if faulted[1].get("injected") != 1:
+        raise AssertionError("launch.train streamed ranks: rank 1's fault plane did not fire once")
+    for label, other in (("resumed", res), ("--corpus-dir resumed under a fault", faulted)):
+        same(gold, other, f"launch.train streamed ranks, {label} vs uninterrupted")
+    log(f"[launch.train streamed ranks] --data-shards 2 --model-shards 2 --ranks-per-device 4, "
+        f"{n_seg} segments, {S['epochs']} epochs, α from epoch 2: killed after segment "
+        f"{S['kill_at_segment']} of epoch {S['kill_at']} (exit 17) and resumed, from memory and "
+        f"from a --corpus-dir (the resume with rank 1's first read of segment 0 failing, retried "
+        f"there): every rank's views, α and the global z equal the uninterrupted run's bit for "
+        f"bit; launches {n}; seconds " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    shutil.rmtree(root, ignore_errors=True)
+    return n
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -3279,6 +3927,12 @@ def main():
     mark("ranks (ring, word-sharded, card vs cpu, pods)")
     ranks_small = launch_ranks_phase()
     mark("launch.train multi-rank")
+    gc.collect()
+    torch.cuda.empty_cache()
+    stream_ranks = stream_ranks_phase(corpus)
+    mark("stream ranks (4x1, word-sharded, card vs cpu, lookup_sharded)")
+    stream_launch = stream_launch_ranks_phase()
+    mark("launch.train streamed ranks")
     # `launches` is each kernel's count on its first path (gibbs_epoch, the
     # alias cell), as in earlier runs; launches_by_path gives every path
     small = lambda sampler, k: {r: c[k] for r, c in small_launches[sampler].items()}
@@ -3295,7 +3949,13 @@ def main():
                        word_sharded_2x1=ranks["word_sharded_2x1_dense"]["gibbs_argmax"],
                        ring_card_vs_cpu=ranks["ring_card_vs_cpu_dense"]["gibbs_argmax"],
                        pods=ranks["pods"]["gibbs_argmax"],
-                       launch_train_ranks={k: v["gibbs_argmax"] for k, v in ranks_small.items()})
+                       launch_train_ranks={k: v["gibbs_argmax"] for k, v in ranks_small.items()},
+                       stream_ring_4x1=stream_ranks["stream_ring_4x1_dense"]["gibbs_argmax"],
+                       stream_word_sharded_2x2=stream_ranks["stream_word_sharded_2x2"]["gibbs_argmax"],
+                       stream_word_sharded_2x1=stream_ranks["stream_word_sharded_2x1"]["gibbs_argmax"],
+                       stream_ring_card_vs_cpu=stream_ranks["stream_ring_card_vs_cpu_dense"]["gibbs_argmax"],
+                       stream_launch_train_ranks={k: v["gibbs_argmax"]
+                                                  for k, v in stream_launch.items()})
     alias_paths = {k: dict(alias_cell=alias_launches[k],
                            trainer_ll_alias=ll_launches["alias"][k],
                            launch_train_small=small("alias", k),
@@ -3305,7 +3965,9 @@ def main():
                            ring_4x1_alias=ranks["ring_4x1_alias"][k],
                            word_sharded_2x2=ranks["word_sharded_2x2_alias"][k],
                            word_sharded_2x1=ranks["word_sharded_2x1_alias"][k],
-                           ring_card_vs_cpu=ranks["ring_card_vs_cpu_alias"][k])
+                           ring_card_vs_cpu=ranks["ring_card_vs_cpu_alias"][k],
+                           stream_ring_4x1_alias=stream_ranks["stream_ring_4x1_alias"][k],
+                           stream_ring_card_vs_cpu=stream_ranks["stream_ring_card_vs_cpu_alias"][k])
                    for k in ("alias_build", "mh_resample")}
     gc.collect()                       # the LDA phases' tensors go before the 48 GB table
     torch.cuda.empty_cache()

@@ -158,8 +158,13 @@ def run_hierarchical(
     ``start_segment`` resumes the FIRST replayed epoch at a mid-epoch
     segment boundary (the visit order is a seeded permutation, so replay
     regenerates it); ``on_segment_end(ep, seg, (phi, psi))`` fires after
-    each segment's swap. Streaming is single-configuration: ``agg_fn`` must
-    be ``None``. The branch returns ``(phi, psi)``.
+    each segment's swap. On a ring of several ranks ``epoch_fn`` is the rank
+    epoch body (``distributed.build_epoch_body(cfg, layout)``), ``state`` the
+    rank's (phi [1, rows/P, K], psi [K]) and the stream the rank's, which
+    yields the rank's block of each segment; every rank runs the same loop.
+    Streaming is single-configuration: ``agg_fn`` must be ``None``
+    (``ValueError`` otherwise, as in the JAX package). The branch returns
+    ``(phi, psi)``.
     """
     aux = (lambda: ()) if epoch_aux is None else epoch_aux
     if segments is not None:

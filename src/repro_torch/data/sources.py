@@ -233,8 +233,11 @@ class DiskSource(CorpusSource):
     corruption is never retried (rot does not heal).
 
     Directories of the word-sharded layout (``n_model_shards > 1`` in the
-    meta) are refused: a streamed session is one device, and the streamed
-    ring of several ranks is not ported (ROADMAP queue 1, item 11).
+    meta) open like any other; their segments carry ``n_model_shards`` and
+    ``rows_coarse``. On a ring of several ranks each rank opens the directory
+    itself and reads only its block of each stack (:func:`segment_block`),
+    but the SHA-256 check reads whole files: on M ranks every segment is read
+    M times more in the first epoch (once per rank, then never again).
     """
 
     corpus = None
@@ -256,12 +259,9 @@ class DiskSource(CorpusSource):
         self.rows_per_shard = int(meta["rows_per_shard"])
         self.docs_per_shard = int(meta["docs_per_shard"])
         self.cap = int(meta["cap"])
+        # directories without the layout keys hold the replicated layout
         self.n_model_shards = int(meta.get("n_model_shards", 1))
-        if self.n_model_shards != 1:
-            raise NotImplementedError(
-                f"{directory!r} holds the word-sharded layout (n_model_shards="
-                f"{self.n_model_shards}); the streamed ring of several ranks is not "
-                f"ported (ROADMAP queue 1, item 11)")
+        self.rows_coarse = int(meta.get("rows_coarse", meta["rows_per_shard"]))
         self.verify = bool(verify)
         self.retries = int(retries)
         self._verified: set = set()    # segment ids verified this process
@@ -325,7 +325,25 @@ class DiskSource(CorpusSource):
             n_vocab_shards=self.n_vocab_shards,
             vocab_size=self.vocab_size,
             n_real_tokens=int(self._meta["segments"][g]["n_real_tokens"]),
+            n_model_shards=self.n_model_shards,
+            rows_coarse=self.rows_coarse,
         )
+
+
+def segment_block(sc: ShardedCorpus, layout=None) -> Tuple[np.ndarray, ...]:
+    """(word_local, doc_local, uid, z0) of segment ``sc`` as this rank holds
+    them: the block of each [S, M, cap] stack that ``layout`` (a single-pod
+    :class:`repro_torch.dist.sharding.RankLayout`) hands the rank under
+    ``sharding.stack_spec``, or the whole stacks when ``layout`` is ``None``.
+    Views: on a :class:`DiskSource` segment only the block is read from the
+    memory-mapped files."""
+    arrs = tuple(np.asarray(getattr(sc, name)) for name in SEGMENT_ARRAYS)
+    if layout is None:
+        return arrs
+    from repro_torch.dist import sharding as shd
+
+    spec = shd.stack_spec(int(getattr(sc, "n_model_shards", 1)))
+    return tuple(shd.local_view(a, spec, layout) for a in arrs)
 
 
 def open_segments(directory: str) -> DiskSource:

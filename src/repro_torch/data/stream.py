@@ -18,6 +18,14 @@ pinned buffers ride on the :class:`LoadedSegment` until it is committed,
 past the copy's completion. On the CPU nothing is pinned and there is no
 side stream: the stacks are plain host copies.
 
+**On a ring of several ranks** every rank runs its own stream over the same
+source (each rank visits the segments in the same seeded order) with its
+:class:`repro_torch.dist.sharding.RankLayout`: LoadShard reads and copies
+only the rank's block of each stack (``sources.segment_block``), and
+SaveShard scatters only the rank's valid uids into its z store. The blocks
+of a segment partition its tokens, so a rank's store is exact for the uids
+it owns and stale (their z0) elsewhere.
+
 Prefetch is safe by construction: documents are partitioned across segments,
 so segment *g*'s SaveShard scatter and segment *g+1*'s LoadShard gather touch
 disjoint indices of the shared z array — the only concurrent host-side access
@@ -36,7 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.data.sources import CorpusSource
+from repro_torch.data.sources import CorpusSource, segment_block
 
 # the dtypes of the stacks (torch, numpy), as ``core.distributed.device_arrays``
 # builds them: word_local, doc_local, uid, z
@@ -51,7 +59,7 @@ class LoadedSegment:
     pos: int                    # index in this epoch's visit order
     gid: int                    # segment id (stable across epochs)
     wl: torch.Tensor            # [S, M, cap] int32 on the session's device
-    dl: torch.Tensor            # [S, M, cap] int32
+    dl: torch.Tensor            # [S, M, cap] int32      (a rank: its blocks)
     uid: torch.Tensor           # [S, M, cap] int64
     z: torch.Tensor             # [S, M, cap] int32
     host_uid: np.ndarray        # host views for the commit scatter and the
@@ -71,6 +79,8 @@ class SegmentStream:
     gathers LoadShard z from and scatters SaveShard z into — the trainer owns
     it (``sources.initial_z`` builds it; checkpoints carry it). ``device`` is
     where the segments land (``"cuda"`` by default; ``"cpu"`` on request).
+    ``layout`` is the rank's layout on a ring of several ranks (``None``: one
+    device, whole stacks).
     """
 
     # no lock-guarded state: the worker/consumer handoff is entirely the
@@ -79,8 +89,9 @@ class SegmentStream:
     _GUARDED_BY = {}
 
     def __init__(self, source: CorpusSource, z_host: np.ndarray,
-                 prefetch: bool = True, device="cuda"):
+                 prefetch: bool = True, device="cuda", layout=None):
         self.source = source
+        self.layout = layout
         self.z = z_host  # atomic: segments partition documents — the worker's LoadShard gather (z[host_uid]) and the consumer's SaveShard scatter touch disjoint uid index sets, and the depth-1 queue + slots semaphore order each segment's load strictly before its own commit
         self.prefetch = prefetch
         self.n_segments = source.n_segments
@@ -91,11 +102,11 @@ class SegmentStream:
     # ------------------------------------------------------------ load -----
     def _load(self, pos: int, gid: int, sc) -> LoadedSegment:
         t0 = time.perf_counter()
-        host_uid = np.asarray(sc.uid)
-        host_valid = np.asarray(sc.word_local) >= 0
+        wl, dl, host_uid, _ = segment_block(sc, self.layout)
+        host_valid = wl >= 0
         # pad slots carry uid 0 → they read z[0]; the sampler masks them out
         # and commit never scatters them, so the value is numerically inert
-        host = (sc.word_local, sc.doc_local, host_uid, self.z[host_uid])
+        host = (wl, dl, host_uid, self.z[host_uid])
         ready, pinned = None, ()
         if self._side is None:
             dev = tuple(torch.from_numpy(np.array(a, dtype=nd))
@@ -111,7 +122,7 @@ class SegmentStream:
                 ready.record(self._side)
         return LoadedSegment(
             pos=pos, gid=gid, wl=dev[0], dl=dev[1], uid=dev[2], z=dev[3],
-            host_uid=host_uid, host_valid=host_valid, host_dl=sc.doc_local,
+            host_uid=host_uid, host_valid=host_valid, host_dl=dl,
             ready=ready, pinned=pinned, load_s=time.perf_counter() - t0)
 
     def _hand_over(self, seg: LoadedSegment, wait_s: float) -> LoadedSegment:

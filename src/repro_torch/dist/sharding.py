@@ -170,6 +170,24 @@ def replicated() -> tuple:
     return ()
 
 
+def stack_spec(n_model_shards: int = 1) -> tuple:
+    """Layout of the [S, M, cap] token stacks of a single-pod ring: split over
+    the flattened ring, or with word sharding (``n_model_shards > 1``) over
+    "data" and the capacity dim over "model"."""
+    return wshard_stack_spec() if n_model_shards > 1 else ring_spec()
+
+
+def row_slice(n_rows: int, layout: RankLayout, axis: str = "model") -> Tuple[int, int]:
+    """[lo, hi) of this rank's contiguous block of ``n_rows`` rows split over
+    ``axis`` (a row-sharded table: ``P(axis, None)``)."""
+    size = dict(zip(MESH_AXES, layout.shape))[axis]
+    if n_rows % size:
+        raise ValueError(f"{n_rows} rows do not split into {size} blocks")
+    idx = dict(zip(MESH_AXES, layout.coords()))[axis]
+    per = n_rows // size
+    return idx * per, (idx + 1) * per
+
+
 def _axes(entry) -> Tuple[str, ...]:
     if entry is None:
         return ()

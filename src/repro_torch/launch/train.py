@@ -34,11 +34,19 @@ several ranks share one card (gloo only), e.g. on one H100::
     python -m repro_torch.launch.train --pods 2 --data-shards 2 \
         --ranks-per-device 4 --docs 1500 --vocab 400 --topics 16 --epochs 6
 
+The streamed flags work across the ranks of one pod: each rank streams its
+block of every segment, from memory or from a ``--corpus-dir`` (plain or
+``--sharded-model`` layout), e.g. on one H100::
+
+    python -m repro_torch.launch.train --data-shards 2 --model-shards 2 \
+        --ranks-per-device 4 --n-segments 3 --ckpt-segments 1 --docs 1500 \
+        --vocab 400 --topics 16 --epochs 4
+
 Rank 0 prints, checkpoints and publishes; a started world returns each
-rank's :func:`rank_summary`. Refused, naming the ROADMAP item: a streamed
-corpus (``--n-segments`` > 1 or ``--corpus-dir``) on several ranks (queue 1,
-item 11), and ``--preflight`` (queue 1, item 13: the static analysis passes
-have no torch counterpart yet).
+rank's :func:`rank_summary`. Refused: a streamed corpus with ``--pods`` > 1
+(as the JAX driver refuses it: segments are single-configuration), and
+``--preflight`` (ROADMAP queue 1, item 13: the static analysis passes have
+no torch counterpart yet).
 """
 import argparse
 import os
@@ -163,9 +171,10 @@ def _train(args, layout=None):
 
 
 def rank_summary(trainer) -> dict:
-    """What a started rank hands back: its views of the state, α, the epoch
+    """What a started rank hands back: its views of the state, α, the
+    global z store of a streamed session (``None`` otherwise), the epoch
     reached, its metrics, its publisher's last version and its process's
-    kernel launch counts."""
+    kernel launch counts. A collective on a streamed ring (the z store)."""
     from repro_torch.kernels.alias import ops as alias_ops
     from repro_torch.kernels.gibbs import ops as gibbs_ops
     from repro_torch.training import ModelPublisher
@@ -173,7 +182,8 @@ def rank_summary(trainer) -> dict:
     pubs = [cb for cb in trainer.callbacks if isinstance(cb, ModelPublisher)]
     return {"rank": trainer.layout.rank if trainer.layout is not None else 0,
             "state": [x.cpu().numpy() for x in trainer.state],
-            "alpha": trainer.alpha.cpu().numpy(), "epoch": trainer.epoch,
+            "alpha": trainer.alpha.cpu().numpy(), "z": trainer.global_z(),
+            "epoch": trainer.epoch,
             "metrics": {k: list(v) for k, v in trainer.metrics.items()},
             "last_version": pubs[0].last_version if pubs else None,
             "launches": {"gibbs_argmax": gibbs_ops.launches,
@@ -198,15 +208,13 @@ def main(argv=None):
                  "simulation would silently never fire")
 
     from repro_torch.launch import mesh
-    from repro_torch.training.trainer import refuse_unported
 
     try:
-        cfg = config_from_args(args)
-        refuse_unported(cfg)
+        cfg = config_from_args(args)         # refuses segments on several pods
         if cfg.n_devices > 1:
             mesh.check_world(cfg.n_devices, args.device, args.backend,
                              args.ranks_per_device)
-    except (NotImplementedError, RuntimeError, ValueError) as exc:
+    except (RuntimeError, ValueError) as exc:
         ap.error(str(exc))
     if cfg.n_devices == 1:
         return _train(args)

@@ -7,8 +7,11 @@ single gather serves every field.
 
 Tables may be f32 or bf16 (the serving cells store them in bf16); dense
 parameters are f32. JAX promotes a bf16 embedding meeting an f32 activation
-to f32; here every such meeting casts explicitly. The row-sharded
-``lookup_sharded`` (a mesh psum) is not ported yet.
+to f32; here every such meeting casts explicitly.
+
+``lookup_sharded`` is the row-sharded lookup across ranks: each rank holds a
+contiguous row slice of the table, gathers the ids that land in it and one
+``all_reduce`` over the ``"model"`` group reassembles the rows.
 """
 from __future__ import annotations
 
@@ -78,6 +81,32 @@ def lookup(table: torch.Tensor, spec: EmbeddingSpec, ids: torch.Tensor) -> torch
     B, F = ids.shape
     flat = _flat_ids(spec, ids).reshape(B * F, 1)
     return bag_ops.embedding_bag(table, flat, None, "sum").reshape(B, F, -1)
+
+
+def lookup_sharded(table_shard: torch.Tensor, spec: EmbeddingSpec, ids: torch.Tensor,
+                   layout, axis: str = "model") -> torch.Tensor:
+    """Row-sharded lookup: mask + local gather + one ``all_reduce``.
+
+    ``table_shard`` [rows/M, D] is this rank's contiguous row slice
+    (``sharding.row_slice`` over ``axis`` of ``layout``, a
+    :class:`repro_torch.dist.sharding.RankLayout`); ``ids`` [B, F] are
+    per-field local ids, the same on every rank of the group. Rows outside
+    the slice contribute zeros and the sum over ``axis`` reassembles the
+    exact rows, since each id lives on one rank: [B, F, D] in the table's
+    dtype, on every rank. A collective over ``axis``. The JAX package's
+    ``jnp.take`` is a plain gather outside any kernel, and so is this
+    ``index_select``. The sum runs in the table's dtype (gloo and NCCL
+    reduce bf16); one row plus zeros is exact in any dtype.
+    """
+    from repro_torch.dist import collectives as coll
+
+    rows_local = table_shard.shape[0]
+    lo = coll.group_index(layout, axis) * rows_local
+    local = _flat_ids(spec, ids).long() - lo
+    hit = (local >= 0) & (local < rows_local)
+    rows = table_shard.index_select(0, local.clamp(0, rows_local - 1).reshape(-1))
+    rows = torch.where(hit[..., None], rows.view(*ids.shape, -1), 0)
+    return coll.all_reduce_(rows, layout, axis)
 
 
 def multi_hot_lookup(table, spec: EmbeddingSpec, ids, weights=None):

@@ -4,12 +4,13 @@ session (port of ``repro.training.config``).
 The same fields and checks as the JAX package's, with ``device`` (``"cuda"``
 by default, ``"cpu"`` on request) in place of ``kernel_mode``: the device of
 the tensors picks each kernel's route. ``from_peacock_lda`` derives the
-production-scale session from ``configs/peacock_lda.py``. Streamed sessions
-(``n_segments > 1`` or a ``corpus_dir`` written by ``save_segments``, with
-``prefetch`` double-buffering the segment loads) run on one device. What one
-device cannot serve yet (pods, a ring of several devices, word-sharded model
-slices) passes validation here, as in the JAX package, and is refused by
-``Trainer.setup``.
+production-scale session from ``configs/peacock_lda.py``. A session of
+several ranks (``n_pods × data_shards × model_shards > 1``, word-sharded
+with ``n_model_shards > 1``) runs one ``Trainer`` per rank. Streamed
+sessions (``n_segments > 1`` or a ``corpus_dir`` written by
+``save_segments``, with ``prefetch`` double-buffering the segment loads) run
+on one device or on the ranks of one pod; with ``n_pods > 1`` they are
+refused here, as in the JAX package.
 """
 from __future__ import annotations
 

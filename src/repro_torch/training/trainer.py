@@ -13,10 +13,10 @@ epoch/aggregate fns and adapts the loop's hooks into the callback events.
     result = tr.fit()
     model, info = tr.export_model()        # dedup + merge → RT-LDA
 
-One device runs a ring of one device, a resident corpus or a streamed one:
-with more than one segment, or a source with no resident corpus (a
-``corpus_dir``), (phi, psi) stay on the device across segment swaps while
-the token stacks ride through a double-buffered ``SegmentStream``.
+A session trains a resident corpus or a streamed one: with more than one
+segment, or a source with no resident corpus (a ``corpus_dir``), (phi, psi)
+stay on the device across segment swaps while the token stacks ride through
+a double-buffered ``SegmentStream``.
 
 A session of several ranks (``n_pods × data_shards × model_shards > 1``)
 runs one ``Trainer`` per rank, each built with the rank's
@@ -30,8 +30,16 @@ LL (each rank's rows, summed over the pod's ring), the α statistics (pod
 assembles, the others get ``None``). Only rank 0 logs and writes metrics,
 checkpoints and snapshots; every rank reads a checkpoint itself and keeps
 its views. Checkpoints hold the JAX package's global layout, so they cross
-packages both ways. A streamed session of several ranks is not ported
-(ROADMAP queue 1) and raises ``NotImplementedError``; nothing falls back.
+packages both ways.
+
+A streamed session of several ranks (single-pod, P = 1 or word-sharded)
+runs one ``SegmentStream`` per rank: every rank visits the segments in the
+same order and loads only its block of each; its Φ rows and the full Ψ row
+are counted from one pass over the segments (``distributed.rank_counts``),
+so no rank ever holds the whole Φ. Each rank's z store is exact only for
+the uids it owns; a checkpoint sums the ranks' changes to the store over
+the ring. Streaming on several pods raises ``ValueError``, as in the JAX
+package; nothing falls back.
 """
 from __future__ import annotations
 
@@ -49,7 +57,10 @@ from repro_torch.training.callbacks import (AlphaOptimizer, ElasticLiveness,
                                             TrainerCallback)
 from repro_torch.training.config import TrainerConfig
 
-_STREAMED_RING = "ROADMAP queue 1, item 11: the streamed ring of several ranks"
+# the JAX package's refusal of a streaming source on several pods, word for
+# word (the config refuses n_segments > 1 or a corpus_dir there already)
+_SINGLE_CONFIG = ("segment streaming is single-configuration (got a multi-pod "
+                  "session with a streaming source)")
 
 
 @dataclasses.dataclass
@@ -63,19 +74,6 @@ class TrainResult:
     epochs_run: int              # epochs executed by THIS fit (excl. resume)
     start_epoch: int             # where the run began (0 unless resumed)
     metrics: Dict[str, list]
-
-
-def refuse_unported(cfg: TrainerConfig) -> None:
-    """Raise ``NotImplementedError`` for a session the port cannot serve yet:
-    a streamed corpus (``n_segments > 1`` or a ``corpus_dir``) on more than
-    one rank."""
-    if (cfg.n_segments > 1 or cfg.corpus_dir) and cfg.n_devices > 1:
-        raise NotImplementedError(
-            f"a streamed session (n_segments={cfg.n_segments}, corpus_dir="
-            f"{cfg.corpus_dir!r}) runs on one device; data_shards*model_shards="
-            f"{cfg.data_shards * cfg.model_shards} (sharded_model="
-            f"{cfg.n_model_shards > 1}) needs the streamed ring of several ranks, "
-            f"which is not ported ({_STREAMED_RING})")
 
 
 class Trainer:
@@ -114,6 +112,8 @@ class Trainer:
         self._refs = None            # (phi_ref, psi_ref) of the last boundary
         self._doc_len_hist = None
         self._z = None               # global [n_tokens] z store (streaming)
+        self._z_base = None          # a rank's store where it owns no uid
+                                     # (None: zeros; a restored global z)
         self._tables = None          # alias sampler proposal tables (§9)
         self._tables_built_at = -1   # epoch of the last word-table rebuild
         self._tables_alpha = None    # the α the current α table was built from
@@ -208,8 +208,10 @@ class Trainer:
         from repro_torch.core import distributed as dist, hierarchy
 
         cfg = self.config
-        refuse_unported(cfg)
         lay = self.layout
+        src = self.source
+        if cfg.multi_pod and src is not None and (src.n_segments > 1 or src.corpus is None):
+            raise ValueError(_SINGLE_CONFIG)
         if cfg.n_devices > 1 and lay is None:
             raise ValueError(
                 f"n_pods*data_shards*model_shards={cfg.n_devices}: a session of several "
@@ -295,13 +297,29 @@ class Trainer:
     def _materialize_stream_state(self) -> None:
         """ONE pass over the segments building the initial (phi, psi) on the
         session's device and the global z store (z0 scattered by uid).
-        Skipped when a checkpoint restore already supplied both."""
-        from repro_torch.core import distributed as dist
+        Skipped when a checkpoint restore already supplied both.
 
-        src = self.source
+        On a ring of several ranks the pass counts only this rank's Φ rows
+        [1, rows/P, K] (and the full Ψ row), and the store gets the z0 of the
+        uids the rank owns (its blocks); the rest stay 0."""
+        from repro_torch.core import distributed as dist
+        from repro_torch.data.sources import segment_block
+
+        src, lay = self.source, self.layout
         K = self.config.n_topics
-        phi = psi = None
         z = np.zeros(src.n_tokens, np.int32)
+        if lay is not None:
+            scs = [src.segment(g) for g in range(src.n_segments)]
+            phi, psi = dist.rank_counts([(sc.word_local, sc.z0) for sc in scs], K,
+                                        self.sc0.rows_per_shard, self.config.n_model_shards,
+                                        lay, self.device)
+            for sc in scs:
+                wl, _, uid, z0 = segment_block(sc, lay)
+                valid = wl >= 0
+                z[uid[valid]] = z0[valid]
+            self.state, self._z, self._z_base = (phi[None], psi), z, None
+            return
+        phi = psi = None
         for g in range(src.n_segments):
             sc = src.segment(g)
             phi, psi = dist.device_counts(sc, K, self.device, phi, psi)
@@ -338,7 +356,7 @@ class Trainer:
                 self._materialize_stream_state()
             self._omega_parts.clear()
             stream = SegmentStream(self.source, self._z, prefetch=cfg.prefetch,
-                                   device=self.device)
+                                   device=self.device, layout=self.layout)
         if self._alias and self._tables is None:
             # fresh run: build from the (phi, psi, α) the session starts from
             self._rebuild_tables()
@@ -354,6 +372,8 @@ class Trainer:
             epoch_aux=self._epoch_tables if self._alias else None,
         )
         self.state = tuple(state)
+        if stream is not None and self.layout is not None:
+            self._gather_stream_stats()
         self.notify("on_train_end")
         return TrainResult(state=self.state, alpha=self.alpha,
                            epochs_run=max(0, cfg.n_epochs - start_epoch),
@@ -423,12 +443,38 @@ class Trainer:
             self.ring_cfg.docs_per_shard * self.config.ring_size,
             self.config.n_topics)
 
+    def _stream_omega(self, dl, z, valid):
+        """Ω_kn part of one streamed segment from its (doc_local, z, valid)
+        device stacks (on a rank, its block).
+
+        doc_local counts within a data shard, so the JAX package's histogram
+        over the whole segment lumps together the docs of one local index
+        across the data shards: a doc row's counts need every rank's tokens.
+        On a ring of several ranks each rank all-gathers the segment's (doc,
+        z) over the ring and histograms only its share of the doc rows; the
+        shares' sum over the ring (``alpha_statistics``) is the JAX
+        package's Ω exactly."""
+        if self.layout is None:
+            return self._segment_omega(dl, z, valid)
+        from repro_torch.core import dedup
+        from repro_torch.dist import collectives as coll, sharding as shd
+
+        lay = self.layout
+        dz = torch.stack([torch.where(valid, dl, -1).reshape(-1), z.reshape(-1)])
+        dz = coll.all_gather(dz, lay, "ring")                      # [R, 2, n]
+        d, zz = dz[:, 0].reshape(-1), dz[:, 1].reshape(-1)
+        n, R, i = self.ring_cfg.docs_per_shard, shd.ring_size(lay), shd.flat_ring_index(lay)
+        lo, hi = n * i // R, n * (i + 1) // R
+        mine = (d >= lo) & (d < hi)
+        return dedup.topic_count_histogram(torch.where(mine, d - lo, 0), zz, mine, hi - lo,
+                                           self.config.n_topics)
+
     def _fold_segment_omega(self, seg) -> None:
         """Ω_kn part for one just-committed segment (its z is final for this
         epoch), from the segment's device stacks — no re-read. Pad slots add
         nothing (their valid flag is 0), so this equals the JAX package's
         fold over the host views."""
-        self._omega_parts[seg.gid] = self._segment_omega(seg.dl, seg.z, seg.wl >= 0)
+        self._omega_parts[seg.gid] = self._stream_omega(seg.dl, seg.z, seg.wl >= 0)
 
     def _hook_epoch_end(self, ep: int, state, alpha):
         self.state = tuple(state)
@@ -530,8 +576,11 @@ class Trainer:
         outside that window (or in a partially replayed resume epoch) they
         fold the histogram over every segment (z gathered from the global
         store, stacks re-read from the source — mmap'd, so this stays
-        out-of-core too)."""
+        out-of-core too; a rank re-reads only its blocks). On a ring of
+        several ranks the ranks' parts are summed with one integer
+        ``all_reduce`` over the ring (exact)."""
         from repro_torch.core import dedup
+        from repro_torch.data.sources import segment_block
 
         if self._streaming:
             n = self.source.n_segments
@@ -541,12 +590,15 @@ class Trainer:
                 omega = None
                 dev = self.device
                 for g in range(n):
-                    sc = self.source.segment(g)
-                    o = self._segment_omega(
-                        torch.from_numpy(np.array(sc.doc_local, np.int32)).to(dev),
-                        torch.from_numpy(self._z[np.asarray(sc.uid)]).to(dev),
-                        torch.from_numpy(np.asarray(sc.word_local) >= 0).to(dev))
+                    wl, dl, uid, _ = segment_block(self.source.segment(g), self.layout)
+                    o = self._stream_omega(torch.from_numpy(np.array(dl, np.int32)).to(dev),
+                                           torch.from_numpy(self._z[uid]).to(dev),
+                                           torch.from_numpy(wl >= 0).to(dev))
                     omega = o if omega is None else omega + o
+            if self.layout is not None:
+                from repro_torch.dist import collectives as coll
+
+                coll.all_reduce_(omega, self.layout, "ring")
         elif self.layout is not None:
             wl, dl, z = self._pod0_stacks()
             omega = self._segment_omega(dl, z, wl >= 0)
@@ -602,7 +654,7 @@ class Trainer:
             # streamed sessions checkpoint (phi, psi) + the GLOBAL z store:
             # the stacks are reproducible from the source, z is not — and a
             # resume must land bit for bit on the recorded (epoch, segment)
-            tree["z"] = np.array(self._z)
+            tree["z"] = np.array(self.global_z())
         if self.config.multi_pod:
             # the refs of the last boundary: a resume from a mid-window
             # checkpoint must replay against them (re-deriving them from the
@@ -616,6 +668,43 @@ class Trainer:
                                else st[4]).astype(np.uint32)
             tree["state"] = tuple(st)
         return tree
+
+    def global_z(self) -> Optional[np.ndarray]:
+        """The streamed session's global [n_tokens] z store (``None`` for a
+        resident session). On a ring of several ranks a collective over the
+        ring that gives it to every rank: a rank's store differs from the
+        common base (zeros, or the z a checkpoint restored) only at the uids
+        it owns, so the base plus the ranks' changes summed over the ring
+        takes each uid's z from its owner (an elementwise sum or max of the
+        stores would not)."""
+        from repro_torch.dist import collectives as coll
+
+        if not self._streaming or self._z is None:
+            return None
+        if self.layout is None:
+            return self._z
+        base = self._z_base
+        part = self._z if base is None else self._z - base
+        t = torch.from_numpy(np.array(part, np.int32))
+        if self.layout.backend == "nccl":
+            t = t.to(self.device)
+        coll.all_reduce_(t, self.layout, "ring")
+        out = t.cpu().numpy()
+        return out if base is None else out + base
+
+    def _gather_stream_stats(self) -> None:
+        """Each rank's mean stream host times (ms a segment) into every
+        rank's ``metrics["stream_by_rank"]``, in rank order (a collective;
+        ``fit`` calls it on a streamed ring of several ranks)."""
+        import torch.distributed as tdist
+
+        m = self.metrics
+        mine = {f"{k[:-2]}_ms": 1e3 * float(np.mean(m[k])) if m.get(k) else None
+                for k in ("load_shard_s", "load_wait_s", "save_shard_s")}
+        group, ranks = self.layout.group("world")
+        got = [None] * len(ranks)
+        tdist.all_gather_object(got, mine, group=group)
+        m["stream_by_rank"] = got
 
     def _assemble_tree(self, tree: dict) -> Optional[dict]:
         """Every rank's views → the global tree on rank 0 (a collective)."""
@@ -709,6 +798,9 @@ class Trainer:
         self.alpha = torch.from_numpy(np.array(tree["alpha"])).to(dev)
         if "z" in tree:
             self._z = np.array(tree["z"], np.int32)
+            # every rank holds the whole restored store: the base its
+            # changes are taken against
+            self._z_base = self._z.copy() if self.layout is not None else None
         if "refs" in tree:
             self._refs = leaves("refs")
         self.epoch = int(meta.get("epoch", meta["step"]))
@@ -775,6 +867,9 @@ class Trainer:
             int(self.corpus.n_tokens) if self.corpus is not None else 0)
         mean = lambda xs: float(np.mean(xs)) if xs else None
         dev = self.device
+        # a streamed session of several ranks adds each rank's stream times
+        per_rank = ({"stream_by_rank": self.metrics.get("stream_by_rank")}
+                    if self.layout is not None and self._streaming else {})
         return {
             "bench": "train",
             "device": (torch.cuda.get_device_name(dev) if dev is not None
@@ -800,4 +895,5 @@ class Trainer:
             "publish_s_mean": mean(pub_s),
             "n_publishes": len(pub_s),
             "ll_final": ll[-1] if ll else None,
+            **per_rank,
         }

@@ -149,38 +149,89 @@ def collectives_body(layout, device):
 
 
 def trainer_run(layout, cfg_kw, ckpt=None, kill=None, resume=False, schedule=None,
-                publish=None, ckpt_every=None):
+                publish=None, ckpt_every=None, ckpt_segments=None, kill_segment=None,
+                alpha_opt=False, fault_on=None):
     """One multi-rank ``Trainer`` session on the CPU; returns the global
-    checkpoint tree (rank 0; ``None`` elsewhere) and the session's counters,
-    or ``{"killed": code}``."""
-    from repro_torch.training import (Checkpointing, ElasticLiveness, KillSwitch, Metrics,
-                                      ModelPublisher, Trainer, TrainerConfig)
+    checkpoint tree (rank 0; ``None`` elsewhere; streamed sessions' trees
+    carry the global z), a streamed session's Ω statistics re-read from the
+    source, and the session's counters, or ``{"killed": code}``.
+    ``alpha_opt`` adds an ``AlphaOptimizer`` first; ``fault_on`` = (rank,
+    key, nth) installs on that rank only a ``FaultPlane`` that fails the
+    ``nth`` ``disk.segment_read`` of segment ``key``, and returns its (hits,
+    injections)."""
+    import contextlib
+
+    from repro_torch.reliability import faults
+    from repro_torch.training import (AlphaOptimizer, Checkpointing, ElasticLiveness,
+                                      KillSwitch, Metrics, ModelPublisher, Trainer,
+                                      TrainerConfig)
 
     cfg = TrainerConfig(device="cpu", ckpt_dir=ckpt, resume=resume,
                         ckpt_every=ckpt_every or 5, **cfg_kw)
-    cbs, live, pub = [], None, None
+    cbs, live, pub = [AlphaOptimizer()] if alpha_opt else [], None, None
     if schedule:
         live = ElasticLiveness(lambda ep: np.array(schedule[ep]))
         cbs.append(live)
     if ckpt:
-        cbs.append(Checkpointing())
+        cbs.append(Checkpointing(every_segments=ckpt_segments))
     if kill:
-        cbs.append(KillSwitch(kill))
+        cbs.append(KillSwitch(kill, at_segment=kill_segment))
     if publish:
         pub = ModelPublisher(publish, every=1)
         cbs.append(pub)
     cbs.append(Metrics(printer=lambda m: None))
     tr = Trainer(cfg, callbacks=cbs, layout=layout)
     tr.log = lambda m: None
+    plane = None
+    if fault_on and fault_on[0] == layout.rank:
+        plane = faults.FaultPlane().fail("disk.segment_read", key=fault_on[1], nth=fault_on[2])
     try:
-        tr.fit()
+        with faults.injected(plane) if plane else contextlib.nullcontext():
+            tr.fit()
     except SystemExit as exc:
         return {"killed": exc.code}
-    return {"tree": tr.checkpoint_tree(), "n_live": live.last_n_live if live else None,
+    omega = None
+    if tr._streaming:             # Ω re-read from the source (a collective)
+        tr._omega_parts.clear()
+        omega = tr.alpha_statistics()[0].numpy()
+    return {"tree": tr.checkpoint_tree(), "omega": omega,
+            "n_live": live.last_n_live if live else None,
             "n_agg": len(tr.metrics["agg_s"]), "version": pub.last_version if pub else None,
-            "ll": tr.metrics["ll"], "epoch": tr.epoch}
+            "ll": tr.metrics["ll"], "epoch": tr.epoch,
+            "hits": (plane.hits("disk.segment_read"), plane.injected("disk.segment_read"))
+            if plane else None}
 
 
 def trainer_runs(layout, runs):
     """``trainer_run`` for each (label, kwargs) of ``runs``, in one world."""
     return {label: trainer_run(layout, **kw) for label, kw in runs}
+
+
+def stream_world(layout, runs):
+    """``trainer_run`` for each (label, (data, model), kwargs) of ``runs`` in
+    one world, each on the single-pod mesh (data, model) over the world's
+    ranks (``mesh.relayout``); returns {label: result}."""
+    from repro_torch.launch import mesh
+
+    out = {}
+    for label, (data, model), kw in runs:
+        lay = layout if layout.shape == (1, data, model) else mesh.relayout(layout, 1, data, model)
+        out[label] = trainer_run(lay, **kw)
+    return out
+
+
+def lookup_body(layout, table, vocab_sizes, ids, dtype):
+    """``recsys.lookup_sharded`` of ``ids`` on this rank's row slice (over
+    "model") of ``table`` cast to ``dtype``; returns the rows as f32 numpy
+    and how many ranks hit each (sample, field)."""
+    from repro_torch.dist import collectives as coll
+    from repro_torch.models import recsys
+
+    spec = recsys.EmbeddingSpec(vocab_sizes=tuple(vocab_sizes), dim=table.shape[1])
+    lo, hi = shd.row_slice(table.shape[0], layout, "model")
+    shard = torch.from_numpy(table[lo:hi]).to(getattr(torch, dtype))
+    ids_t = torch.from_numpy(ids)
+    out = recsys.lookup_sharded(shard, spec, ids_t, layout)
+    flat = ids_t.long() + torch.from_numpy(spec.offsets).long()[None, :]
+    hits = coll.all_reduce_(((flat >= lo) & (flat < hi)).to(torch.int32), layout, "model")
+    return out.dtype, out.to(torch.float32).numpy(), hits.numpy()

@@ -257,11 +257,35 @@ def test_disk_source_retries_transient_errors_like_jax(corpus, tmp_path):
     assert counts["port"][:2] == (2, 3)
 
 
-def test_disk_source_refuses_the_word_sharded_layout(corpus, tmp_path):
-    d = str(tmp_path / "segs")
-    tsources.save_segments(_segments(corpus, 2)[0], d)
-    meta = json.load(open(os.path.join(d, tsources.META)))
-    meta["n_model_shards"] = 2
-    json.dump(meta, open(os.path.join(d, tsources.META), "w"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tsources.open_segments(d)
+def test_disk_source_opens_the_word_sharded_layout(corpus, tmp_path):
+    """A word-sharded (P = 2) directory: both packages write the same files,
+    either package's ``DiskSource`` opens either one, and each segment
+    (stacks, ``n_model_shards``, ``rows_coarse``) equals JAX's
+    ``DiskSource.segment``. The blocks ``segment_block`` hands the ranks of a
+    2×2 mesh partition every segment's tokens."""
+    from repro_torch.dist.sharding import RankLayout
+
+    tsrc = tsources.InMemorySource(_tcorpus(corpus), 3, 2, 2, 16, seed=2, n_model_shards=2)
+    jsrc = jsources.InMemorySource(corpus, 3, 2, 2, 16, seed=2, n_model_shards=2)
+    td, jd = str(tmp_path / "port"), str(tmp_path / "jax")
+    tsources.save_segments(tsrc, td)
+    jsources.save_segments(jsrc, jd)
+    tf, jf = _dir_files(td), _dir_files(jd)
+    assert sorted(tf) == sorted(jf)
+    assert all(tf[n] == jf[n] for n in tf if not n.endswith(".npz"))
+    for d in (td, jd):
+        t, j = tsources.open_segments(d), jsources.open_segments(d)
+        assert (t.n_model_shards, t.rows_coarse) == (j.n_model_shards, j.rows_coarse)
+        assert t.n_model_shards == 2
+        for g in range(t.n_segments):
+            ts, js = t.segment(g), j.segment(g)
+            _same_shards(ts, js)
+            assert (ts.n_model_shards, ts.rows_coarse) == (js.n_model_shards, js.rows_coarse)
+            wl = np.asarray(ts.word_local)
+            seen = np.zeros(t.n_tokens, np.int64)
+            for r in range(4):
+                bwl, _, buid, _ = tsources.segment_block(ts, RankLayout(1, 2, 2, rank=r))
+                assert bwl.shape == (1, wl.shape[1], wl.shape[2] // 2)
+                np.add.at(seen, np.asarray(buid)[bwl >= 0], 1)
+            uid = np.asarray(ts.uid)[wl >= 0]
+            assert (seen[uid] == 1).all() and seen.sum() == uid.size

@@ -215,3 +215,60 @@ def test_entry_points_refuse_to_run_without_cuda():
         trec.init_params(cfg, torch.Generator())
     with pytest.raises(RuntimeError, match="CUDA"):
         convert.recsys_params_from_numpy({"table": np.zeros((4, 2))}, "cuda")
+
+
+LOOKUP_SHARDED_CODE = r"""
+import numpy as np, jax, jax.numpy as jnp
+from jax.sharding import PartitionSpec as P
+from repro.models import recsys
+
+d = np.load(IN)
+spec = recsys.EmbeddingSpec(vocab_sizes=tuple(int(v) for v in d["vocab"]), dim=d["table"].shape[1])
+mesh = jax.make_mesh((1, 4), ("data", "model"), axis_types=(jax.sharding.AxisType.Auto,) * 2)
+out = {}
+for dtype in ("float32", "bfloat16"):
+    table = jnp.asarray(d["table"]).astype(dtype)
+    fn = jax.shard_map(lambda t, i: recsys.lookup_sharded(t, spec, i, axis="model"),
+                       mesh=mesh, in_specs=(P("model", None), P("data", None)),
+                       out_specs=P("data", None, None))
+    got = jax.jit(fn)(table, jnp.asarray(d["ids"]))
+    out[dtype] = np.asarray(got.astype(jnp.float32))
+    out[dtype + "/plain"] = np.asarray(recsys.lookup(table, spec, jnp.asarray(d["ids"]))
+                                       .astype(jnp.float32))
+np.savez(OUT, **out)
+"""
+
+
+def test_lookup_sharded_matches_jax_shard_map(tmp_path):
+    """``lookup_sharded`` on 4 ranks (each holding a quarter of the rows)
+    equals JAX's ``shard_map`` body on 4 host devices bit for bit, f32 and
+    bf16, with ids on every edge of the row slices; every id is hit by
+    exactly one rank."""
+    import _torch_ranks as R
+    from conftest import run_with_devices
+    from repro_torch.launch import mesh
+
+    vocab, dim = (300, 200, 12), 8
+    offsets = np.concatenate([[0], np.cumsum(vocab)[:-1]])
+    rng = np.random.default_rng(0)
+    table = rng.normal(size=(sum(vocab), dim)).astype(np.float32)
+    table[5, 0] = -0.0               # −0 plus the other slices' +0 is +0 in both packages
+    edges = sorted({e for lo in range(0, 512, 128) for e in (lo - 1, lo, lo + 1, lo + 127)
+                    if 0 <= e < 512})
+    ids = (rng.random((len(edges) + 8, len(vocab))) * np.array(vocab)).astype(np.int32)
+    for b, e in enumerate(edges):
+        f = int(np.searchsorted(offsets, e, side="right") - 1)
+        ids[b, f] = e - offsets[f]
+    ids[-1, 0] = 5
+    np.savez(tmp_path / "in.npz", table=table, ids=ids, vocab=np.array(vocab))
+    jax = R.jax_run(run_with_devices, f"IN = {str(tmp_path / 'in.npz')!r}\n" + LOOKUP_SHARDED_CODE,
+                    n_devices=4)
+    for dtype in ("float32", "bfloat16"):
+        got = mesh.spawn(R.lookup_body, model=4, device="cpu", threads=1, timeout_s=R.TIMEOUT_S,
+                         args=(table, vocab, ids, dtype))
+        for r, (out_dtype, rows, hits) in enumerate(got):
+            assert out_dtype == getattr(torch, dtype)
+            np.testing.assert_array_equal(rows.view(np.uint32), jax[dtype].view(np.uint32),
+                                          err_msg=f"{dtype}, rank {r}")
+            assert (hits == 1).all()
+        np.testing.assert_array_equal(jax[dtype], jax[dtype + "/plain"])

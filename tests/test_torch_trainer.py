@@ -490,13 +490,12 @@ class TrainResultView:
 
 # ------------------------------ refusals ----------------------------------
 
-# the mesh flags train across ranks now; what stays refused is a streamed
-# corpus on several ranks, and --preflight
-@pytest.mark.parametrize("flags", [["--data-shards", "2", "--model-shards", "2",
-                                    "--n-segments", "3"],
-                                   ["--data-shards", "2", "--n-segments", "2"],
-                                   ["--model-shards", "2", "--n-segments", "2"],
-                                   ["--sharded-model", "--model-shards", "2",
+# the mesh flags train across ranks, streamed or not; what stays refused is a
+# streamed corpus on several pods (as the JAX driver refuses it), and --preflight
+@pytest.mark.parametrize("flags", [["--pods", "2", "--n-segments", "2"],
+                                   ["--pods", "2", "--data-shards", "2", "--n-segments", "3"],
+                                   ["--pods", "2", "--corpus-dir", "segments"],
+                                   ["--pods", "2", "--sharded-model", "--model-shards", "2",
                                     "--n-segments", "2"],
                                    ["--preflight"]])
 def test_launch_train_refuses_unported_flags(capsys, flags):
@@ -504,8 +503,10 @@ def test_launch_train_refuses_unported_flags(capsys, flags):
         tlaunch.main(["--device", "cpu", "--bench-out", ""] + flags)
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert "ROADMAP" in err
-    assert flags[0] in err or flags[0].lstrip("-").replace("-", "_") in err
+    if flags[0] == "--preflight":
+        assert "ROADMAP" in err and "--preflight" in err
+    else:
+        assert "segment streaming is single-configuration" in err
 
 
 def test_launch_train_refuses_a_segment_kill_without_an_epoch(capsys):
@@ -516,14 +517,29 @@ def test_launch_train_refuses_a_segment_kill_without_an_epoch(capsys):
     assert "--kill-at-segment requires --kill-at" in capsys.readouterr().err
 
 
-# a streamed corpus on several ranks is not ported
-@pytest.mark.parametrize("bad", [dict(data_shards=2, model_shards=2, n_segments=3),
-                                 dict(data_shards=2, n_segments=2),
-                                 dict(model_shards=2, n_segments=2),
-                                 dict(n_model_shards=2, model_shards=2, n_segments=2)])
+# a streamed corpus on several pods is refused in both packages: by the
+# config, and by setup when the streaming source is passed in
+@pytest.mark.parametrize("bad", [dict(n_pods=2, n_segments=2),
+                                 dict(n_pods=2, data_shards=2, n_segments=3),
+                                 dict(n_pods=2, corpus_dir="segments"),
+                                 dict(n_pods=2, source_segments=2)])
 def test_trainer_refuses_unported_sessions(bad):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_trainer(**bad).setup()
+    from repro.data import sources as jsources
+    from repro_torch.data import sources as tsources
+
+    kw = dict(bad)
+    n = kw.pop("source_segments", None)
+    for pkg, src in ((jtraining, jsources), (ttraining, tsources)):
+        extra = {} if pkg is jtraining else {"device": "cpu"}
+        with pytest.raises(ValueError, match="segment streaming is single-configuration"):
+            cfg = pkg.TrainerConfig(**{**SESSION, **extra, **kw})
+            source = None
+            if n:
+                corpus = src.SyntheticSource(200, 100, 4, 6, gen_seed=0, n_segments=1,
+                                             n_data_shards=1, n_vocab_shards=1,
+                                             n_topics=16).corpus
+                source = src.InMemorySource(corpus, n, 1, 1, 16, seed=1)
+            _quiet(pkg.Trainer(cfg, source=source)).setup()
 
 
 def test_trainer_refuses_a_resharded_checkpoint():
