@@ -33,6 +33,29 @@ one 80 GB card whole):
   ``mh_resample`` held against their plain versions on a segment's first
   package, and both samplers' LL curves from one z0.
 
+Then the paper's application layer on the same corpus
+(``repro_torch.benchmarks.bench_quality`` and ``bench_pipeline``; [quality]
+and [table1] lines): one dense model a K at K = 1,024, 10,000 and 100,000
+(``gibbs_epoch`` in blocks of 8,192, 25 epochs, z0 from a seeded CPU
+generator), fold-in P(k|d) of all 4,096 docs (15 sweeps; every θ row must sum
+to its doc's length), Fig. 7's retrieval MAP against ``relevance_judgments``
+and Fig. 8's pCTR AUC from the L1 log-linear model (8,000 impressions of
+``click_log``, 400 steps; the baseline and the true-topic oracle beside each
+K), Fig. 1's topic PMI at K = 1,024; the K = 100,000 fit run twice (bit for
+bit) and its first 3 steps on the CPU port and in float64 (the card's
+weights no further from float64 than twice the CPU port's: both sum 6,400
+rows of features up to ~3,800 in f32, in other orders);
+``gibbs_argmax`` held on the first training and fold-in launches at K =
+100,000. The sampler guardrail at full width: the first 3,276 docs tiled 10×
+(~149,000 tokens), dense and alias 25 sweeps from one z0 at K = 10,000 and
+100,000, held-out LL on the last 820 docs (recorded, not gated;
+``mh_resample`` held on the alias chain's first block), and
+``sampler_guardrail``'s own gate at K = 24 (it must pass). Table 1: the
+analytic model against the paper, and epochs of the dense ring of one device
+on FULL's shard at K = 100,000 in four package lengths. Last, ``run()``'s
+clean corpus at K = 8 and 32: Fig. 7 and 8 on the card equal the CPU port's
+within 1e-4.
+
 Small phases at quickstart scale run the O(K²V) de-duplication, hold the
 card's whole dense loop and alias loop against the same loops on the CPU,
 and drive ``repro_torch.launch.train`` in both samplers: a run that
@@ -300,16 +323,17 @@ def query_batch(corpus, lo, n, bucket):
     return q, cut
 
 
-def full_corpus():
-    """The full-width cell's corpus: one 4,096-query segment shard."""
+def full_corpus(with_truth=False):
+    """The full-width cell's corpus: one 4,096-query segment shard (and the
+    generator's ground truth, with ``with_truth``)."""
     from repro_torch.data import synthetic
     t0 = time.perf_counter()
-    corpus, _ = synthetic.lda_corpus(seed=0, n_docs=FULL["n_docs"],
-                                     n_topics=FULL["gen_topics"], vocab_size=FULL["vocab"],
-                                     query_like=True)
+    corpus, truth = synthetic.lda_corpus(seed=0, n_docs=FULL["n_docs"],
+                                         n_topics=FULL["gen_topics"], vocab_size=FULL["vocab"],
+                                         query_like=True)
     log(f"[full] corpus: {corpus.n_docs} docs, {corpus.n_tokens} tokens "
         f"({time.perf_counter() - t0:.1f} s on the host)")
-    return corpus
+    return (corpus, truth) if with_truth else corpus
 
 
 def full_width_phase(corpus):
@@ -917,8 +941,8 @@ def held(module, name, check, first_only=False):
     every call, or only the first. Yields the list of the checks' returns."""
     launch, seen = getattr(module, name), []
 
-    def call(*args):
-        out = launch(*args)
+    def call(*args, **kw):
+        out = launch(*args, **kw)
         if not (first_only and seen):
             seen.append(check(out, args))
         return out
@@ -1137,6 +1161,329 @@ def ring_form(cfg):
     return (f"Θ {str(cfg.theta_dtype).replace('torch.', '')}, "
             f"{'column exclusion' if cfg.column_exclusion else 'ψ plane'}, "
             f"{'small Θ' if cfg.small_theta else 'dense Θ'}")
+
+
+# ------------------------------------------------------------- quality phase
+# the paper's application layer (bench_quality's and bench_pipeline's
+# functions) at full width on FULL's corpus: one dense model a K (gibbs_epoch
+# in blocks of 8,192, 25 epochs, α held, z0 from a seeded CPU generator)
+# serves Fig. 7's MAP and Fig. 8's AUC; Fig. 1's PMI at K = 1,024 only (a host
+# argsort of Φ); the guardrail on FULL's train docs tiled 10× at K = 10⁴ and
+# 10⁵; Table 1's package sweep on FULL's shard at K = 10⁵
+QUALITY = dict(ks=(1024, 10_000, 100_000), epochs=25, block=8192, n_impr=8000, steps=400,
+               pmi_k=1024, cpu_steps=3, guard_tiles=10, guard_ks=(10_000, 100_000),
+               guard_sweeps=25, clean_ks=(8, 32), sweep_most=(2_500, 5_000, 10_000),
+               sweep_epochs=2)
+
+
+def all_counts(zero=False):
+    """Every kernel's launch count (each set to 0 first, with ``zero``)."""
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+    if zero:
+        zero_counts()
+        bag_ops.launches = 0
+    return dict(read_counts(), embedding_bag=bag_ops.launches)
+
+
+def fold_check(label):
+    """A ``held`` check of ``gibbs.fold_in``: every row of θ sums to its
+    doc's length."""
+    def check(out, args):
+        want = torch.bincount(args[5].long(), minlength=args[7])
+        if not torch.equal(out[1].sum(dim=1, dtype=torch.int64), want):
+            raise AssertionError(f"{label}: a fold-in θ row does not sum to its doc's length")
+        return out[1].shape[0]
+    return check
+
+
+def timed_check(check, spent):
+    """``check`` that adds its own seconds to ``spent`` [0] (so a timed run
+    can leave them out)."""
+    def run(out, args):
+        t0 = time.perf_counter()
+        res = check(out, args)
+        spent[0] += time.perf_counter() - t0
+        return res
+    return run
+
+
+def unit(x, label):
+    if not (np.isfinite(x) and 0.0 <= x <= 1.0):
+        raise AssertionError(f"{label} = {x} is not a finite number in [0, 1]")
+    return x
+
+
+def ctr_f64_steps(clog, dense, n):
+    """``n`` steps of the port's ``train_step`` in float64 on the CPU from the
+    zero init, on ``_fit_ctr``'s train rows: the reference that the card's
+    and the CPU port's f32 steps are held against."""
+    from repro_torch.benchmarks import bench_quality as bq
+    from repro_torch.optim import l1_loglinear
+    n_tr = len(clog["label"]) * 4 // 5
+    f64 = dict(dtype=torch.float64)
+    sp = torch.from_numpy(clog["ad_feat"][clog["ad_idx"]][:n_tr].astype(np.int64))
+    lb = torch.from_numpy(clog["label"][:n_tr].astype(np.float64))
+    st = l1_loglinear.CTRState(torch.zeros(clog["n_ad_features"], **f64),
+                               torch.zeros(dense.shape[1], **f64), torch.zeros((), **f64))
+    dx = dense[:n_tr].double()
+    for _ in range(n):
+        st, _ = l1_loglinear.train_step(st, sp, dx, lb, bq.CTR_LR, bq.CTR_L1)
+    return st
+
+
+def quality_full(corpus, truth):
+    """Fig. 1, 7 and 8 at K = 1,024, 10⁴ and 10⁵ on FULL's corpus."""
+    from repro_torch.benchmarks import bench_quality as bq
+    from repro_torch.core import gibbs, lda
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.gibbs import ops
+
+    dev = torch.device("cuda")
+    q, u, lab = synthetic.relevance_judgments(3, corpus, truth)
+    clog = bq.ctr_log(corpus, truth, QUALITY["n_impr"])
+    n_tr, steps = QUALITY["n_impr"] * 4 // 5, QUALITY["steps"]
+
+    def fit(dense, label, n=steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        auc, st = bq._fit_ctr(clog, dense, n)
+        torch.cuda.synchronize()
+        return unit(auc, f"{label} AUC"), st, time.perf_counter() - t0
+
+    base, _, base_s = fit(torch.zeros((QUALITY["n_impr"], 1), device=dev), "baseline")
+    oracle, _, oracle_s = fit(bq.oracle_features(clog, truth, dev), "oracle")
+    log(f"[quality] Fig. 8 on {QUALITY['n_impr']} impressions ({n_tr} train, "
+        f"{clog['label'][:n_tr].mean():.4f} clicked), {steps} steps, lr {bq.CTR_LR}, l1 "
+        f"{bq.CTR_L1}: "
+        f"baseline AUC {base:.6f} (fit {base_s:.3f} s); oracle (true P(k|d) × "
+        f"{truth.doc_topic.shape[1]}) AUC {oracle:.6f} (fit {oracle_s:.3f} s)")
+    rows = dict(baseline=base, oracle=oracle)
+    for K in QUALITY["ks"]:
+        big = K == max(QUALITY["ks"])
+        free_card()
+        spent = [0.0]
+        with contextlib.ExitStack() as stack:
+            if big:
+                stack.enter_context(held(ops, "gibbs_argmax", timed_check(
+                    gibbs_check("cuda", f"quality K={K} training"), spent), first_only=True))
+            t0 = time.perf_counter()
+            state, *_ = bq._train_model(K, corpus, iters=QUALITY["epochs"],
+                                        block_size=QUALITY["block"], device=dev)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0 - spent[0]
+        if K == QUALITY["pmi_k"]:
+            t0 = time.perf_counter()
+            pmi = lda.topic_pmi(state.phi, corpus.word_ids, corpus.doc_ids, corpus.n_docs,
+                                top_n=5)
+            log(f"[quality] Fig. 1 K={K}: mean topic PMI (top 5) {pmi.mean():.6f} over {K} "
+                f"topics ({time.perf_counter() - t0:.2f} s on the host)")
+            rows["pmi"] = float(pmi.mean())
+        spent = [0.0]
+        with contextlib.ExitStack() as stack:
+            seen = stack.enter_context(held(gibbs, "fold_in", timed_check(
+                fold_check(f"quality K={K}"), spent)))
+            if big:
+                stack.enter_context(held(ops, "gibbs_argmax", timed_check(
+                    gibbs_check("cuda", f"quality K={K} fold-in"), spent), first_only=True))
+            t0 = time.perf_counter()
+            pkd = bq._infer_pkd(state, corpus)
+            torch.cuda.synchronize()
+            fold_s = time.perf_counter() - t0 - spent[0]
+        if seen != [corpus.n_docs]:
+            raise AssertionError(f"quality K={K}: fold-in θ not checked ({seen})")
+        m = unit(bq.mean_average_precision(pkd, q, u, lab), f"K={K} MAP")
+        dense = bq.topic_features(pkd, clog)
+        del state, pkd
+        auc, st, fit_s = fit(dense, f"K={K}")
+        extra = ""
+        if big:
+            _, st2, _ = fit(dense, f"K={K} again")
+            if not all(torch.equal(a, b) for a, b in zip(st, st2)):
+                raise AssertionError(f"quality K={K}: two CTR fits from one state differ")
+            n = QUALITY["cpu_steps"]
+            _, st_card, _ = fit(dense, f"K={K}, {n} steps", n)
+            _, st_cpu = bq._fit_ctr(clog, dense.cpu(), n)
+            st_f64 = ctr_f64_steps(clog, dense.cpu(), n)
+            errs = []
+            for name, a, b, r in zip(st_card._fields, st_card, st_cpu, st_f64):
+                e_card, e_cpu, d = (float((x.double() - y.double()).abs().max())
+                                    for x, y in ((a.cpu(), r), (b, r), (a.cpu(), b)))
+                if e_card > 2 * e_cpu + 1e-7:
+                    raise AssertionError(f"quality K={K}: {n} CTR steps, {name}: the card is "
+                                         f"{e_card:.3g} from float64, the CPU port {e_cpu:.3g}")
+                errs.append(f"{name} {d:.3g} ({e_card:.3g} | {e_cpu:.3g})")
+            extra = (f"; two fits bit for bit; {n} steps card vs CPU port max |Δ| (card | CPU "
+                     f"from float64): " + ", ".join(errs))
+        del dense, st
+        bound = 2 * n_tr * K * 4 / HBM_BYTES_PER_S * 1e3
+        peak = peak_gib()
+        log(f"[quality] K={K}: MAP {m:.6f}, AUC {auc:.6f}; train {QUALITY['epochs']} epochs "
+            f"{train_s:.3f} s, fold-in 15 sweeps {fold_s:.3f} s, CTR fit {fit_s:.3f} s = "
+            f"{fit_s / steps * 1e3:.4f} ms a step (bytes bound {bound:.4f} ms), peak "
+            f"{peak:.2f} GiB{extra}")
+        rows[K] = dict(map=m, auc=auc, train_s=train_s, fold_s=fold_s, step_ms=fit_s / steps * 1e3,
+                       bound_ms=bound, peak_gib=peak)
+    return rows
+
+
+def quality_guardrail(corpus):
+    """The guardrail at full width: FULL's first 3,276 docs tiled 10×, dense
+    and alias 25 sweeps from one z0, held-out LL on the last 820 docs (not
+    gated: the measurement ROADMAP item 8 lacks). Returns the tiled corpus's
+    token count."""
+    from repro_torch.benchmarks import bench_quality as bq
+    from repro_torch.kernels.alias import ops as alias_ops
+
+    dev = torch.device("cuda")
+    corpus_tr, corpus_te = bq.heldout_split(corpus)
+    tiled = tile_corpus(corpus_tr, QUALITY["guard_tiles"])
+    sweeps, block = QUALITY["guard_sweeps"], QUALITY["block"]
+    log(f"[quality] guardrail corpus: {corpus_tr.n_docs} train docs tiled "
+        f"{QUALITY['guard_tiles']}× = {tiled.n_docs} docs, {tiled.n_tokens} tokens; "
+        f"{corpus_te.n_docs} held-out docs, {corpus_te.n_tokens} tokens")
+    for K in QUALITY["guard_ks"]:
+        free_card()
+        t0 = time.perf_counter()
+        dense, *_ = bq._train_model(K, tiled, iters=sweeps, alpha_opt_from=99,
+                                    block_size=block, device=dev)
+        torch.cuda.synchronize()
+        dense_s = time.perf_counter() - t0
+        ll_d = bq._heldout_ll(dense, corpus_te)
+        peak_d = peak_gib()
+        del dense
+        free_card()
+        with contextlib.ExitStack() as stack:
+            if K == max(QUALITY["guard_ks"]):
+                stack.enter_context(held(alias_ops, "mh_resample",
+                                         mh_check(f"guardrail alias K={K}"), first_only=True))
+            t0 = time.perf_counter()
+            alias = bq._train_model_alias(K, tiled, iters=sweeps, block_size=block, device=dev)
+            torch.cuda.synchronize()
+            alias_s = time.perf_counter() - t0
+        ll_a = bq._heldout_ll(alias, corpus_te)
+        peak_a = peak_gib()
+        del alias
+        gap = ll_a - ll_d
+        log(f"[quality] guardrail K={K} ({tiled.n_tokens / K:.2f} tokens a topic), {sweeps} "
+            f"sweeps in blocks of {block} from one z0: held-out LL dense {ll_d:.6f}, alias "
+            f"{ll_a:.6f}, gap {gap:+.6f} ({gap / abs(ll_d):+.4%} of |dense|; not gated); dense "
+            f"{dense_s:.2f} s, peak {peak_d:.2f} GiB; alias {alias_s:.2f} s (tables rebuilt "
+            f"every 3 sweeps), peak {peak_a:.2f} GiB")
+    free_card()
+    return tiled.n_tokens
+
+
+def quality_guardrail_k24():
+    """JAX's own gate on the card: K = 24, tol 2%, quick mode. Its
+    AssertionError fails the run."""
+    from repro_torch.benchmarks import bench_quality as bq
+    t0 = time.perf_counter()
+    rows = dict(bq.sampler_guardrail(K=24, tol=0.02, quick=True, device="cuda"))
+    log(f"[quality] guardrail K=24 (bench_quality's gate, quick, tol 2%): passed; held-out LL "
+        f"dense {rows['heldout_ll_dense']:.6f}, alias {rows['heldout_ll_alias']:.6f}, gap "
+        f"{rows['heldout_ll_gap']:+.6f} ({time.perf_counter() - t0:.2f} s)")
+    return rows
+
+
+def pipeline_sweep(corpus):
+    """Table 1: the analytic model against the paper, and the package sweep
+    of the dense ring of one device on FULL's shard at K = 10⁵."""
+    from repro_torch.benchmarks import bench_pipeline as bp
+    rows = bp.table1_model()
+    err = max(abs(a - b) for _, a, b in rows)
+    log(f"[table1] model vs paper (min): "
+        + ", ".join(f"L={lkb} KB {a}|{b}" for lkb, a, b in rows)
+        + f"; largest error {err:.4f} min")
+    free_card()
+    t0 = time.perf_counter()
+    sweep, n_tok = bp.measured_package_sweep(corpus, n_topics=FULL["n_topics"],
+                                             most=QUALITY["sweep_most"],
+                                             epochs=QUALITY["sweep_epochs"], device="cuda")
+    cap = sweep[-1][0]
+    if len(sweep) < 4:
+        raise AssertionError(f"package sweep took {len(sweep)} lengths, expected ≥ 4")
+    for pkg, secs in sweep:
+        log(f"[table1] package_len {pkg} ({cap // pkg} packages an epoch, cap {cap}): epoch s "
+            f"{[round(s, 4) for s in secs]}, tokens/s {[round(n_tok / s, 1) for s in secs]}")
+    best = min(sweep, key=lambda r: min(r[1]))[0]
+    log(f"[table1] fastest package_len {best}; sweep {time.perf_counter() - t0:.2f} s "
+        f"(with shard_corpus and a warm-up epoch a length), peak {peak_gib():.2f} GiB")
+    return sweep
+
+
+def quality_clean_check():
+    """``run()``'s clean corpus (3,000 docs, 48 true topics, V = 800):
+    Fig. 7 and Fig. 8 at K = 8 and 32 on the card equal the CPU port's within
+    1e-4 from one z0. Every card draw is held against its plain version; a K
+    row whose training drew on a near-tie may part, and is reported."""
+    from repro_torch.benchmarks import bench_quality as bq
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.gibbs import ops
+    corpus, truth = synthetic.lda_corpus(seed=0, n_docs=3000, n_topics=bq.TRUE_K,
+                                         vocab_size=bq.VOCAB, doc_len_mean=10)
+    t0 = time.perf_counter()
+    for K in QUALITY["clean_ks"]:
+        run = lambda dev: ([(f"fig7_map.K{k}", v) for k, v in
+                            bq.fig7_map(corpus, truth, ks=(K,), device=dev)]
+                           + [(f"fig8_auc.{n}", v) for n, v in
+                              bq.fig8_auc(corpus, truth, ks=(K,), device=dev)])
+        with held(ops, "gibbs_argmax", gibbs_check("cuda", f"clean K={K}")) as seen:
+            card = run("cuda")
+        cpu = run("cpu")
+        ties = sum(c["mismatches"] for c in seen)
+        for (name, a), (name_c, b) in zip(card, cpu):
+            unit(a, name)
+            if name != name_c:
+                raise AssertionError(f"clean K={K}: rows {name} and {name_c}")
+            if abs(a - b) > 1e-4 and not (ties and name.endswith(f"K{K}")):
+                raise AssertionError(f"clean K={K}: {name} card {a} vs CPU {b}")
+        log(f"[quality] clean corpus K={K}, card vs CPU from one z0: "
+            + ", ".join(f"{n} {a:.6f}|{b:.6f}" for (n, a), (_, b) in zip(card, cpu))
+            + f"; {len(seen)} draws held, {ties} near-tie differences")
+    log(f"[quality] clean-corpus check {time.perf_counter() - t0:.2f} s")
+
+
+def quality_phase(corpus, truth):
+    """The application layer's paths, each counted from 0."""
+    paths, block = {}, QUALITY["block"]
+    free_card()
+    all_counts(zero=True)
+    # ---- the main path: Fig. 1, 7, 8 at full width ----
+    quality_full(corpus, truth)
+    paths["quality_full"] = all_counts()
+    # ---- end of the main path ----
+    # per K: the epochs' blocks and 15 fold-in sweeps
+    want = len(QUALITY["ks"]) * (QUALITY["epochs"] * -(-corpus.n_tokens // block) + 15)
+    if paths["quality_full"]["gibbs_argmax"] != want:
+        raise AssertionError(f"quality_full: launches {paths['quality_full']}, gibbs_argmax "
+                             f"expected {want}")
+    all_counts(zero=True)
+    n_tiled = quality_guardrail(corpus)
+    paths["quality_guardrail"] = all_counts()
+    # per K: dense and alias blocks, two held-out fold-ins of 15 sweeps, and
+    # a word + α table build every 3 sweeps
+    n_k, sweeps, blocks = len(QUALITY["guard_ks"]), QUALITY["guard_sweeps"], -(-n_tiled // block)
+    want = dict(gibbs_argmax=n_k * (sweeps * blocks + 30), mh_resample=n_k * sweeps * blocks,
+                alias_build=n_k * 2 * -(-sweeps // 3), embedding_bag=0)
+    if paths["quality_guardrail"] != want:
+        raise AssertionError(f"quality_guardrail: launches {paths['quality_guardrail']}, "
+                             f"expected {want}")
+    all_counts(zero=True)
+    quality_guardrail_k24()
+    paths["quality_guardrail_k24"] = all_counts()
+    if not all(paths["quality_guardrail_k24"][k] > 0
+               for k in ("gibbs_argmax", "alias_build", "mh_resample")):
+        raise AssertionError(f"quality_guardrail_k24: a kernel of the path never launched: "
+                             f"{paths['quality_guardrail_k24']}")
+    all_counts(zero=True)
+    pipeline_sweep(corpus)
+    paths["pipeline_sweep"] = all_counts()
+    if paths["pipeline_sweep"]["gibbs_argmax"] == 0:
+        raise AssertionError("pipeline_sweep: gibbs_argmax never launched")
+    quality_clean_check()
+    log(f"[quality] launches by path: {paths}")
+    free_card()
+    return paths
 
 
 def trainer_small_phase():
@@ -3902,7 +4249,7 @@ def main():
     alias_build, mh_small_err = alias_kernel_phase()
     bag_small_err = bag_kernel_phase()
     mark("kernel phases")
-    corpus = full_corpus()
+    corpus, truth = full_corpus(with_truth=True)
     launches, gibbs_epoch_stats = full_width_phase(corpus)
     alias_launches, mh, cell_build = alias_phase(corpus)
     mark("dense and alias cells")
@@ -3912,6 +4259,10 @@ def main():
     torch.cuda.empty_cache()
     trainer_launches, ll_launches = trainer_phase(corpus, gibbs_epoch_stats)
     mark("trainer cell")
+    gc.collect()
+    torch.cuda.empty_cache()
+    quality = quality_phase(corpus, truth)
+    mark("quality (Fig. 1/7/8 at full width, guardrails, Table 1 sweep)")
     gc.collect()
     torch.cuda.empty_cache()
     stream = stream_phase(corpus)
@@ -3983,6 +4334,9 @@ def main():
     mark("serving")
     gibbs_paths.update(launch_serve=serve_launches, serve_engine_build=serve_build,
                        serve_publish_train=serve_publish)
+    for k, paths in [("gibbs_argmax", gibbs_paths), ("alias_build", alias_paths["alias_build"]),
+                     ("mh_resample", alias_paths["mh_resample"])]:
+        paths.update({p: counts[k] for p, counts in quality.items()})
 
     log(json.dumps({"kernels": [
         dict(name="gibbs_argmax", route="cuda", source="src/repro_torch/csrc/gibbs_argmax.cu",
@@ -4000,6 +4354,8 @@ def main():
              launches_by_path=alias_paths["mh_resample"], library_ms=None, **mh),
         dict(name="embedding_bag", route="cuda", source="src/repro_torch/csrc/embedding_bag.cu",
              replaces="src/repro/kernels/embedding_bag/kernel.py:81", launches=bag_launches,
+             launches_by_path=dict(recsys=bag_launches,
+                                   **{p: n["embedding_bag"] for p, n in quality.items()}),
              max_abs_err=max(bag_small_err, bag_full_err), multi_hot=bag["multi_hot"],
              **bag["lookup"])]}))
     log(f"card: {card_line()}")

@@ -12,6 +12,7 @@ from repro_torch import resolve_device
 from repro_torch.core.lda import LDAState
 from repro_torch.core.rtlda import RTLDAModel
 from repro_torch.core.sparse import AliasTables
+from repro_torch.optim.l1_loglinear import CTRState
 
 
 def _t(x, dtype, dev) -> torch.Tensor:
@@ -46,6 +47,14 @@ def ring_state_from_numpy(phi, psi, word_local, doc_local, uid, z, device):
     dev = resolve_device(device)
     return (_t(phi, np.int32, dev), _t(psi, np.int32, dev), _t(word_local, np.int32, dev),
             _t(doc_local, np.int32, dev), _t(uid, np.int64, dev), _t(z, np.int32, dev))
+
+
+def ctr_state_from_numpy(w_sparse, w_dense, bias, device) -> CTRState:
+    """A pCTR model's weights (e.g. the JAX package's ``l1_loglinear.CTRState``
+    leaves), all f32."""
+    dev = resolve_device(device)
+    return CTRState(w_sparse=_t(w_sparse, np.float32, dev), w_dense=_t(w_dense, np.float32, dev),
+                    bias=_t(bias, np.float32, dev))
 
 
 def recsys_params_from_numpy(params, device, table_dtype=torch.float32) -> dict:

@@ -1,4 +1,5 @@
-"""Synthetic corpora with known ground truth, copied from ``repro.data.synthetic``.
+"""Synthetic corpora with known ground truth, click logs and relevance sets,
+copied from ``repro.data.synthetic``.
 
 Documents are drawn from a true LDA generative process with Zipf-distributed
 topic-word distributions. The same seed gives the same arrays as the JAX
@@ -68,3 +69,71 @@ def lda_corpus(
         ws = np.array([rng.choice(vocab_size, p=tw[k]) for k in ks], np.int32)
         docs.append(ws)
     return corpus_from_docs(docs, vocab_size), LDAGroundTruth(tw, dt)
+def click_log(
+    seed: int,
+    corpus: Corpus,
+    truth: LDAGroundTruth,
+    n_impressions: int,
+    n_ad_features: int = 200,
+    topic_signal: float = 2.0,
+):
+    """Synthetic ad-impression log whose CTR depends on (ad, query-topic) affinity.
+
+    Each impression: a query document d, an ad a with sparse features; the label
+    is Bernoulli(sigmoid(bias + w_ad + topic_signal * <topic(d), ad_affinity_a>)).
+    Because the true CTR depends on the *topic* of the query, a pCTR model gains
+    AUC only insofar as its topic features resolve the query's topics — the
+    mechanism behind the paper's Fig. 8.
+    """
+    rng = np.random.default_rng(seed)
+    K = truth.doc_topic.shape[1]
+    n_ads = max(20, n_ad_features // 4)
+    ad_affinity = rng.dirichlet(np.full(K, 0.2), size=n_ads)      # [A, K]
+    ad_bias = rng.normal(-2.0, 0.5, size=n_ads)
+    ad_feat = rng.integers(0, n_ad_features, size=(n_ads, 3))     # 3 sparse feats/ad
+    # global topic click-propensity: some query intents convert regardless of
+    # the ad (the component a log-linear model can capture from P(k|d) alone)
+    topic_prop = rng.normal(0.0, 1.0, size=K)
+
+    doc_idx = rng.integers(0, truth.doc_topic.shape[0], size=n_impressions)
+    ad_idx = rng.integers(0, n_ads, size=n_impressions)
+    affinity = np.einsum("ik,ik->i", truth.doc_topic[doc_idx], ad_affinity[ad_idx])
+    propensity = truth.doc_topic[doc_idx] @ topic_prop
+    logit = (ad_bias[ad_idx]
+             + topic_signal * propensity
+             + topic_signal * (affinity - affinity.mean()) * 5.0)
+    label = (rng.uniform(size=n_impressions) < 1.0 / (1.0 + np.exp(-logit))).astype(np.int32)
+    return {
+        "doc_idx": doc_idx.astype(np.int32),
+        "ad_idx": ad_idx.astype(np.int32),
+        "ad_feat": ad_feat,          # [A, 3] feature ids
+        "n_ad_features": n_ad_features,
+        "label": label,
+    }
+
+
+def relevance_judgments(
+    seed: int,
+    corpus: Corpus,
+    truth: LDAGroundTruth,
+    n_queries: int = 50,
+    n_urls_per_query: int = 40,
+):
+    """Synthetic query–URL relevance set for the Fig. 7 MAP benchmark.
+
+    URLs are other documents; the human "rating" is thresholded cosine of the
+    TRUE topic mixtures, so retrieval quality improves exactly when inferred
+    topic features approximate the truth.
+    """
+    rng = np.random.default_rng(seed)
+    D = truth.doc_topic.shape[0]
+    queries = rng.choice(D, size=min(n_queries, D // 2), replace=False)
+    urls = []
+    labels = []
+    dt = truth.doc_topic / np.linalg.norm(truth.doc_topic, axis=1, keepdims=True)
+    for q in queries:
+        cand = rng.choice(D, size=n_urls_per_query, replace=False)
+        sim = dt[cand] @ dt[q]
+        urls.append(cand)
+        labels.append((sim > np.quantile(sim, 0.8)).astype(np.int32))
+    return queries, np.array(urls), np.array(labels)
