@@ -107,8 +107,17 @@ Then the recsys serving path at full width: dlrm-mlperf (the 187,767,552 ×
 the ``embedding_bag`` kernel checked at the bulk batch's gather, 200 timed
 serve_p99 batches of 512 (p50/p99), 3 serve_bulk batches of 262,144
 (samples/s), xdeepfm, din and autoint one serve_p99 batch each, and
-retrieval_scores over 10⁶ candidates; a small loop holds the four small
-recsys configs on the card against the CPU.
+retrieval_scores over 10⁶ candidates. Then recsys training, the
+``train_batch`` cell of each arch through ``cell.fn`` at full width: the
+row-gradient kernel ``embedding_bag_bwd`` bit for bit against its plain
+version at 100 random shapes and at dlrm-mlperf's train gather (65,536 × 26
+bags of one into the same 187,767,552 × 128 bf16 table, not drawn again),
+timed beside its bound and ``index_add_``; dlrm-mlperf 10 steps and xdeepfm,
+din, autoint 5 steps each on one fixed batch (a batch that does not fit the
+card is halved, and the cut printed): step ms, samples/s, peak GiB, a
+falling loss, two steps from one state bit for bit, untouched rows
+unchanged, a profiled step. A small loop holds the four small recsys
+configs on the card against the CPU.
 
 Then RT-LDA serving at K = 100,000, V = 32,768: ``launch.serve``'s own model
 (quick_train's first ``gibbs_argmax`` launch held against the plain
@@ -2168,7 +2177,8 @@ def recsys_phase():
     """dlrm-mlperf at full width (the 187,767,552 × 128 bf16 table, nothing
     cut) serving serve_p99 and serve_bulk batches; xdeepfm, din and autoint
     at full width one serve_p99 batch each; retrieval_scores at
-    retrieval_cand."""
+    retrieval_cand. Returns dlrm-mlperf's parameters for
+    ``recsys_train_phase``."""
     from repro_torch.configs import recsys_archs as ra
     from repro_torch.kernels.embedding_bag import ops
     from repro_torch.models import recsys as rec
@@ -2252,12 +2262,12 @@ def recsys_phase():
         f"per batch (host clock + synchronize)")
     log(f"[recsys] dlrm-mlperf serve_bulk: {len(bulk)} batches of {R['bulk_batch']}: s "
         f"{[round(t, 5) for t in bulk]}; {bulk_rate:.1f} samples/s; "
-        f"{ra._dlrm_flops(R['bulk_batch']) / np.median(bulk) / 1e12:.3f} TFLOP/s "
+        f"{ra._dlrm_flops(R['bulk_batch'], False) / np.median(bulk) / 1e12:.3f} TFLOP/s "
         f"of model FLOPs")
     flops = {"xdeepfm": ra._xdeepfm_flops, "din": ra._din_flops,
              "autoint": ra._autoint_flops}
     log(f"[recsys] full width, one serve_p99 batch after a warm-up: "
-        + ", ".join(f"{a} {ms:.4f} ms ({flops[a](R['p99_batch']) / ms / 1e9:.4f} TFLOP/s "
+        + ", ".join(f"{a} {ms:.4f} ms ({flops[a](R['p99_batch'], False) / ms / 1e9:.4f} TFLOP/s "
                     f"of model FLOPs)" for a, ms in other_ms.items())
         + f"; retrieval_cand (1 × {R['n_candidates']} candidates, top-100) {retrieval_ms:.4f} ms")
     log(f"[recsys] launches embedding_bag={launches} (expected {n_forward}); "
@@ -2308,9 +2318,351 @@ def recsys_phase():
             f"{bag['serve_p99_device_ms']:.4f} ms of device time per launch (profiler)")
     log(f"[recsys] max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"(main path, checks and profile)")
-    del params, table, others, cand, p99_in, bulk_in
+    del table, others, cand, p99_in, bulk_in
     torch.cuda.empty_cache()
-    return launches, bag_err, bag
+    return launches, bag_err, bag, params
+
+
+# ------------------------------------------------------ recsys training phase
+# the train_batch cell (repro/configs/base.py RECSYS_SHAPES) of each arch
+# cut_floor: the least batch an arch may be cut to when a step does not fit
+# the card (xdeepfm's CIN: 19.04 GiB f32 a layer at 65,536); the others run
+# uncut or fail
+RECSYS_TRAIN = dict(seed=21, dlrm_steps=10, steps=5, bwd_cases=100, untouched=65_536,
+                    reps=10, cut_floor={"xdeepfm": 32_768})
+
+
+def same_bits(x, y):
+    return x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+        x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+
+
+def bwd_check(grad, ids, w, combiner, label):
+    """embedding_bag_bwd kernel against its plain version on the card: the
+    same rows and the same bits, and a second launch gives the same bits.
+    Returns max |kernel − plain| (0.0, or it raises)."""
+    from repro_torch.kernels.embedding_bag.kernel import embedding_bag_bwd_cuda
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_padded_bwd_ref
+    rows, got = embedding_bag_bwd_cuda(grad, ids, w, combiner)
+    erows, expect = embedding_bag_padded_bwd_ref(grad, ids, w, combiner)
+    if not torch.equal(rows, erows):
+        raise AssertionError(f"embedding_bag_bwd {label}: rows differ from the plain version")
+    bad = int((got.view(torch.int32) != expect.view(torch.int32)).sum())
+    if bad:
+        raise AssertionError(f"embedding_bag_bwd {label}: {bad} entries differ from the plain "
+                             f"version (max |diff| {float((got - expect).abs().max())})")
+    _, again = embedding_bag_bwd_cuda(grad, ids, w, combiner)
+    if not same_bits(again, got):
+        raise AssertionError(f"embedding_bag_bwd {label}: two launches differ")
+    return float((got - expect).abs().max()) if got.numel() else 0.0
+
+
+def bwd_kernel_cases():
+    """The row-gradient kernel at ~100 random shapes: D in {1, 8, 10, 16,
+    18, 100, 128}, F 1–40, ids all equal / from a few rows / from 10⁵ rows,
+    every fifth case a third of its ids −1 (padding, in no row's run),
+    weights absent and present, sum and mean, f32 and bf16 grad_out, every
+    tenth grad_out one element off its alignment (the scalar loads)."""
+    g = torch.Generator(device="cuda").manual_seed(RECSYS_TRAIN["seed"])
+    rnd = lambda lo, hi: int(torch.randint(lo, hi, (1,), generator=g, device="cuda"))
+    seen, err = set(), 0.0
+    for i in range(RECSYS_TRAIN["bwd_cases"]):
+        D = (1, 8, 10, 16, 18, 100, 128)[i % 7]
+        dtype = (torch.float32, torch.bfloat16)[(i // 7) % 2]
+        kind = ("all equal", "a few rows", "many rows")[i % 3]
+        weighted, combiner = (i // 2) % 2 == 1, ("sum", "mean")[(i // 4) % 2]
+        F = rnd(1, 41)
+        B = rnd(1, max(2, 1200 // F)) if kind == "all equal" else rnd(1, 300)
+        V = {"all equal": 1, "a few rows": rnd(2, 20), "many rows": 100_000}[kind]
+        ids = torch.randint(0, V, (B, F), generator=g, device="cuda", dtype=torch.int32)
+        if i % 5 == 4:                                   # padding: about a third −1
+            ids[torch.rand((B, F), generator=g, device="cuda") < 1 / 3] = -1
+        flat = torch.randn((B * D + 1,), generator=g, device="cuda").to(dtype)
+        grad = (flat[1:] if i % 10 == 9 else flat[:-1]).view(B, D)
+        w = None
+        if weighted:
+            w = torch.rand((B, F), generator=g, device="cuda") * 1.9 + 0.1
+            w[::3, -1] = 0.0
+        err = max(err, bwd_check(grad, ids, w, combiner, f"case {i}: B={B} F={F} D={D} "
+                                 f"{dtype} {kind} {combiner} "
+                                 f"{'weighted' if weighted else 'ones'}"))
+        seen.add((D, dtype, kind, weighted, combiner))
+    log(f"[recsys-train] embedding_bag_bwd kernel vs plain: {RECSYS_TRAIN['bwd_cases']} random "
+        f"shapes ({len(seen)} distinct (D, dtype, repetition, weights, combiner) combinations, "
+        f"D 1…128, F 1…40, ids all equal / a few rows / 10⁵ rows, every fifth with −1 "
+        f"padding, every tenth grad_out unaligned): 0 mismatches, bit for bit (max |diff| "
+        f"{err}); a second launch gave the same bits each time")
+    return err
+
+
+def bwd_full_width(ids):
+    """The kernel at dlrm-mlperf's train_batch: the step's 65,536 × 26 ids as
+    bags of one (``lookup``'s backward) into the 187,767,552 × 128 bf16
+    table, bf16 gradient rows: checked bit for bit against the plain version,
+    timed alone (the runs grouped beforehand) and with its stable sort, the
+    plain version once, and ``index_add_`` into a zeroed [U, D] f32 (a
+    yardstick, never on the path)."""
+    from repro_torch.kernels.embedding_bag.kernel import (
+        embedding_bag_bwd_cuda, embedding_bag_bwd_runs_cuda)
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_padded_bwd_ref, row_runs
+    one = ids.reshape(-1, 1).contiguous()
+    N, D = one.shape[0], 128
+    g = torch.Generator(device="cuda").manual_seed(RECSYS_TRAIN["seed"] + 1)
+    grad = torch.randn((N, D), generator=g, device="cuda").to(torch.bfloat16)
+    order, rows, starts = row_runs(one)
+    U = rows.numel()
+    counts = starts[1:] - starts[:-1]
+    reps = RECSYS_TRAIN["reps"]
+    ms = timed_ms(lambda: embedding_bag_bwd_runs_cuda(grad, order, starts, 1), reps=reps)
+    with_sort_ms = timed_ms(lambda: embedding_bag_bwd_cuda(grad, one, None, "sum"), reps=reps)
+    plain_ms, (prows, plain) = events_ms(lambda: embedding_bag_padded_bwd_ref(grad, one))
+    got = embedding_bag_bwd_runs_cuda(grad, order, starts, 1)
+    bad = int((got.view(torch.int32) != plain.view(torch.int32)).sum())
+    if not torch.equal(prows, rows) or bad:
+        raise AssertionError(f"embedding_bag_bwd at the full-width train gather: {bad} entries "
+                             f"differ from the plain version")
+    err = float((got - plain).abs().max())
+    del plain, got
+    inverse = torch.empty(N, dtype=torch.int64, device="cuda")
+    inverse[order] = torch.repeat_interleave(torch.arange(U, device="cuda"), counts)
+    acc = torch.zeros((U, D), dtype=torch.float32, device="cuda")
+    gradf = grad.float()
+    library_ms = timed_ms(lambda: acc.index_add_(0, inverse, gradf), reps=reps)
+    # bytes: each item's gradient row and its position read once, the run
+    # offsets once, each distinct row's f32 gradient written once; ops: one
+    # add an element
+    moved = N * D * grad.element_size() + N * 8 + (U + 1) * 8 + U * D * 4
+    bound_ms, bound_by = bound(moved, N * D)
+    longest = int(counts.max())
+    log(f"[recsys-train] embedding_bag_bwd at dlrm-mlperf train_batch ({N} bags of one, D={D}, "
+        f"bf16 grad_out, {U} distinct rows, the longest run {longest} items): kernel_ms="
+        f"{ms:.4f} (runs grouped beforehand), with its stable sort {with_sort_ms:.4f} ms, "
+        f"plain_ms={plain_ms:.4f} (once), library_ms={library_ms:.4f} (index_add_ into a "
+        f"zeroed [U, D] f32), bound_ms={bound_ms:.4f} ({bound_by}, {moved / 1e9:.4f} GB) "
+        f"share_of_bound={bound_ms / ms:.4f}; bit for bit with the plain version")
+    return dict(ms=ms, with_sort_ms=with_sort_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, distinct_rows=U, longest_run=longest,
+                max_abs_err=err)
+
+
+def train_gathers(arch, cfg, inputs):
+    """{table parameter: the ids int32 its one read a forward hands to
+    ``embedding_bag`` (bags of one) or ``take_rows``}, as the forward makes
+    them: DIN's target and history in one gather, the −1 padding kept."""
+    from repro_torch.models.recsys import _flat_ids
+    if arch == "din":
+        target, hist, ctx = inputs
+        off = torch.arange(cfg.n_context, device="cuda", dtype=torch.int32) * cfg.context_vocab
+        return {"item_table": torch.cat([target[:, None], hist], dim=1),
+                "ctx_table": ctx + off[None, :]}
+    flat = _flat_ids(cfg.embedding, inputs[-1])
+    return {"table": flat, **({"linear_w": flat} if arch == "xdeepfm" else {})}
+
+
+def touched_rows(arch, cfg, inputs):
+    """{table parameter: the distinct rows the batch reads}; −1 is padding."""
+    return {k: torch.unique(ids[ids >= 0]).long()
+            for k, ids in train_gathers(arch, cfg, inputs).items()}
+
+
+def bwd_at_gathers(arch, cfg, params, inputs, g):
+    """The row-gradient kernel against its plain version at each table's own
+    gather of the step (the flat ids as bags of one, padding kept, a random
+    grad_out in the table's dtype and width): bit for bit, two launches equal.
+    Returns max |kernel − plain| over the tables."""
+    err = 0.0
+    for k, ids in train_gathers(arch, cfg, inputs).items():
+        flat = ids.reshape(-1, 1).to(torch.int32).contiguous()
+        p = params[k]
+        D = p.shape[1] if p.dim() == 2 else 1
+        grad = torch.randn((flat.shape[0], D), generator=g, device="cuda").to(p.dtype)
+        pad = int((flat < 0).sum())
+        rows, counts = torch.unique(flat[flat >= 0], return_counts=True)
+        t0 = time.perf_counter()
+        e = bwd_check(grad, flat, None, "sum", f"{arch} {k} at the step's gather")
+        log(f"[recsys-train] {arch}: embedding_bag_bwd at {k}'s own gather ({flat.shape[0]} ids, "
+            f"{pad} of them −1 padding, {rows.numel()} distinct rows, the longest run {int(counts.max())}, "
+            f"D={D}, {p.dtype} grad_out): 0 mismatches against the plain version, bit for bit "
+            f"(max |diff| {e}), two launches equal ({time.perf_counter() - t0:.2f} s)")
+        err = max(err, e)
+        del grad
+    return err
+
+
+def einsum_path_line(B):
+    """How torch.einsum contracts xdeepfm's CIN layer (h = 200) at batch B."""
+    from repro_torch.configs import recsys_archs as ra
+    F, D, h = ra.XDEEPFM.embedding.n_fields, ra.XDEEPFM.embedding.dim, ra.XDEEPFM.cin_layers[1]
+    if not torch.backends.opt_einsum.is_available():
+        return "opt_einsum absent: torch contracts left to right, the bid,bjd outer product first"
+    import opt_einsum
+    _, info = opt_einsum.contract_path("bid,bjd,hij->bhd", (B, h, D), (B, F, D), (h, h, F),
+                                       shapes=True)
+    return (f"opt_einsum ({torch.backends.opt_einsum.strategy}) path {info.path}, largest "
+            f"intermediate {info.largest_intermediate:.4g} elements "
+            f"({info.largest_intermediate * 4 / 2**30:.2f} GiB f32)")
+
+
+def train_arch(arch, params=None):
+    """One arch's train_batch cell at full width through ``cell.fn``: the
+    counted steps on one fixed batch (dlrm-mlperf 10, the others 5), the
+    batch halved until the first step fits the card (printed), then two
+    steps from one state (bit for bit in the touched rows, the dense
+    parameters and their moments), a sample of untouched rows (unchanged),
+    and one profiled step."""
+    from repro_torch.configs import recsys_archs as ra
+    from repro_torch.kernels.embedding_bag import ops
+    R = RECSYS_TRAIN
+    cell = ra.specs()[arch].cell("train_batch")
+    cfg = {"dlrm-mlperf": ra.DLRM, "xdeepfm": ra.XDEEPFM, "din": ra.DIN,
+           "autoint": ra.AUTOINT}[arch]
+    steps = R["dlrm_steps"] if arch == "dlrm-mlperf" else R["steps"]
+    g = torch.Generator(device="cuda").manual_seed(R["seed"] + 2)
+    t0 = time.perf_counter()
+    params, state, labels, *inputs = cell.make_args(g, "cuda", params=params)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    B = full = labels.shape[0]
+    floor = R["cut_floor"].get(arch, full)
+    sample, restore = {}, {}
+    for k, rows in touched_rows(arch, cfg, inputs).items():   # rows the batch does not read
+        if floor < full:     # a step that runs out of memory may have updated some rows
+            restore[k] = (rows, params[k].index_select(0, rows))
+        V = params[k].shape[0]
+        pick = torch.randint(0, V, (R["untouched"],), generator=g, device="cuda")
+        hit = torch.zeros(V, dtype=torch.bool, device="cuda")
+        hit[rows] = True
+        pick = pick[~hit[pick]]
+        sample[k] = (pick, params[k][pick].clone())
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path: counts from 0, `steps` train steps ----
+    ops.launches = ops.bwd_launches = 0
+    losses, times, cut = [], [], []
+    while True:
+        batch = (labels[:B], *(x[:B] for x in inputs))
+        oom = None
+        try:
+            t0 = time.perf_counter()
+            params, state, loss = cell.fn(params, state, *batch)
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError as exc:     # the stated cut: halve the batch
+            oom = str(exc).splitlines()[0][:160]
+        if B // 2 < floor:
+            raise AssertionError(f"{arch} train: out of memory at B={B} ({oom}); it may be cut "
+                                 f"to {floor} at the least")
+        for k, (rows, saved) in restore.items():
+            params[k].index_copy_(0, rows, saved)
+        cut.append((B, oom))
+        B //= 2
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.launches = ops.bwd_launches = 0
+    times.append(time.perf_counter() - t0)
+    losses.append(float(loss))
+    for _ in range(steps - 1):
+        t0 = time.perf_counter()
+        params, state, loss = cell.fn(params, state, *batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    launches, bwd_launches = ops.launches, ops.bwd_launches
+    # ---- end of the main path ----
+
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del restore
+    for b, msg in cut:
+        log(f"[recsys-train] {arch}: batch {b} does not fit the card ({msg}); cut to {b // 2} "
+            f"(the least allowed {floor})")
+    med = float(np.median(times[1:]))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch} train: the loss did not fall: {losses}")
+    if peak >= 80:
+        raise AssertionError(f"{arch} train: peak {peak:.2f} GiB")
+    per_step = {"dlrm-mlperf": (1, 1), "xdeepfm": (1, 2), "din": (0, 2), "autoint": (1, 1)}[arch]
+    if (launches, bwd_launches) != (per_step[0] * steps, per_step[1] * steps):
+        raise AssertionError(f"{arch} train: embedding_bag launched {launches} times and "
+                             f"embedding_bag_bwd {bwd_launches}, expected "
+                             f"{per_step[0] * steps} and {per_step[1] * steps}")
+    flops = {"dlrm-mlperf": ra._dlrm_flops, "xdeepfm": ra._xdeepfm_flops,
+             "din": ra._din_flops, "autoint": ra._autoint_flops}[arch](B, True)
+    log(f"[recsys-train] {arch} train_batch at full width, B={B}"
+        + (f" (cut from {full})" if B != full else "")
+        + f": {steps} steps on one batch, median step {med * 1e3:.4f} ms (host clock + "
+        f"synchronize; first step {times[0] * 1e3:.4f} ms), {B / med:.1f} samples/s, "
+        f"{flops / med / 1e12:.4f} TFLOP/s of model FLOPs; peak {peak:.2f} GiB "
+        f"(max_memory_allocated over the steps); set-up {setup_s:.2f} s; losses "
+        f"{[round(x, 6) for x in losses]}; launches embedding_bag={launches} "
+        f"embedding_bag_bwd={bwd_launches}")
+
+    # two steps from one state: the tables change only in their touched rows
+    # (restored before each), the dense parameters and the state come back as
+    # new tensors
+    touched = touched_rows(arch, cfg, batch[1:])
+    saved = {k: params[k].index_select(0, rows) for k, rows in touched.items()}
+    after = []
+    for _ in range(2):
+        for k, rows in touched.items():
+            params[k].index_copy_(0, rows, saved[k])
+        new, new_state, _ = cell.fn(dict(params), state, *batch)
+        after.append(({k: new[k].index_select(0, rows) for k, rows in touched.items()},
+                      {k: v for k, v in new.items() if k not in touched}, new_state))
+    (ta, da, sa), (tb, db, sb) = after
+    for k in ta:
+        if not same_bits(ta[k], tb[k]):
+            raise AssertionError(f"{arch} train: two steps from one state differ in {k}'s rows")
+    for k in da:
+        if not (same_bits(da[k], db[k]) and same_bits(sa["m"][k], sb["m"][k])
+                and same_bits(sa["v"][k], sb["v"][k])):
+            raise AssertionError(f"{arch} train: two steps from one state differ in {k}")
+    for k, (pick, before) in sample.items():
+        if not same_bits(new[k][pick], before):
+            raise AssertionError(f"{arch} train: an untouched row of {k} changed")
+    log(f"[recsys-train] {arch}: two steps from one state equal bit for bit in "
+        f"{sum(r.numel() for r in touched.values())} touched rows of {sorted(touched)} and "
+        f"{len(da)} dense parameters and their AdamW moments; "
+        f"{sum(p.numel() for p, _ in sample.values())} sampled untouched rows unchanged bit for "
+        f"bit after {steps + 2} steps")
+    device_breakdown(f"recsys-train {arch} step (B={B})",
+                     lambda: cell.fn(new, new_state, *batch))
+    del after, ta, da, sa, tb, db, sb, saved
+    bwd_err = bwd_at_gathers(arch, cfg, new, batch[1:], g)
+    return dict(batch=B, cut_from=full if B != full else None, steps=steps,
+                step_ms=med * 1e3, samples_per_s=B / med, peak_gib=peak, losses=losses,
+                launches=launches, bwd_launches=bwd_launches, bwd_max_abs_err=bwd_err)
+
+
+def recsys_train_phase(dlrm_params):
+    """The recsys train_batch cell at full width on the card: the
+    row-gradient kernel at ~100 random shapes and at dlrm-mlperf's train
+    gather (bit for bit, timed), then ``cell.fn`` of all four archs:
+    dlrm-mlperf on recsys_phase's 187,767,552 × 128 bf16 table (not drawn
+    again), 10 steps; xdeepfm, din and autoint 5 steps each. Returns the
+    kernel's numbers and each arch's report."""
+    from repro_torch.configs import recsys_archs as ra
+    from repro_torch.models.recsys import _flat_ids
+    cases_err = bwd_kernel_cases()
+    cell = ra.specs()["dlrm-mlperf"].cell("train_batch")
+    g = torch.Generator(device="cuda").manual_seed(RECSYS_TRAIN["seed"] + 2)
+    ids = cell.make_args(g, "cuda", params=dlrm_params)[-1]   # train_arch's own batch
+    bwd = bwd_full_width(_flat_ids(ra.DLRM.embedding, ids))
+    del ids
+    log(f"[recsys-train] xdeepfm's CIN at B=65536: {einsum_path_line(65536)}")
+    runs = {"dlrm-mlperf": train_arch("dlrm-mlperf", dlrm_params)}
+    del dlrm_params
+    for arch in ("xdeepfm", "din", "autoint"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[arch] = train_arch(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bwd["max_abs_err"] = max(cases_err, bwd["max_abs_err"],
+                             *(r.pop("bwd_max_abs_err") for r in runs.values()))
+    return bwd, runs
 
 
 def recsys_small_phase():
@@ -4322,9 +4674,13 @@ def main():
                    for k in ("alias_build", "mh_resample")}
     gc.collect()                       # the LDA phases' tensors go before the 48 GB table
     torch.cuda.empty_cache()
-    bag_launches, bag_full_err, bag = recsys_phase()
-    recsys_small_phase()
+    recsys = list(recsys_phase())
+    bag_launches, bag_full_err, bag = recsys[:3]
     mark("recsys")
+    bwd, train = recsys_train_phase(recsys.pop())    # its only reference to the 48 GB table
+    mark("recsys_train")
+    recsys_small_phase()
+    mark("recsys small")
     gc.collect()                       # the recsys table goes before the serving models
     torch.cuda.empty_cache()
     serve_build, capacity = serve_engine_phase()
@@ -4355,9 +4711,19 @@ def main():
         dict(name="embedding_bag", route="cuda", source="src/repro_torch/csrc/embedding_bag.cu",
              replaces="src/repro/kernels/embedding_bag/kernel.py:81", launches=bag_launches,
              launches_by_path=dict(recsys=bag_launches,
+                                   **{f"recsys_train_{a}": r["launches"]
+                                      for a, r in train.items()},
                                    **{p: n["embedding_bag"] for p, n in quality.items()}),
              max_abs_err=max(bag_small_err, bag_full_err), multi_hot=bag["multi_hot"],
-             **bag["lookup"])]}))
+             **bag["lookup"]),
+        dict(name="embedding_bag_bwd", route="cuda",
+             source="src/repro_torch/csrc/embedding_bag_bwd.cu",
+             replaces="none: port-only, JAX's table gradient is XLA's scatter-add "
+                      "(src/repro/configs/base.py:449)",
+             launches=train["dlrm-mlperf"]["bwd_launches"],
+             launches_by_path={f"recsys_train_{a}": r["bwd_launches"]
+                               for a, r in train.items()},
+             **bwd)]}))
     log(f"card: {card_line()}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,7 @@ from repro_torch import resolve_device
 from repro_torch.core.lda import LDAState
 from repro_torch.core.rtlda import RTLDAModel
 from repro_torch.core.sparse import AliasTables
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.optim.l1_loglinear import CTRState
 
 
@@ -65,3 +66,21 @@ def recsys_params_from_numpy(params, device, table_dtype=torch.float32) -> dict:
     dev = resolve_device(device)
     return {k: _t(v, np.float32, dev).to(table_dtype if k.endswith("table") else torch.float32)
             for k, v in params.items()}
+
+
+def adamw_state_from_numpy(state, device):
+    """An AdamW state (e.g. the JAX package's ``AdamWState`` or its dict form
+    ``{"step", "m", "v"}``, as numpy) in the same form: step int32 0-d, m and
+    v dicts (nested dicts too) of f32 tensors."""
+    dev = resolve_device(device)
+
+    def tree(x):
+        if isinstance(x, dict):
+            return {k: tree(v) for k, v in x.items()}
+        return _t(x, np.float32, dev)
+
+    as_dict = isinstance(state, dict)
+    step, m, v = (state["step"], state["m"], state["v"]) if as_dict else state
+    out = AdamWState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=dev),
+                     m=tree(m), v=tree(v))
+    return out._asdict() if as_dict else out

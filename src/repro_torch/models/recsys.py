@@ -12,6 +12,13 @@ to f32; here every such meeting casts explicitly.
 ``lookup_sharded`` is the row-sharded lookup across ranks: each rank holds a
 contiguous row slice of the table, gathers the ids that land in it and one
 ``all_reduce`` over the ``"model"`` group reassembles the rows.
+
+Training (``repro_torch.configs.base.build_recsys_cell``): every table-like
+parameter (``table``, xdeepfm's ``linear_w``, din's ``item_table`` and
+``ctx_table``) is read through ``bag_ops.embedding_bag`` or
+``bag_ops.take_rows``, once a forward, so its gradient is one coalesced
+sparse tensor of the touched rows from the row-gradient kernel
+(``embedding_bag_bwd``), and ``sgd_rows_`` updates those rows in place.
 """
 from __future__ import annotations
 
@@ -195,7 +202,7 @@ def xdeepfm_forward(cfg: XDeepFMConfig, params, sparse_ids, table_lookup=lookup)
     x0 = table_lookup(params["table"], spec, sparse_ids).to(F32)        # [B, F, D]
     # linear (first-order) term over raw feature ids
     flat = _flat_ids(spec, sparse_ids)
-    linear = params["linear_w"][flat.long()].sum(dim=1)
+    linear = bag_ops.take_rows(params["linear_w"], flat).sum(dim=1)
     # CIN
     xl = x0
     pools = []
@@ -240,10 +247,13 @@ class DINConfig:
 
 def din_forward(cfg: DINConfig, params, target_id, hist_ids, ctx_ids):
     """target_id [B], hist_ids [B, S] (-1 pad), ctx_ids [B, n_context]."""
-    item = params["item_table"]
-    e_t = item.index_select(0, target_id.long())                        # [B, D]
     valid = hist_ids >= 0
-    e_h = item[hist_ids.clamp_min(0).long()]                            # [B, S, D]
+    # the target and the history in one gather, so item_table has one
+    # gradient; the padding (-1) reads row 0, as JAX's clamp, and is masked
+    # below, so it adds nothing to row 0's gradient (take_rows skips it)
+    items = torch.cat([target_id[:, None], hist_ids], dim=1)
+    rows = bag_ops.take_rows(params["item_table"], items)              # [B, 1 + S, D]
+    e_t, e_h = rows[:, 0], rows[:, 1:]                                  # [B, D], [B, S, D]
     et_b = e_t[:, None, :].expand(e_h.shape)
     # the difference and product round in the table's dtype, as in JAX
     a_in = torch.cat([et_b, e_h, et_b - e_h, et_b * e_h], dim=-1).to(F32)
@@ -251,8 +261,9 @@ def din_forward(cfg: DINConfig, params, target_id, hist_ids, ctx_ids):
              act=torch.sigmoid)[..., 0]                                 # [B, S]
     a = torch.where(valid, a, torch.zeros((), dtype=a.dtype, device=a.device))
     user = torch.einsum("bs,bsd->bd", a, e_h.to(F32))                   # DIN: no softmax
-    ctx_off = torch.arange(cfg.n_context, device=ctx_ids.device) * cfg.context_vocab
-    ctx = params["ctx_table"][(ctx_ids.long() + ctx_off[None, :])]
+    ctx_off = torch.arange(cfg.n_context, dtype=torch.int32,
+                           device=ctx_ids.device) * cfg.context_vocab
+    ctx = bag_ops.take_rows(params["ctx_table"], ctx_ids + ctx_off[None, :])
     x = torch.cat([user, e_t.to(F32), ctx.reshape(ctx_ids.shape[0], -1).to(F32)], dim=1)
     return _mlp(params, "mlp/", x, len(cfg.mlp) + 1)[:, 0]
 
@@ -334,8 +345,24 @@ def retrieval_scores(user_vec: torch.Tensor, cand_table: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Shared loss / init
+# Shared loss / init / table update
 # ---------------------------------------------------------------------------
+
+def sgd_rows_(param: torch.Tensor, grad: torch.Tensor, lr: float) -> None:
+    """p ← p − lr·g on the rows of the sparse ``grad`` only, in place, in
+    ``param``'s dtype: the product lr·g rounds to that dtype, then the
+    difference, as JAX's ``tab_p - lr * tab_g`` rounds in bf16 (its weakly
+    typed lr is a value of the table's dtype). Equal to the dense update:
+    an untouched row has g = 0 and p − lr·0 = p. ``grad``'s rows must be
+    distinct (a coalesced tensor, as the row-gradient kernel returns), so
+    each row is written once."""
+    if not (grad.is_sparse and grad.is_coalesced()):
+        raise TypeError("sgd_rows_ takes the coalesced sparse gradient of the row-gradient path")
+    rows = grad.indices()[0]
+    lr_t = torch.tensor(lr, dtype=param.dtype, device=param.device)
+    new = param.index_select(0, rows) - grad.values().to(param.dtype) * lr_t
+    param.index_copy_(0, rows, new)
+
 
 def bce_loss(logits, labels):
     return torch.mean(

@@ -183,7 +183,8 @@ def test_full_width_configs_equal_jax(jax_side, name):
         assert t.embedding.offsets.dtype == j.embedding.offsets.dtype
     flops = f"_{name.lower()}_flops"
     for batch in (512, 65_536, 262_144):
-        assert getattr(tra, flops)(batch) == getattr(jra, flops)(batch, False)
+        for train in (False, True):
+            assert getattr(tra, flops)(batch, train) == getattr(jra, flops)(batch, train)
 
 
 def test_small_configs_and_shapes_equal_jax(jax_side):
