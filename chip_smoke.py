@@ -2395,6 +2395,63 @@ def bwd_kernel_cases():
     return err
 
 
+def bwd_long_cases():
+    """The row-gradient kernel where runs reach its long-run path (more than
+    ``LONG_RUN`` items): runs of LONG_RUN − 1, LONG_RUN and LONG_RUN + 1
+    items at D = 1, 10, 18, 100 and 128 (widths that leave a partial column
+    slice), "all equal" runs of 20,000 and 40,000 items, runs of ~5,000
+    with weights and mean, gradients one element off their alignment, and
+    4,200 long runs (more than the plan sorts in shared memory). Each case
+    also holds the plan's kernels (``bwd_plan_cuda``) to their plain
+    versions (``bwd_tiles``, ``long_runs``)."""
+    from repro_torch.kernels.embedding_bag.kernel import (
+        LONG_RUN, TILE_ITEMS, bwd_plan_cuda, bwd_tiles, long_runs)
+    from repro_torch.kernels.embedding_bag.ref import row_runs
+    g = torch.Generator(device="cuda").manual_seed(RECSYS_TRAIN["seed"] + 3)
+    L, err = LONG_RUN, 0.0
+    edges = [0] * (L - 1) + [1] * L + [2] * (L + 1)
+    cases = [(f"runs of L-1, L, L+1 (+ 300 short ids), D={D} {dt}", D, dt, edges, 1, 300,
+              "sum", False, 0)
+             for D, dt in ((1, torch.float32), (10, torch.bfloat16), (18, torch.bfloat16),
+                           (100, torch.float32), (128, torch.bfloat16))]
+    cases += [("20,000 equal ids, D=128 bf16", 128, torch.bfloat16, [0] * 20_000, 1, 0,
+               "sum", False, 0),
+              ("40,000 equal ids, D=18 f32, weights and mean", 18, torch.float32,
+               [0] * 40_000, 1, 0, "mean", True, 0),
+              ("3,000 bags of 5 from 3 rows, D=128 bf16, weights and mean", 128,
+               torch.bfloat16, "3 rows", 5, 0, "mean", True, 0),
+              ("3,000 bags of 5 from 3 rows, D=100 bf16, unaligned, weights", 100,
+               torch.bfloat16, "3 rows", 5, 0, "sum", True, 1),
+              ("runs of L-1, L, L+1, D=10 f32, unaligned, mean", 10, torch.float32, edges, 1, 50,
+               "mean", False, 1),
+              ("4,200 runs of L+4, D=1 f32", 1, torch.float32,
+               [u for u in range(4_200) for _ in range(L + 4)], 1, 0, "sum", False, 0)]
+    for label, D, dt, runs, F, extra, combiner, weighted, offset in cases:
+        if runs == "3 rows":
+            ids = torch.randint(0, 3, (3_000, F), generator=g, device="cuda", dtype=torch.int32)
+        else:
+            flat = torch.tensor(runs, dtype=torch.int32, device="cuda")
+            flat = torch.cat([flat, torch.randint(10, 100_000, (extra,), generator=g,
+                                                  device="cuda", dtype=torch.int32)])
+            ids = flat[torch.randperm(flat.numel(), generator=g, device="cuda")][:, None]
+        B = ids.shape[0]
+        grad = torch.randn((B * D + offset,), generator=g, device="cuda").to(dt)[offset:].view(B, D)
+        w = torch.rand((B, F), generator=g, device="cuda") * 1.9 + 0.1 if weighted else None
+        err = max(err, bwd_check(grad, ids.contiguous(), w, combiner, f"long-run case {label}"))
+        _, _, starts = row_runs(ids)
+        tiles, by_len = bwd_plan_cuda(starts, B * F)
+        if not (torch.equal(tiles, bwd_tiles(starts, B * F, TILE_ITEMS))
+                and torch.equal(by_len, long_runs(starts, B * F, L))):
+            raise AssertionError(f"embedding_bag_bwd plan, {label}: the plan's kernels differ "
+                                 f"from their plain versions")
+    log(f"[recsys-train] embedding_bag_bwd kernel vs plain where runs are long (more than "
+        f"{L} items): {len(cases)} cases (runs of L-1/L/L+1 at D 1, 10, 18, 100, 128; 20,000 "
+        f"and 40,000 equal ids; ~5,000-item runs with weights and mean; unaligned gradients; "
+        f"4,200 long runs): 0 mismatches, bit for bit (max |diff| {err}), two launches equal; "
+        f"the plan's kernels equal their plain versions in each")
+    return err
+
+
 def bwd_full_width(ids):
     """The kernel at dlrm-mlperf's train_batch: the step's 65,536 × 26 ids as
     bags of one (``lookup``'s backward) into the 187,767,552 × 128 bf16
@@ -2403,7 +2460,8 @@ def bwd_full_width(ids):
     plain version once, and ``index_add_`` into a zeroed [U, D] f32 (a
     yardstick, never on the path)."""
     from repro_torch.kernels.embedding_bag.kernel import (
-        embedding_bag_bwd_cuda, embedding_bag_bwd_runs_cuda)
+        LONG_RUN, TILE_ITEMS, bwd_plan_cuda, bwd_tiles, embedding_bag_bwd_cuda,
+        embedding_bag_bwd_runs_cuda, long_runs)
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_padded_bwd_ref, row_runs
     one = ids.reshape(-1, 1).contiguous()
     N, D = one.shape[0], 128
@@ -2412,6 +2470,12 @@ def bwd_full_width(ids):
     order, rows, starts = row_runs(one)
     U = rows.numel()
     counts = starts[1:] - starts[:-1]
+    tiles, by_len = bwd_plan_cuda(starts, N)
+    if not (torch.equal(tiles, bwd_tiles(starts, N, TILE_ITEMS))
+            and torch.equal(by_len, long_runs(starts, N, LONG_RUN))):
+        raise AssertionError("embedding_bag_bwd plan at the full-width train gather: the plan's "
+                             "kernels differ from their plain versions")
+    n_long = int((counts > LONG_RUN).sum())
     reps = RECSYS_TRAIN["reps"]
     ms = timed_ms(lambda: embedding_bag_bwd_runs_cuda(grad, order, starts, 1), reps=reps)
     with_sort_ms = timed_ms(lambda: embedding_bag_bwd_cuda(grad, one, None, "sum"), reps=reps)
@@ -2435,14 +2499,15 @@ def bwd_full_width(ids):
     bound_ms, bound_by = bound(moved, N * D)
     longest = int(counts.max())
     log(f"[recsys-train] embedding_bag_bwd at dlrm-mlperf train_batch ({N} bags of one, D={D}, "
-        f"bf16 grad_out, {U} distinct rows, the longest run {longest} items): kernel_ms="
+        f"bf16 grad_out, {U} distinct rows, the longest run {longest} items, {n_long} runs "
+        f"longer than {LONG_RUN}; the plan's kernels equal their plain versions): kernel_ms="
         f"{ms:.4f} (runs grouped beforehand), with its stable sort {with_sort_ms:.4f} ms, "
         f"plain_ms={plain_ms:.4f} (once), library_ms={library_ms:.4f} (index_add_ into a "
         f"zeroed [U, D] f32), bound_ms={bound_ms:.4f} ({bound_by}, {moved / 1e9:.4f} GB) "
         f"share_of_bound={bound_ms / ms:.4f}; bit for bit with the plain version")
     return dict(ms=ms, with_sort_ms=with_sort_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by, distinct_rows=U, longest_run=longest,
-                max_abs_err=err)
+                long_runs=n_long, max_abs_err=err)
 
 
 def train_gathers(arch, cfg, inputs):
@@ -2468,25 +2533,49 @@ def touched_rows(arch, cfg, inputs):
 def bwd_at_gathers(arch, cfg, params, inputs, g):
     """The row-gradient kernel against its plain version at each table's own
     gather of the step (the flat ids as bags of one, padding kept, a random
-    grad_out in the table's dtype and width): bit for bit, two launches equal.
-    Returns max |kernel − plain| over the tables."""
-    err = 0.0
+    grad_out in the table's dtype and width): bit for bit, two launches equal;
+    then timed by CUDA events (the runs grouped beforehand, as
+    ``bwd_full_width``) beside ``index_add_`` into a zeroed f32 (a
+    yardstick; padding into a row of its own) and the bytes bound. Returns
+    (max |kernel − plain| over the tables, {table: its numbers})."""
+    from repro_torch.kernels.embedding_bag.kernel import LONG_RUN, embedding_bag_bwd_runs_cuda
+    from repro_torch.kernels.embedding_bag.ref import row_runs
+    err, numbers = 0.0, {}
     for k, ids in train_gathers(arch, cfg, inputs).items():
         flat = ids.reshape(-1, 1).to(torch.int32).contiguous()
         p = params[k]
         D = p.shape[1] if p.dim() == 2 else 1
         grad = torch.randn((flat.shape[0], D), generator=g, device="cuda").to(p.dtype)
         pad = int((flat < 0).sum())
-        rows, counts = torch.unique(flat[flat >= 0], return_counts=True)
         t0 = time.perf_counter()
         e = bwd_check(grad, flat, None, "sum", f"{arch} {k} at the step's gather")
-        log(f"[recsys-train] {arch}: embedding_bag_bwd at {k}'s own gather ({flat.shape[0]} ids, "
-            f"{pad} of them −1 padding, {rows.numel()} distinct rows, the longest run {int(counts.max())}, "
-            f"D={D}, {p.dtype} grad_out): 0 mismatches against the plain version, bit for bit "
-            f"(max |diff| {e}), two launches equal ({time.perf_counter() - t0:.2f} s)")
+        check_s = time.perf_counter() - t0
+        order, rows, starts = row_runs(flat)
+        U, N = rows.numel(), flat.shape[0]
+        counts = starts[1:] - starts[:-1]
+        longest, n_long = int(counts.max()), int((counts > LONG_RUN).sum())
+        reps = RECSYS_TRAIN["reps"]
+        ms = timed_ms(lambda: embedding_bag_bwd_runs_cuda(grad, order, starts, 1), reps=reps)
+        inverse = torch.full((N,), U, dtype=torch.int64, device="cuda")
+        inverse[order[pad:]] = torch.repeat_interleave(torch.arange(U, device="cuda"), counts)
+        acc = torch.zeros((U + 1, D), dtype=torch.float32, device="cuda")
+        gradf = grad.float()
+        library_ms = timed_ms(lambda: acc.index_add_(0, inverse, gradf), reps=reps)
+        moved = (N - pad) * (D * grad.element_size() + 8) + (U + 1) * 8 + U * D * 4
+        bound_ms, bound_by = bound(moved, (N - pad) * D)
+        log(f"[recsys-train] {arch}: embedding_bag_bwd at {k}'s own gather ({N} ids, "
+            f"{pad} of them −1 padding, {U} distinct rows, the longest run {longest}, {n_long} "
+            f"runs longer than {LONG_RUN}, D={D}, {p.dtype} grad_out): 0 mismatches against "
+            f"the plain version, bit for bit (max |diff| {e}), two launches equal "
+            f"({check_s:.2f} s); kernel_ms={ms:.4f} (runs grouped beforehand), "
+            f"library_ms={library_ms:.4f} (index_add_ into a zeroed f32), bound_ms="
+            f"{bound_ms:.4f} ({bound_by}) share_of_bound={bound_ms / ms:.4f}")
+        numbers[k] = dict(ids=N, padding=pad, distinct_rows=U, longest_run=longest,
+                          long_runs=n_long, D=D, ms=ms, library_ms=library_ms,
+                          bound_ms=bound_ms)
         err = max(err, e)
-        del grad
-    return err
+        del grad, gradf, acc, inverse, order, starts
+    return err, numbers
 
 
 def einsum_path_line(B):
@@ -2630,22 +2719,24 @@ def train_arch(arch, params=None):
     device_breakdown(f"recsys-train {arch} step (B={B})",
                      lambda: cell.fn(new, new_state, *batch))
     del after, ta, da, sa, tb, db, sb, saved
-    bwd_err = bwd_at_gathers(arch, cfg, new, batch[1:], g)
+    bwd_err, bwd_gathers = bwd_at_gathers(arch, cfg, new, batch[1:], g)
     return dict(batch=B, cut_from=full if B != full else None, steps=steps,
                 step_ms=med * 1e3, samples_per_s=B / med, peak_gib=peak, losses=losses,
-                launches=launches, bwd_launches=bwd_launches, bwd_max_abs_err=bwd_err)
+                launches=launches, bwd_launches=bwd_launches, bwd_max_abs_err=bwd_err,
+                bwd_gathers=bwd_gathers)
 
 
 def recsys_train_phase(dlrm_params):
     """The recsys train_batch cell at full width on the card: the
-    row-gradient kernel at ~100 random shapes and at dlrm-mlperf's train
-    gather (bit for bit, timed), then ``cell.fn`` of all four archs:
+    row-gradient kernel at ~100 random shapes, at 11 shapes of long runs and
+    at dlrm-mlperf's train gather (bit for bit, timed), then ``cell.fn`` of
+    all four archs (each table's own gather checked and timed):
     dlrm-mlperf on recsys_phase's 187,767,552 × 128 bf16 table (not drawn
     again), 10 steps; xdeepfm, din and autoint 5 steps each. Returns the
     kernel's numbers and each arch's report."""
     from repro_torch.configs import recsys_archs as ra
     from repro_torch.models.recsys import _flat_ids
-    cases_err = bwd_kernel_cases()
+    cases_err = max(bwd_kernel_cases(), bwd_long_cases())
     cell = ra.specs()["dlrm-mlperf"].cell("train_batch")
     g = torch.Generator(device="cuda").manual_seed(RECSYS_TRAIN["seed"] + 2)
     ids = cell.make_args(g, "cuda", params=dlrm_params)[-1]   # train_arch's own batch
@@ -2662,6 +2753,8 @@ def recsys_train_phase(dlrm_params):
     torch.cuda.empty_cache()
     bwd["max_abs_err"] = max(cases_err, bwd["max_abs_err"],
                              *(r.pop("bwd_max_abs_err") for r in runs.values()))
+    bwd["at_gathers"] = {f"{a} {k}": n for a, r in runs.items()
+                         for k, n in r.pop("bwd_gathers").items()}
     return bwd, runs
 
 

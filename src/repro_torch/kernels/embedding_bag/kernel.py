@@ -5,8 +5,11 @@
 The forward replaces the TPU kernel
 ``repro.kernels.embedding_bag.kernel.embedding_bag_pallas``; the gradient
 replaces no TPU kernel (JAX takes ``jnp.take``'s transpose, an XLA
-scatter-add). Each library is built at its first launch
-(``repro_torch.kernels.load``).
+scatter-add). The gradient is one launch of its library: a plan (the
+short-run tiles; the runs longer than ``LONG_RUN`` items, longest first),
+a short-run and a long-run kernel; ``bwd_tiles`` and ``long_runs`` are the
+plan's plain versions, ``bwd_vec`` and ``bwd_copy`` its load widths. Each
+library is built at its first launch (``repro_torch.kernels.load``).
 """
 from __future__ import annotations
 
@@ -101,24 +104,123 @@ def embedding_bag_cuda(table, ids, weights=None, combiner: str = "sum") -> torch
     return out
 
 
+LONG_RUN = 256           # runs of more items go to the long-run kernel
+LONG_COLS = 32           # kLongCols: columns of a long run's slice, one a lane
+TILE_ITEMS = 64          # items of `order` whose runs a warp of the short-run kernel takes
+
+
+def _widest(D: int, elem_size: int, ptr: int) -> int:
+    """The most bytes, up to 16, that divide a row of D elements and the
+    address ``ptr`` (at least one element)."""
+    n = 16
+    while n > elem_size and ((D * elem_size) % n or ptr % n):
+        n //= 2
+    return n
+
+
 def bwd_vec(D: int, elem_size: int, ptr: int) -> int:
-    """Elements a lane of the gradient kernel loads at once: the most, up to
-    16 bytes, that divide a row of D elements and the address ``ptr``."""
-    vec = 16 // elem_size
-    while vec > 1 and (D % vec or ptr % (vec * elem_size)):
+    """Elements a lane of the short-run kernel loads at once: the fewest,
+    among the widths of up to 4 elements and 16 bytes that divide a row of D
+    elements and the address ``ptr``, that let 32 lanes cover the row (D =
+    128 bf16: 4, so every lane is live); the widest if none does."""
+    vec = min(4, _widest(D, elem_size, ptr) // elem_size)
+    while vec > 1 and 32 * (vec // 2) >= D:
         vec //= 2
     return vec
 
 
-def _bwd_launcher():
+def bwd_copy(D: int, elem_size: int, ptr: int) -> int:
+    """Bytes a copy of the long-run kernel moves into shared memory: the most,
+    up to 16, that divide a row of D elements and the address ``ptr``. A
+    slice starts at a multiple of ``LONG_COLS`` columns, so it divides every
+    slice's offset and length too."""
+    return _widest(D, elem_size, ptr)
+
+
+def bwd_tiles(starts, N: int, tile_items: int):
+    """The short-run kernel's tiles, as the plan's ``tiles_kernel`` makes
+    them (its plain version) → [⌈N / tile_items⌉ + 1] int64: tile t takes the
+    runs (starts [U + 1] int64, into an ``order`` of N items) whose first
+    item lies in the stretch [t, t + 1) · tile_items of the items in runs,
+    tiles[t] ≤ u < tiles[t + 1]: every run in one tile, each tile's runs
+    consecutive, and a tile's items at most tile_items plus its last run's."""
+    n_tiles = max(1, -(-N // tile_items))
+    edges = torch.arange(0, (n_tiles + 1) * tile_items, tile_items, device=starts.device)
+    return torch.searchsorted(starts[:-1], starts[:1] + edges)
+
+
+def long_runs(starts, N: int, long_run: int):
+    """The long-run kernel's work, as the plan's ``select_long_kernel`` and
+    ``sort_long_kernel`` make it (their plain version) → by_len [M] int64:
+    the runs of more than ``long_run`` items, longest first (stable:
+    ascending run within a length), then −1s, where M = min(U, N //
+    (long_run + 1)) is the most there can be. Run by_len[i // slices] at the
+    columns (i % slices) · LONG_COLS up to ``LONG_COLS`` more is the kernel's
+    work item i, slices = ⌈D / LONG_COLS⌉."""
+    U = starts.numel() - 1
+    M = min(U, N // (long_run + 1))
+    counts = starts[1:] - starts[:-1]
+    found = torch.nonzero_static(counts > long_run, size=M, fill_value=-1)[:, 0]
+    key = torch.where(found >= 0, counts[found], -1)
+    return found[torch.argsort(key, descending=True, stable=True)]
+
+
+_long_streams = {}
+
+
+def _long_stream(dev):
+    """The second stream of ``dev`` the long runs' plan and kernel run on,
+    of a higher priority than the default so that their blocks are placed
+    first."""
+    s = _long_streams.get(dev.index)
+    if s is None:
+        s = _long_streams[dev.index] = torch.cuda.Stream(dev, priority=-1)
+    return s
+
+
+def typed_entry_points(lib):
+    """The gradient library ``lib``'s three entry points, typed: (launch,
+    plan, scratch)."""
+    p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    launch = lib.embedding_bag_bwd_launch
+    launch.argtypes = [p] * 4 + [q, q] + [i] * 6 + [q, q, p, p, p, p]
+    plan = lib.embedding_bag_bwd_plan_launch
+    plan.argtypes = [p, q, q, q, q, p, p]
+    launch.restype = plan.restype = i
+    scratch = lib.embedding_bag_bwd_scratch
+    scratch.argtypes = [q, q, q, q, p]
+    scratch.restype = q
+    return launch, plan, scratch
+
+
+def _bwd_lib():
     global _bwd_fn
     if _bwd_fn is None:
-        fn = kernels_mod.load("embedding_bag_bwd").embedding_bag_bwd_launch
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, ctypes.c_longlong] + [ctypes.c_int] * 6 + [p, p]
-        fn.restype = ctypes.c_int
-        _bwd_fn = fn
+        _bwd_fn = typed_entry_points(kernels_mod.load("embedding_bag_bwd"))
     return _bwd_fn
+
+
+def _scratch(starts, N: int):
+    """(scratch int64 on the runs' device, M, n_tiles) of a call."""
+    layout = (ctypes.c_longlong * 4)()
+    n = _bwd_lib()[2](starts.numel() - 1, N, TILE_ITEMS, LONG_RUN, layout)
+    return torch.empty(n, dtype=torch.int64, device=starts.device), layout[0], layout[1]
+
+
+def bwd_plan_cuda(starts, N: int):
+    """The plan's kernels alone on the current stream, for checking them
+    against ``bwd_tiles`` and ``long_runs`` (at ``TILE_ITEMS`` and
+    ``LONG_RUN``) → (tiles, by_len)."""
+    if starts.device.type != "cuda":
+        raise ValueError(f"bwd_plan_cuda needs CUDA tensors, got {starts.device}")
+    U = starts.numel() - 1
+    scratch, M, n_tiles = _scratch(starts, N)
+    with torch.cuda.device(starts.device):
+        err = _bwd_lib()[1](starts.data_ptr(), U, N, TILE_ITEMS, LONG_RUN, scratch.data_ptr(),
+                            torch.cuda.current_stream(starts.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"embedding_bag_bwd plan launch failed: CUDA error {err}")
+    return scratch[M:M + n_tiles + 1], scratch[:M]
 
 
 def embedding_bag_bwd_cuda(grad_out, ids, weights=None, combiner: str = "sum"):
@@ -142,7 +244,11 @@ def embedding_bag_bwd_cuda(grad_out, ids, weights=None, combiner: str = "sum"):
 def embedding_bag_bwd_runs_cuda(grad_out, order, starts, F: int, weights=None,
                                 combiner: str = "sum"):
     """The kernel alone, on runs already grouped by ``ref.row_runs`` (order
-    [N] int64, starts [U + 1] int64, N = B·F) → row_grad [U, D] f32."""
+    [N] int64, starts [U + 1] int64, N = B·F) → row_grad [U, D] f32. One
+    launch of the library: the tiles and the short-run kernel on the current
+    stream; where a run can be long, the long runs' plan and kernel on a
+    second stream (``_long_stream``) that waits for the current one, which
+    then waits for it in turn."""
     dev = grad_out.device
     if dev.type != "cuda":
         raise ValueError(f"embedding_bag_bwd_cuda needs CUDA tensors, got {dev}")
@@ -155,22 +261,24 @@ def embedding_bag_bwd_runs_cuda(grad_out, order, starts, F: int, weights=None,
     B, D = grad_out.shape
     if not 0 < D < 2 ** 31 or not 0 <= F < 2 ** 31:
         raise ValueError(f"D={D} or F={F} out of range")
-    U = starts.numel() - 1
+    U, N = starts.numel() - 1, B * F
     check_arg("grad_out", grad_out, grad_out.dtype, (B, D), dev)
-    check_arg("order", order, torch.int64, (B * F,), dev)
+    check_arg("order", order, torch.int64, (N,), dev)
     check_arg("starts", starts, torch.int64, (U + 1,), dev)
     if weights is not None:
         check_arg("weights", weights, torch.float32, (B, F), dev)
     out = torch.empty((U, D), dtype=torch.float32, device=dev)
-    vec = bwd_vec(D, grad_out.element_size(), grad_out.data_ptr())
-    blocks = max(1, min(-(-U // WARPS_PER_BLOCK), 2 ** 31 - 1))
+    if U == 0:
+        return out
+    elem, ptr = grad_out.element_size(), grad_out.data_ptr()
+    scratch, _, _ = _scratch(starts, N)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _bwd_launcher()(
-            grad_out.data_ptr(), order.data_ptr(), starts.data_ptr(),
-            None if weights is None else weights.data_ptr(), U, F, D,
-            int(combiner == "mean"), _DTYPES[grad_out.dtype], vec, blocks, out.data_ptr(),
-            stream)
+        err = _bwd_lib()[0](
+            ptr, order.data_ptr(), starts.data_ptr(),
+            None if weights is None else weights.data_ptr(), U, N, F, D,
+            int(combiner == "mean"), _DTYPES[grad_out.dtype], bwd_vec(D, elem, ptr),
+            bwd_copy(D, elem, ptr), TILE_ITEMS, LONG_RUN, scratch.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream, _long_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"embedding_bag_bwd kernel launch failed: CUDA error {err}")
     return out

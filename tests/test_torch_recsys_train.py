@@ -566,18 +566,30 @@ def test_layouts_of_more_ranks_are_refused():
 def test_cuda_bwd_kernel_matches_plain_bitwise(D, dtype):
     """The CUDA row-gradient kernel against the plain version on the card,
     bit for bit, over F, repetition, padding ids (−1), weights and
-    combiners; two launches give the same bits."""
+    combiners; two launches give the same bits. The last cases reach the
+    long-run kernel: runs of LONG_RUN − 1, LONG_RUN and LONG_RUN + 1 items,
+    one run of 4,000, runs of ~1,000 from a few rows, and a gradient one
+    element off its alignment."""
+    from repro_torch.kernels.embedding_bag.kernel import LONG_RUN
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     g = torch.Generator(device="cuda").manual_seed(D)
     tdt = getattr(torch, dtype)
-    for F, dup in ((1, 0), (3, 2), (26, 0), (40, 1), (7, 50), (5, -1)):
-        Bb = 300
-        ids = torch.randint(0, dup if dup > 0 else 100_000, (Bb, F), generator=g,
-                            device="cuda", dtype=torch.int32)
-        if dup < 0:                                      # padding: a third of the ids −1
+    edges = torch.tensor([0] * (LONG_RUN - 1) + [1] * LONG_RUN + [2] * (LONG_RUN + 1),
+                         dtype=torch.int32, device="cuda")
+    for F, dup, Bb, offset in ((1, 0, 300, 0), (3, 2, 300, 0), (26, 0, 300, 0),
+                               (40, 1, 300, 0), (7, 50, 300, 0), (5, -1, 300, 0),
+                               (1, "edges", edges.numel(), 0), (1, 1, 4_000, 0),
+                               (4, 8, 2_000, 0), (3, 5, 2_000, 1)):
+        if dup == "edges":
+            ids = edges[torch.randperm(Bb, generator=g, device="cuda")][:, None].contiguous()
+        else:
+            ids = torch.randint(0, dup if dup > 0 else 100_000, (Bb, F), generator=g,
+                                device="cuda", dtype=torch.int32)
+        if dup == -1:                                    # padding: a third of the ids −1
             ids[torch.rand((Bb, F), generator=g, device="cuda") < 1 / 3] = -1
-        grad = torch.randn((Bb, D), generator=g, device="cuda").to(tdt)
+        flat = torch.randn((Bb * D + offset,), generator=g, device="cuda").to(tdt)
+        grad = flat[offset:].view(Bb, D)                 # offset 1: off its alignment
         w = torch.rand((Bb, F), generator=g, device="cuda") + 0.1
         w[::4, -1] = 0.0
         for combiner in ("sum", "mean"):
