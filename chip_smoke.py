@@ -116,8 +116,19 @@ timed beside its bound and ``index_add_``; dlrm-mlperf 10 steps and xdeepfm,
 din, autoint 5 steps each on one fixed batch (a batch that does not fit the
 card is halved, and the cut printed): step ms, samples/s, peak GiB, a
 falling loss, two steps from one state bit for bit, untouched rows
-unchanged, a profiled step. A small loop holds the four small recsys
-configs on the card against the CPU.
+unchanged, a profiled step. Then the dry run ([dryrun]): ``python -m
+repro_torch.launch.dryrun --all --both-meshes --json`` in a subprocess (the
+parent has freed its table by then): every cell of every arch at the 16×16
+and 2×16×16 meshes, each recsys cell's one-rank step on this card (ms,
+live bytes, counted flops and bytes, roofline share); dlrm-mlperf's four
+cells, every serve_p99 and din's and autoint's train_batch must be ok, any
+other cell ok or out of memory; peacock-lda's three cells recorded, not run
+(84 GB of arguments at one rank); the LM and GNN ids skipped; dlrm's step
+within 0.5–2× of the train phase's; the shard table's P = 1 row not
+fitting 80 GB and its P = 2 row fitting. Then the five example twins
+([examples], ``examples/*_torch.py``, in parallel on the card): each must
+exit 0 after its own assertions and launch its path's kernels. A small loop
+holds the four small recsys configs on the card against the CPU.
 
 Then RT-LDA serving at K = 100,000, V = 32,768: ``launch.serve``'s own model
 (quick_train's first ``gibbs_argmax`` launch held against the plain
@@ -2787,6 +2798,165 @@ def recsys_small_phase():
         f"{worst:.3g}); {ops.launches - before} kernel lookups on the card")
 
 
+# ------------------------------------------------------------ dry run phase
+# python -m repro_torch.launch.dryrun over every cell at both production
+# meshes, each cell's one-rank step on this card; the cells earlier phases
+# ran must be ok, the rest ok or out of memory (xdeepfm's CIN at its batches)
+DRYRUN = dict(budget_s=90, timeout_s=600,
+              must_ok=[("dlrm-mlperf", s) for s in ("train_batch", "serve_p99", "serve_bulk",
+                                                    "retrieval_cand")]
+              + [(a, "serve_p99") for a in ("xdeepfm", "din", "autoint")]
+              + [("din", "train_batch"), ("autoint", "train_batch")],
+              step_ratio=(0.5, 2.0))
+
+
+def src_env():
+    return dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src") + os.pathsep
+                + os.environ.get("PYTHONPATH", ""))
+
+
+def dryrun_phase(dlrm_step_ms):
+    """``python -m repro_torch.launch.dryrun --all --both-meshes --json``, then
+    ``--shard-table --json``, in subprocesses (the parent holds no table by
+    now). Holds the records to their contract, prints each one-rank step's
+    ms, live GiB, roofline share and bottleneck, and returns the
+    ``embedding_bag`` and ``embedding_bag_bwd`` launches of those steps."""
+    from repro_torch.configs import NOT_PORTED
+
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    proc = subprocess.run(cmd + ["--all", "--both-meshes", "--json"], capture_output=True,
+                          text=True, timeout=DRYRUN["timeout_s"], env=src_env(), cwd=ROOT)
+    if proc.returncode:
+        raise AssertionError(f"launch.dryrun --all failed (rc={proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    recs = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with open(os.path.join(ROOT, "build", "chip_smoke_dryrun.jsonl"), "w") as f:
+        f.write("\n".join(json.dumps(r) for r in recs) + "\n")
+    one = {}
+    for r in recs:
+        key = (r["arch"], r["shape"])
+        if r["arch"] in NOT_PORTED:
+            if r["status"] != "skip":
+                raise AssertionError(f"{key}: a not-ported id must be skipped, got {r}")
+            continue
+        if r["status"] != "ok":
+            raise AssertionError(f"{key} [{r['mesh']}]: {r['status']}: {r.get('error')}")
+        one[key] = r["one_rank"]
+        if r["arch"] == "peacock-lda" and r["one_rank"].get("fits_80gb_hbm") is not False:
+            raise AssertionError(f"{key}: one rank's arguments must not fit 80 GB")
+    meshes = {(r["arch"], r["shape"], r["mesh"]) for r in recs}
+    for shape in ("train_segment", "train_segment_opt", "serve_rt"):
+        for m in ("16x16", "2x16x16"):
+            if ("peacock-lda", shape, m) not in meshes:
+                raise AssertionError(f"peacock-lda/{shape} has no record at {m}")
+    launches = {"embedding_bag": 0, "embedding_bag_bwd": 0}
+    for key, o in sorted(one.items()):
+        if key[0] == "peacock-lda":
+            log(f"[dryrun] {key[0]}/{key[1]}: not run at one rank ({o['reason']}); "
+                f"arguments {o['arguments_bytes'] / 1e9:.2f} GB")
+            continue
+        oom = o["status"] == "fail" and "OutOfMemoryError" in o.get("error", "")
+        if o["status"] != "ok" and (key in DRYRUN["must_ok"] or not oom):
+            raise AssertionError(f"{key}: one-rank step {o['status']}: {o.get('error')}")
+        if oom:
+            log(f"[dryrun] {key[0]}/{key[1]}: one rank runs out of memory "
+                f"(arguments {o['arguments_bytes'] / 1e9:.2f} GB): {o['error'][:160]}")
+            continue
+        if o["live_bytes_per_device"] < o["arguments_bytes"]:
+            raise AssertionError(f"{key}: live bytes {o['live_bytes_per_device']} below its "
+                                 f"arguments' {o['arguments_bytes']}")
+        for k in launches:
+            launches[k] += o["launches"][k]
+        kern = ", ".join(f"{k} {v['calls']:.0f}x {v['bytes'] / 1e6:.1f} MB"
+                         for k, v in o["cost"]["kernels"].items())
+        log(f"[dryrun] {key[0]}/{key[1]}: one-rank step {o['step_ms']:.4f} ms, live "
+            f"{o['live_bytes_per_device'] / 2**30:.2f} GiB (arguments "
+            f"{o['arguments_bytes'] / 2**30:.2f} GiB), counted {o['cost']['flops'] / 1e9:.3f} "
+            f"GFLOP, {o['cost']['bytes'] / 1e9:.3f} GB in and out of its ops, "
+            f"{o['cost']['moved_bytes'] / 1e9:.3f} GB moved ({kern or 'no kernel'}), useful "
+            f"flops ratio {o['useful_flops_ratio'] or 0:.4f}, roofline share "
+            f"{o['roofline_share']:.4f} ({o['bottleneck']}) on {o['card']}")
+    ratio = one[("dlrm-mlperf", "train_batch")]["step_ms"] / dlrm_step_ms
+    lo, hi = DRYRUN["step_ratio"]
+    log(f"[dryrun] dlrm-mlperf/train_batch: {ratio:.3f}x recsys_train_phase's step "
+        f"({dlrm_step_ms:.4f} ms)")
+    if not lo <= ratio <= hi:
+        raise AssertionError(f"dlrm-mlperf's one-rank step is {ratio:.3f}x the train phase's")
+    if not launches["embedding_bag"] or not launches["embedding_bag_bwd"]:
+        raise AssertionError(f"the one-rank steps launched no kernel: {launches}")
+    table = subprocess.run(cmd + ["--shard-table", "--json"], capture_output=True, text=True,
+                           timeout=120, env=src_env(), cwd=ROOT, check=True)
+    rows = json.loads(table.stdout)["shard_table"]["rows"]
+    for r in rows:
+        log(f"[dryrun] shard table P={r['model_shards']:.0f}: "
+            f"{r['hbm_bytes_per_device'] / 1e9:.1f} GB a card, fits 80 GB: {r['fits_80gb_hbm']}")
+    if rows[0]["fits_80gb_hbm"] or not rows[1]["fits_80gb_hbm"]:
+        raise AssertionError("the shard table must not fit P = 1 and must fit P = 2")
+    spent = time.perf_counter() - t0
+    log(f"[dryrun] {len(recs)} records, {len(one)} cells; {spent:.1f} s (budget "
+        f"{DRYRUN['budget_s']} s{'' if spent <= DRYRUN['budget_s'] else ', OVER'})")
+    return launches
+
+
+# ------------------------------------------------------------ examples phase
+# the torch twins of the examples, each its own process on this card, all at
+# once; each must exit 0 and launch its path's kernels
+EXAMPLES = dict(budget_s=60, timeout_s=600,
+                kernels={"serve_topics": ("gibbs_argmax",), "live_refresh": ("gibbs_argmax",),
+                         "out_of_core": ("gibbs_argmax",), "fleet_demo": ("gibbs_argmax",),
+                         "big_model": ("alias_build", "mh_resample")})
+
+
+def examples_phase():
+    """Run ``examples/<name>_torch.py`` of each twin on the card, in parallel;
+    returns each one's kernel launches (its ``[launches]`` line)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    procs = {}
+    for name in EXAMPLES["kernels"]:
+        path = os.path.join(ROOT, "examples", f"{name}_torch.py")
+        sink = tempfile.TemporaryFile(mode="w+")
+        procs[name] = (sink, subprocess.Popen([sys.executable, path], stdout=sink,
+                                              stderr=subprocess.STDOUT, text=True,
+                                              env=src_env(), cwd=ROOT))
+    secs = {}
+    while len(secs) < len(procs):           # each one's own seconds
+        for name, (_, proc) in procs.items():
+            if name not in secs and proc.poll() is not None:
+                secs[name] = time.perf_counter() - t0
+        if time.perf_counter() - t0 > EXAMPLES["timeout_s"]:
+            for name, (_, proc) in procs.items():
+                if name not in secs:
+                    proc.kill()
+                    proc.wait()
+                    secs[name] = time.perf_counter() - t0
+        time.sleep(0.05)
+    out, failed = {}, []
+    for name, (sink, proc) in procs.items():
+        sink.seek(0)
+        text = sink.read()
+        sink.close()
+        lines = [ln for ln in text.splitlines() if ln.startswith("[launches] ")]
+        if proc.returncode or not lines:
+            failed.append(f"{name}_torch.py rc={proc.returncode}:\n{text[-2500:]}")
+            continue
+        out[name] = json.loads(lines[-1][len("[launches] "):])
+        missing = [k for k in EXAMPLES["kernels"][name] if not out[name][k]]
+        if missing:
+            failed.append(f"{name}_torch.py launched no {missing}: {out[name]}")
+        log(f"[examples] {name}_torch.py: exit 0 in {secs[name]:.1f} s; launches "
+            + ", ".join(f"{k} {v}" for k, v in out[name].items() if v))
+    if failed:
+        raise AssertionError("\n".join(failed))
+    spent = time.perf_counter() - t0
+    log(f"[examples] 5 twins in {spent:.1f} s (budget {EXAMPLES['budget_s']} s"
+        f"{'' if spent <= EXAMPLES['budget_s'] else ', OVER'})")
+    return out
+
+
 # ------------------------------------------------------------ serving phases
 # RT-LDA serving through the port's engine and fleet at peacock-lda's width
 # (FULL's K and V): the model is launch.serve's own (quick_train: the dense
@@ -4772,6 +4942,12 @@ def main():
     mark("recsys")
     bwd, train = recsys_train_phase(recsys.pop())    # its only reference to the 48 GB table
     mark("recsys_train")
+    gc.collect()                       # the dry run's child draws its own 48 GB table
+    torch.cuda.empty_cache()
+    dry_launches = dryrun_phase(train["dlrm-mlperf"]["step_ms"])
+    mark("dryrun")
+    example_launches = examples_phase()
+    mark("examples")
     recsys_small_phase()
     mark("recsys small")
     gc.collect()                       # the recsys table goes before the serving models
@@ -4783,6 +4959,10 @@ def main():
     mark("serving")
     gibbs_paths.update(launch_serve=serve_launches, serve_engine_build=serve_build,
                        serve_publish_train=serve_publish)
+    for name, counts in example_launches.items():
+        for k, paths in [("gibbs_argmax", gibbs_paths), ("alias_build", alias_paths["alias_build"]),
+                         ("mh_resample", alias_paths["mh_resample"])]:
+            paths[f"example_{name}"] = counts[k]
     for k, paths in [("gibbs_argmax", gibbs_paths), ("alias_build", alias_paths["alias_build"]),
                      ("mh_resample", alias_paths["mh_resample"])]:
         paths.update({p: counts[k] for p, counts in quality.items()})
@@ -4806,6 +4986,7 @@ def main():
              launches_by_path=dict(recsys=bag_launches,
                                    **{f"recsys_train_{a}": r["launches"]
                                       for a, r in train.items()},
+                                   dryrun_one_rank=dry_launches["embedding_bag"],
                                    **{p: n["embedding_bag"] for p, n in quality.items()}),
              max_abs_err=max(bag_small_err, bag_full_err), multi_hot=bag["multi_hot"],
              **bag["lookup"]),
@@ -4814,8 +4995,9 @@ def main():
              replaces="none: port-only, JAX's table gradient is XLA's scatter-add "
                       "(src/repro/configs/base.py:449)",
              launches=train["dlrm-mlperf"]["bwd_launches"],
-             launches_by_path={f"recsys_train_{a}": r["bwd_launches"]
-                               for a, r in train.items()},
+             launches_by_path={**{f"recsys_train_{a}": r["bwd_launches"]
+                                  for a, r in train.items()},
+                               "dryrun_one_rank": dry_launches["embedding_bag_bwd"]},
              **bwd)]}))
     log(f"card: {card_line()}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

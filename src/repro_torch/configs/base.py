@@ -1,17 +1,25 @@
 """Cell builders: (architecture × input shape × layout) → a runnable step
-(port of the recsys half of ``repro.configs.base``).
+(port of the recsys half of ``repro.configs.base``; the LDA cells are in
+``configs/peacock_lda.py``).
 
 A ``Cell`` holds the step function, a maker of its arguments (real inputs
-and state drawn on a device from a generator, where JAX's cell holds
-``ShapeDtypeStruct`` stand-ins) and the analytic MODEL_FLOPS. It has no
-``lower``: PyTorch runs eagerly.
+and state drawn on a device from a generator, or empty ``meta`` tensors of
+the same shapes, where JAX's cell holds ``ShapeDtypeStruct`` stand-ins), the
+layout spec of each argument (JAX's in_shardings, in the port's tuple idiom
+of ``dist/sharding.py``) and the analytic MODEL_FLOPS. It has no ``lower``:
+PyTorch runs eagerly. The dry run (``launch/dryrun.py``) cuts the global
+arguments to one rank's bytes with the specs.
 
 Step functions by shape kind:
   train_*      → recsys train step: fwd + bwd, SGD on the table rows a batch
                  touches, AdamW on the dense parameters
   serve_*      → recsys batch forward; retrieval_cand → streamed top-k scoring
+  (LDA)        → one rank's ring Gibbs epoch / RT-LDA serving batch
 
-The LM, GNN and LDA halves are not ported yet (ROADMAP items 13c–e).
+A recsys cell of more than one rank is built (its specs and formulas are
+what the dry run records) but its step raises: the row-sharded recsys step
+across ranks is not ported (ROADMAP item 13b, "Open from it"). The LM and
+GNN halves are not ported (ROADMAP items 13e, 13d).
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.dist import sharding as shd
 from repro_torch.models import recsys as rec_mod
 from repro_torch.optim.adamw import AdamW
 
@@ -30,10 +39,11 @@ from repro_torch.optim.adamw import AdamW
 class Cell:
     arch: str
     shape: str
-    step_kind: str                 # train | serve | retrieval
+    step_kind: str                 # train | serve | retrieval | lda_train | lda_serve
     fn: Callable
     make_args: Callable[..., Tuple[Any, ...]]
-                                   # (generator, device, params=None) → fn's args
+                                   # (generator, device, params=None) → fn's
+                                   # global args (device "meta": empty stand-ins)
     model_flops: float             # analytic useful FLOPs per step
     model_coll_bytes: float = 0.0  # analytic GLOBAL collective traffic per step of
                                    # JAX's sharded step (the same formula); one
@@ -41,12 +51,19 @@ class Cell:
     donate: Tuple[int, ...] = ()   # args the step updates in place or consumes
     note: str = ""
     extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
+                                   # analytic side-channel merged into the
+                                   # dry-run record (e.g. sampler_traffic)
+    arg_specs: Tuple[Any, ...] = ()
+                                   # per arg: a layout spec, or a dict of them
+                                   # for a dict arg (JAX's in_shardings)
+    arg_roles: Tuple[str, ...] = ()
+                                   # per arg: the role its bytes count under
 
 
 @dataclasses.dataclass
 class ArchSpec:
     arch_id: str
-    family: str                    # recsys (lm | gnn | lda: ROADMAP 13c–e)
+    family: str                    # recsys | lda (lm | gnn: ROADMAP 13e, 13d)
     shapes: Dict[str, Dict[str, Any]]
     build: Callable[[str, Any], Optional[Cell]]   # (shape, layout)
     skip: Dict[str, str] = dataclasses.field(default_factory=dict)  # shape → reason
@@ -96,22 +113,44 @@ def _params(cfg, generator, dev) -> Dict[str, torch.Tensor]:
     return rec_mod.init_params(cfg, generator, dev, torch.bfloat16)
 
 
-def _check_layout(layout) -> None:
-    if layout is not None and layout.world_size != 1:
+def one_rank_only(fn: Callable, layout, what: str) -> Callable:
+    """``fn`` itself at one rank; across ranks a step that raises when called,
+    saying that ``what`` is not ported (the cell is still built: the dry run
+    records its specs and formulas)."""
+    if layout is None or layout.world_size == 1:
+        return fn
+
+    def refused(*args, **kwargs):
         raise NotImplementedError(
-            f"recsys cells across {layout.world_size} ranks are not ported yet "
-            "(ROADMAP item 13c); pass a RankLayout of one rank or None")
+            f"{what} across {layout.world_size} ranks is not ported; build the cell "
+            "with a RankLayout of one rank or None")
+    return refused
+
+
+_SHARDED_RECSYS = ("the recsys {} step with its tables row-sharded over 'model' (ROADMAP "
+                   "item 13b, 'Open from it')")
+
+
+def _input_specs(inputs, bspec) -> tuple:
+    """JAX's input shardings: [B] arrays over the data-parallel axes, [B, ...]
+    arrays as ``bspec``."""
+    return tuple((bspec[0],) if x.dim() == 1 else bspec for x in inputs)
 
 
 def build_recsys_cell(cfg, forward_fn, input_maker, flops_fn,
                       shape_name: str, layout=None) -> Cell:
     """Generic builder; ``input_maker(batch, generator, device)`` → the model
-    inputs after params. ``layout``: a ``RankLayout`` of one rank, or None."""
-    _check_layout(layout)
+    inputs after params. ``layout``: a ``RankLayout`` (None: one rank); the
+    arguments are global, ``arg_specs`` split them over the layout's mesh."""
     info = RECSYS_SHAPES[shape_name]
     B = info["batch"]
     shapes = cfg.param_shapes()
     emb_dim = cfg.embedding.dim if hasattr(cfg, "embedding") else cfg.embed_dim
+    multi_pod = layout is not None and layout.pods > 1
+    pspecs = shd.recsys_param_specs(shapes)
+    bspec = shd.recsys_batch_spec(multi_pod)
+    probe = input_maker(1, None, "meta") if input_maker is not None else ()
+    n_inputs, input_specs = len(probe), _input_specs(probe, bspec)
 
     if info["kind"] == "retrieval":
         N = info["n_candidates"]
@@ -127,8 +166,12 @@ def build_recsys_cell(cfg, forward_fn, input_maker, flops_fn,
             return (torch.randn((B, emb_dim), generator=generator, device=dev),
                     torch.randn((N, emb_dim), generator=generator, device=dev))
 
-        return Cell(cfg.name, shape_name, "retrieval", retrieval, make_args,
-                    model_flops=2.0 * B * N * emb_dim)
+        return Cell(cfg.name, shape_name, "retrieval",
+                    one_rank_only(retrieval, layout, _SHARDED_RECSYS.format("retrieval")),
+                    make_args,
+                    model_flops=2.0 * B * N * emb_dim,
+                    arg_specs=((None, None), shd.table_rows_spec()),
+                    arg_roles=("query", "candidates"))
 
     table_bytes = 4.0 * sum(
         float(np.prod(s)) for k, s in shapes.items()
@@ -145,8 +188,11 @@ def build_recsys_cell(cfg, forward_fn, input_maker, flops_fn,
             params = _params(cfg, generator, dev) if params is None else params
             return (params, *input_maker(B, generator, dev))
 
-        return Cell(cfg.name, shape_name, "serve", serve, make_args,
-                    model_flops=flops_fn(B, False), model_coll_bytes=lookup_bytes)
+        return Cell(cfg.name, shape_name, "serve",
+                    one_rank_only(serve, layout, _SHARDED_RECSYS.format("serve")), make_args,
+                    model_flops=flops_fn(B, False), model_coll_bytes=lookup_bytes,
+                    arg_specs=(pspecs, *input_specs),
+                    arg_roles=("params",) + ("inputs",) * n_inputs)
 
     # train: the tables' SGD touches only the rows the batch reads (their
     # sparse gradients from the row-gradient kernel), in place; the dense
@@ -180,9 +226,13 @@ def build_recsys_cell(cfg, forward_fn, input_maker, flops_fn,
             torch.randint(0, 2, (B,), generator=generator, device=dev).to(torch.float32)
         return (params, opt_state, labels, *input_maker(B, generator, dev))
 
-    return Cell(cfg.name, shape_name, "train", train_step, make_args,
+    dense_specs = {k: pspecs[k] for k in sorted(dense_shapes)}
+    opt_specs = {"step": (), "m": dense_specs, "v": dense_specs}
+    return Cell(cfg.name, shape_name, "train",
+                one_rank_only(train_step, layout, _SHARDED_RECSYS.format("train")), make_args,
                 model_flops=flops_fn(B, True), donate=(0, 1),
                 # JAX's formula: lookup psum fwd + dense table-grad reduce over
                 # "data" + dense-param grad all-reduce
                 model_coll_bytes=2 * lookup_bytes + table_bytes,
-                note="tables: sparse row gradients and SGD on the touched rows, in place")
+                arg_specs=(pspecs, opt_specs, (bspec[0],), *input_specs),
+                arg_roles=("params", "opt_state", "labels") + ("inputs",) * n_inputs)

@@ -13,6 +13,11 @@ so gloo only ever sees host tensors; under NCCL tensors stay on the card.
 neither gloo nor NCCL reduces. Here each rank all-gathers the int8 payload
 and sums it locally in int16: the same values under the same 258-shard
 bound, and one byte per element per rank on the wire (a quarter of f32).
+
+Each collective is reported to an active ``dist.analysis.count_cost`` under
+the name of its JAX primitive (``psum``, ``pmax``, ``all_gather``,
+``ppermute``) with its payload bytes, groups of one rank included (JAX's
+jaxpr holds a ``psum`` over an axis of size 1 too).
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import prng
+from repro_torch.dist import analysis
 from repro_torch.dist.sharding import POD_AXIS, RankLayout
 
 _Q_MAX = 127.0          # int8 symmetric range
@@ -49,6 +55,7 @@ def all_reduce_(t: torch.Tensor, layout: RankLayout, name: str, op: str = "sum")
     """In-place ``all_reduce`` of ``t`` over group ``name`` (``op``: sum or
     max); returns ``t``."""
     group, ranks = layout.group(name)
+    analysis.charge_collective({"sum": "psum", "max": "pmax"}[op], analysis.tensor_bytes(t))
     if len(ranks) == 1:
         return t
     rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
@@ -67,6 +74,7 @@ def all_reduce_(t: torch.Tensor, layout: RankLayout, name: str, op: str = "sum")
 def all_gather(t: torch.Tensor, layout: RankLayout, name: str) -> torch.Tensor:
     """[n, *t.shape]: every rank's ``t`` in group order, on ``t``'s device."""
     group, ranks = layout.group(name)
+    analysis.charge_collective("all_gather", analysis.tensor_bytes(t))
     if len(ranks) == 1:
         return t[None].clone()
     src = _host(t) if _via_host(t, layout) else t.contiguous()
@@ -84,6 +92,8 @@ class Shift:
 
     def __init__(self, layout: RankLayout, name: str, tensors: List[torch.Tensor]):
         group, ranks = layout.group(name)
+        for t in tensors:               # one transfer (a JAX ppermute) per tensor
+            analysis.charge_collective("ppermute", analysis.tensor_bytes(t))
         self._device = tensors[0].device
         if len(ranks) == 1:
             self._reqs, self._bufs = [], [t.clone() for t in tensors]

@@ -1,5 +1,5 @@
 """Mesh-axis vocabulary, rank coordinates and layouts of the port's
-process-per-device model (port of the ring/pod part of
+process-per-device model (port of the ring/pod and recsys parts of
 ``repro.dist.sharding``).
 
 The JAX package runs one controller over a ``("pod", "data", "model")``
@@ -170,6 +170,35 @@ def replicated() -> tuple:
     return ()
 
 
+def dp_axes(multi_pod: bool = False):
+    """The data-parallel axis (or axes): batch dims shard over these."""
+    return (POD_AXIS, RING_AXES[0]) if multi_pod else RING_AXES[0]
+
+
+# ------------------------------------------ recsys: row-sharded tables ---
+
+
+def recsys_param_specs(shapes: Any) -> dict:
+    """Embedding tables row-shard over "model" (the Φ vocab-shard story,
+    models/recsys.py); per-row linear terms follow their table; dense MLPs
+    replicate (they are MB-scale)."""
+    def spec(name: str, shape: Any) -> tuple:
+        if name.endswith("table") or name == "linear_w":
+            return ("model", *([None] * (len(shape) - 1)))
+        return ()
+    return {k: spec(k, v) for k, v in shapes.items()}
+
+
+def recsys_batch_spec(multi_pod: bool = False) -> tuple:
+    """[B, F] id/dense batches: batch over the data-parallel axes."""
+    return (dp_axes(multi_pod), None)
+
+
+def table_rows_spec() -> tuple:
+    """[rows, D] candidate/embedding planes: rows over "model"."""
+    return ("model", None)
+
+
 def stack_spec(n_model_shards: int = 1) -> tuple:
     """Layout of the [S, M, cap] token stacks of a single-pod ring: split over
     the flattened ring, or with word sharding (``n_model_shards > 1``) over
@@ -209,6 +238,17 @@ def _block(spec: Sequence, layout: RankLayout, rank: int, shape: Sequence[int]):
             raise ValueError(f"dim {d} of size {shape[d]} does not split into {n} blocks")
         out.append((n, idx))
     return out
+
+
+def block_shape(shape: Sequence[int], spec: Sequence, layout: RankLayout,
+                rank: Optional[int] = None) -> Tuple[int, ...]:
+    """The shape of the block of a global array of ``shape`` that rank
+    ``rank`` (default: the layout's own) holds under ``spec`` (JAX's
+    ``NamedSharding.shard_shape``); raises where a split dim does not divide."""
+    r = layout.rank if rank is None else rank
+    blocks = _block(spec, layout, r, shape)
+    return tuple(int(d) // blocks[i][0] if i < len(blocks) else int(d)
+                 for i, d in enumerate(shape))
 
 
 def local_view(x, spec: Sequence, layout: RankLayout, rank: Optional[int] = None):

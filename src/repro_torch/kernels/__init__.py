@@ -100,3 +100,29 @@ def check_arg(name: str, x: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+# each kernel's launch counter: (kernel, its ops module, the counter's name)
+LAUNCH_COUNTERS = (
+    ("gibbs_argmax", "repro_torch.kernels.gibbs.ops", "launches"),
+    ("alias_build", "repro_torch.kernels.alias.ops", "build_launches"),
+    ("mh_resample", "repro_torch.kernels.alias.ops", "mh_launches"),
+    ("embedding_bag", "repro_torch.kernels.embedding_bag.ops", "launches"),
+    ("embedding_bag_bwd", "repro_torch.kernels.embedding_bag.ops", "bwd_launches"),
+)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel name → the launches its ``ops`` wrapper has counted."""
+    import importlib
+
+    return {name: getattr(importlib.import_module(mod), attr)
+            for name, mod, attr in LAUNCH_COUNTERS}
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch counter to 0."""
+    import importlib
+
+    for _, mod, attr in LAUNCH_COUNTERS:
+        setattr(importlib.import_module(mod), attr, 0)

@@ -13,6 +13,10 @@ sampler-family salt and sums α here, once, for both; on the card it also
 sorts the tokens by word before the launch (same-word probes then share
 cached table rows) and scatters the draws back, which changes no bit: every
 token samples independently against the same snapshot.
+
+Under an active ``dist.analysis.count_cost`` each call is charged the bytes
+its kernel must move (``build_bytes``, ``mh_bytes``), whichever version
+runs.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import prng
+from repro_torch.dist import analysis
 from repro_torch.kernels.alias.kernel import alias_build_cuda, mh_resample_cuda
 from repro_torch.kernels.alias.ref import build_alias_ref, mh_resample_ref
 
@@ -61,6 +66,21 @@ def _prepare(weights: torch.Tensor, scale: Optional[torch.Tensor] = None):
     return wn, order.to(torch.int32), ns
 
 
+def build_bytes(R: int, K: int) -> float:
+    """Bytes the alias build must move: the weights [R, K] and the scale [R]
+    read once, prob and alias [R, K] written once."""
+    return 12.0 * R * K + 4.0 * R
+
+
+def mh_bytes(T: int, n_mh: int) -> float:
+    """Bytes the MH probe moves at the least, from shapes alone: each
+    token's w, d, z (int32) and uid (int64) read and z_new written, and per
+    step about ten 4-byte gathers (φ, ψ, the pair row's entry, α and the
+    proposal tables, for the proposal and the acceptance; the per-token
+    term of ``dist.analysis.sampler_epoch_bytes``)."""
+    return float(T) * (24.0 + 40.0 * n_mh)
+
+
 def build_alias(weights: torch.Tensor, out=None):
     """Batched Walker alias tables over the trailing axis.
 
@@ -72,18 +92,20 @@ def build_alias(weights: torch.Tensor, out=None):
     """
     global build_launches
     lead, K = weights.shape[:-1], weights.shape[-1]
-    flat = weights.reshape(-1, K).to(torch.float32)
-    scale = _scale(flat)
-    flat_out = None if out is None else tuple(o.view(-1, K) for o in out)
-    if flat.device.type == "cpu":
-        prob, alias = build_alias_ref(*_prepare(flat, scale))
-        if flat_out is not None:
-            flat_out[0].copy_(prob)
-            flat_out[1].copy_(alias)
-            prob, alias = flat_out
-    else:
-        prob, alias = alias_build_cuda(flat.contiguous(), scale, out=flat_out)
-        build_launches += 1
+    with analysis.kernel_call("alias_build") as charge:
+        flat = weights.reshape(-1, K).to(torch.float32)
+        scale = _scale(flat)
+        flat_out = None if out is None else tuple(o.view(-1, K) for o in out)
+        if flat.device.type == "cpu":
+            prob, alias = build_alias_ref(*_prepare(flat, scale))
+            if flat_out is not None:
+                flat_out[0].copy_(prob)
+                flat_out[1].copy_(alias)
+                prob, alias = flat_out
+        else:
+            prob, alias = alias_build_cuda(flat.contiguous(), scale, out=flat_out)
+            build_launches += 1
+        charge(build_bytes(flat.shape[0], K))
     return prob.view(*lead, K), alias.view(*lead, K)
 
 
@@ -100,6 +122,15 @@ def mh_resample(phi, psi, doc_topic, doc_count, wq, wp, wa, alpha, ap, aa,
     cycle; ``uid`` is int64 holding uint32 counters, ``beta`` a float or a
     0-dim f32 tensor. ``seed`` is the raw sweep seed — the salt is mixed here.
     """
+    with analysis.kernel_call("mh_resample") as charge:
+        out = _mh_resample(phi, psi, doc_topic, doc_count, wq, wp, wa, alpha, ap, aa,
+                           w, d, z, uid, seed, beta, vocab_size, n_mh)
+        charge(mh_bytes(w.shape[0], n_mh))
+    return out
+
+
+def _mh_resample(phi, psi, doc_topic, doc_count, wq, wp, wa, alpha, ap, aa,
+                 w, d, z, uid, seed: int, beta, vocab_size: int, n_mh: int):
     global mh_launches
     dev = phi.device
     seed2 = mh_seed(seed)

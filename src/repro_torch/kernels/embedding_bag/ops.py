@@ -11,11 +11,15 @@ under a ``torch.autograd.Function`` whose backward is ``embedding_bag_bwd``:
 the gradient of every touched row, summed in one fixed order (no atomics),
 returned as a coalesced sparse COO tensor as ``nn.Embedding(sparse=True)``
 returns it; a dense [V, D] gradient is never formed.
+
+Under an active ``dist.analysis.count_cost`` each call is charged the bytes
+its kernel must move (``bag_bytes``, ``bwd_bytes``), whichever version runs.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import analysis
 from repro_torch.kernels.embedding_bag.kernel import embedding_bag_bwd_cuda, embedding_bag_cuda
 from repro_torch.kernels.embedding_bag.ref import (
     embedding_bag_padded_bwd_ref,
@@ -29,12 +33,31 @@ launches = 0
 bwd_launches = 0
 
 
+def bag_bytes(table, ids, weights) -> float:
+    """Bytes the bag must move, from shapes alone: each item's table row read
+    once (a row that several items share counts once per item), the ids and
+    weights read, out [B, D] written in the table's dtype."""
+    B, F = ids.shape
+    row = table.shape[1] * table.element_size()
+    return float(B * F * (row + 4) + (0 if weights is None else B * F * 4) + B * row)
+
+
+def bwd_bytes(grad_out, ids, weights, rows, row_grad) -> float:
+    """Bytes the row gradient must move: grad_out, ids and weights read once,
+    the touched rows [U] int64 and their gradient [U, D] f32 written once."""
+    ins = (grad_out, ids) + (() if weights is None else (weights,))
+    return sum(analysis.tensor_bytes(t) for t in ins + (rows, row_grad))
+
+
 def _bag(table, ids, weights, combiner):
     global launches
-    if table.device.type == "cpu":
-        return embedding_bag_padded_ref(table, ids, weights, combiner)
-    out = embedding_bag_cuda(table, ids, weights, combiner)
-    launches += 1
+    with analysis.kernel_call("embedding_bag") as charge:
+        if table.device.type == "cpu":
+            out = embedding_bag_padded_ref(table, ids, weights, combiner)
+        else:
+            out = embedding_bag_cuda(table, ids, weights, combiner)
+            launches += 1
+        charge(bag_bytes(table, ids, weights))
     return out
 
 
@@ -45,10 +68,13 @@ def embedding_bag_bwd(grad_out, ids, weights=None, combiner: str = "sum", n_rows
     table's rows, bounds the ids on the CPU only (a check on the card would
     sync the host)."""
     global bwd_launches
-    if grad_out.device.type == "cpu":
-        return embedding_bag_padded_bwd_ref(grad_out, ids, weights, combiner, n_rows)
-    out = embedding_bag_bwd_cuda(grad_out, ids, weights, combiner)
-    bwd_launches += 1
+    with analysis.kernel_call("embedding_bag_bwd") as charge:
+        if grad_out.device.type == "cpu":
+            out = embedding_bag_padded_bwd_ref(grad_out, ids, weights, combiner, n_rows)
+        else:
+            out = embedding_bag_bwd_cuda(grad_out, ids, weights, combiner)
+            bwd_launches += 1
+        charge(bwd_bytes(grad_out, ids, weights, *out))
     return out
 
 

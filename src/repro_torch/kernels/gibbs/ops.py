@@ -6,6 +6,7 @@ is no fallback from one to the other.
 """
 from __future__ import annotations
 
+from repro_torch.dist import analysis
 from repro_torch.kernels.gibbs.kernel import gibbs_argmax_cuda
 from repro_torch.kernels.gibbs.ref import gibbs_argmax_ref
 
@@ -14,13 +15,23 @@ from repro_torch.kernels.gibbs.ref import gibbs_argmax_ref
 launches = 0
 
 
+def kernel_bytes(phi_rows, psi_rows, theta_rows, alpha, token_uid) -> float:
+    """Bytes the scan must move: its inputs read once (φ and θ rows [T, K],
+    ψ [T, K] or [K], α [K], the uids [T]) and z [T] int32 written once."""
+    ins = (phi_rows, psi_rows, theta_rows, alpha, token_uid)
+    return sum(analysis.tensor_bytes(t) for t in ins) + 4.0 * phi_rows.shape[0]
+
+
 def gibbs_argmax(phi_rows, psi_rows, theta_rows, alpha, beta, token_uid, seed,
                  vocab_size: int, temperature: float = 1.0):
     global launches
-    if phi_rows.device.type == "cpu":
-        return gibbs_argmax_ref(phi_rows, psi_rows, theta_rows, alpha, beta,
-                                token_uid, seed, vocab_size, temperature)
-    out = gibbs_argmax_cuda(phi_rows, psi_rows, theta_rows, alpha, beta,
-                            token_uid, seed, vocab_size, temperature)
-    launches += 1
+    with analysis.kernel_call("gibbs_argmax") as charge:
+        if phi_rows.device.type == "cpu":
+            out = gibbs_argmax_ref(phi_rows, psi_rows, theta_rows, alpha, beta,
+                                   token_uid, seed, vocab_size, temperature)
+        else:
+            out = gibbs_argmax_cuda(phi_rows, psi_rows, theta_rows, alpha, beta,
+                                    token_uid, seed, vocab_size, temperature)
+            launches += 1
+        charge(kernel_bytes(phi_rows, psi_rows, theta_rows, alpha, token_uid))
     return out

@@ -21,7 +21,7 @@ mixed-length traffic is all-distinct. Mid-run the model is hot-swapped
 
 The same flags as ``repro.launch.serve``, plus ``--device`` (``cuda`` by default;
 ``cpu`` on request; a missing card raises). ``--preflight`` is refused: the
-static analysis passes are not ported (ROADMAP queue 1, item 13).
+static analysis passes are not ported (ROADMAP queue 1, item 13a).
 
 ``--bench-out`` writes ``repro.launch.serve``'s record plus the device, the card's
 name and power limit (``nvidia-smi``), the peak device memory and what the
@@ -161,7 +161,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.preflight:
         ap.error("--preflight: the static analysis passes are not ported "
-                 "(ROADMAP queue 1, item 13)")
+                 "(ROADMAP queue 1, item 13a)")
 
     import numpy as np
     import torch

@@ -45,7 +45,7 @@ block of every segment, from memory or from a ``--corpus-dir`` (plain or
 Rank 0 prints, checkpoints and publishes; a started world returns each
 rank's :func:`rank_summary`. Refused: a streamed corpus with ``--pods`` > 1
 (as the JAX driver refuses it: segments are single-configuration), and
-``--preflight`` (ROADMAP queue 1, item 13: the static analysis passes have
+``--preflight`` (ROADMAP queue 1, item 13a: the static analysis passes have
 no torch counterpart yet).
 """
 import argparse
@@ -201,7 +201,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.preflight:
         ap.error("--preflight: the static analysis passes are not ported "
-                 "(ROADMAP queue 1, item 13)")
+                 "(ROADMAP queue 1, item 13a)")
     if args.kill_at_segment > 0 and args.kill_at <= 0:
         ap.error("--kill-at-segment requires --kill-at (the epoch to die "
                  "in); without it no KillSwitch is armed and the failure "

@@ -1,6 +1,7 @@
 """Rank bodies and the JAX host-mesh runner shared by the port's multi-rank
 tests (``tests/test_torch_ring.py``, ``test_torch_shard_model.py``,
-``test_torch_pods.py``, ``test_torch_trainer_multipod.py``).
+``test_torch_pods.py``, ``test_torch_trainer_multipod.py``,
+``test_torch_dryrun.py``).
 
 The rank bodies run in processes started by ``repro_torch.launch.mesh.spawn``
 (gloo over CPU processes), so this module imports torch and the port only,
@@ -235,3 +236,25 @@ def lookup_body(layout, table, vocab_sizes, ids, dtype):
     flat = ids_t.long() + torch.from_numpy(spec.offsets).long()[None, :]
     hits = coll.all_reduce_(((flat >= lo) & (flat < hi)).to(torch.int32), layout, "model")
     return out.dtype, out.to(torch.float32).numpy(), hits.numpy()
+
+
+def train_cell_body(layout, scs, cfg, epochs):
+    """``epochs`` epochs of peacock-lda's train cell ``fn`` for ring ``cfg``
+    on this rank, the first under ``count_cost``; returns the rank's
+    (phi, psi, wl, dl, uid, z) views as numpy and the first epoch's
+    collectives (calls and payload bytes by JAX primitive name)."""
+    from repro_torch.configs import peacock_lda
+    from repro_torch.core import distributed as dist
+    from repro_torch.dist import analysis
+
+    cell = peacock_lda.train_cell(cfg, layout)
+    st = dist.rank_arrays(scs, cfg.n_topics, layout, device="cpu")
+    alpha = alpha0(cfg.n_topics)
+    cost = None
+    for ep in range(epochs):
+        args = (*st, alpha, torch.tensor(BETA), ep * 977 + 3)
+        if cost is None:
+            cost, st = analysis.count_cost(cell.fn, *args)
+        else:
+            st = cell.fn(*args)
+    return [x.numpy().copy() for x in st], cost.collectives, cost.collective_bytes
