@@ -10,6 +10,15 @@ drives the port's three LDA paths at the full width of peacock-lda —
 K = 100,000 topics, V = 32,768 words (cut from 210,000 so that Φ and P̂ fit
 one 80 GB card whole):
 
+Right after the kernel phases, the launch gate ([preflight],
+``repro_torch.analysis``): every kernel instantiation as built for this card
+(registers, static and dynamic shared bytes, spills, blocks an SM,
+binaryVersion) held to sm_90's limits with the launch plans of this run's
+largest shapes; then ``launch.train --preflight``, ``launch.serve
+--preflight`` and ``launch.dryrun --verify`` (exit 0) and the train gate on
+a session of 430 GB a rank (exit 1), each launcher's ``main`` called in
+this process.
+
 - the dense path: a 4,096-query segment shard through train (3 Gibbs
   epochs) → α re-estimation → RT-LDA export → 4 served batches of 1,024;
 - the alias-MH path: that shard tiled 40× (163,840 docs, ~747,000 tokens)
@@ -53,8 +62,8 @@ rows of features up to ~3,800 in f32, in other orders);
 ``sampler_guardrail``'s own gate at K = 24 (it must pass). Table 1: the
 analytic model against the paper, and epochs of the dense ring of one device
 on FULL's shard at K = 100,000 in four package lengths. Last, ``run()``'s
-clean corpus at K = 8 and 32: Fig. 7 and 8 on the card equal the CPU port's
-within 1e-4.
+clean corpus at K = 8: Fig. 7 and 8 on the card equal the CPU port's within
+1e-4.
 
 Small phases at quickstart scale run the O(K²V) de-duplication, hold the
 card's whole dense loop and alias loop against the same loops on the CPU,
@@ -98,9 +107,9 @@ card against CPU; and ``lookup_sharded`` over dlrm-mlperf's 187,767,552 ×
 128 bf16 table row-sharded 4 ways (11.2 GiB a rank), the serve_p99 batch and
 one of 16,384, each rank's rows equal to its local gather, every id hit
 once. Then ``launch.train`` starts its own 4 ranks streamed in 3 segments
-([launch.train streamed ranks]): killed at a segment boundary and resumed,
-from memory and from a ``--corpus-dir`` (the latter resume with rank 1's
-first segment read failing), each equal to the uninterrupted run.
+([launch.train streamed ranks]): from a ``--corpus-dir``, killed at a
+segment boundary and resumed with rank 1's first segment read failing,
+equal to the uninterrupted run from memory.
 
 Then the recsys serving path at full width: dlrm-mlperf (the 187,767,552 ×
 128 bf16 embedding table of the MLPerf Criteo-1TB config, nothing cut) with
@@ -1192,7 +1201,7 @@ def ring_form(cfg):
 # 10⁵; Table 1's package sweep on FULL's shard at K = 10⁵
 QUALITY = dict(ks=(1024, 10_000, 100_000), epochs=25, block=8192, n_impr=8000, steps=400,
                pmi_k=1024, cpu_steps=3, guard_tiles=10, guard_ks=(10_000, 100_000),
-               guard_sweeps=25, clean_ks=(8, 32), sweep_most=(2_500, 5_000, 10_000),
+               guard_sweeps=25, clean_ks=(8,), sweep_most=(2_500, 5_000, 10_000),
                sweep_epochs=2)
 
 
@@ -1433,9 +1442,11 @@ def pipeline_sweep(corpus):
 
 def quality_clean_check():
     """``run()``'s clean corpus (3,000 docs, 48 true topics, V = 800):
-    Fig. 7 and Fig. 8 at K = 8 and 32 on the card equal the CPU port's within
-    1e-4 from one z0. Every card draw is held against its plain version; a K
-    row whose training drew on a near-tie may part, and is reported."""
+    Fig. 7 and Fig. 8 at each K of ``QUALITY["clean_ks"]`` (K = 8: the check
+    on its path once, at the width ``run()`` starts from) on the card equal
+    the CPU port's within 1e-4 from one z0. Every card draw is held against
+    its plain version; a K row whose training drew on a near-tie may part,
+    and is reported."""
     from repro_torch.benchmarks import bench_quality as bq
     from repro_torch.data import synthetic
     from repro_torch.kernels.gibbs import ops
@@ -2898,6 +2909,102 @@ def dryrun_phase(dlrm_step_ms):
     log(f"[dryrun] {len(recs)} records, {len(one)} cells; {spent:.1f} s (budget "
         f"{DRYRUN['budget_s']} s{'' if spent <= DRYRUN['budget_s'] else ', OVER'})")
     return launches
+
+
+# ------------------------------------------------------------ preflight phase
+# the launch gate on this card, right after the kernel phases: the built
+# kernels' own registers, shared memory and spills (every instantiation their
+# launches can reach) with the plans at the shapes this run launches; then the
+# three launchers' gates, each launcher's main called in this process (its
+# torch and its built kernels already loaded), one after the other
+PREFLIGHT = dict(budget_s=30,
+                 gates={"launch.train --preflight": ("train", ["--preflight"], 0),
+                        "launch.serve --preflight": ("serve", ["--preflight"], 0),
+                        "launch.dryrun --verify": ("dryrun", ["--verify"], 0),
+                        "launch.train --preflight, 430 GB a rank": (
+                            "train", ["--preflight", "--topics", "100000", "--vocab", "1000000"],
+                            1)})
+
+
+def smoke_plans():
+    """The plans of this run's largest launches: the trainer's and stream
+    cell's packages (10,000 tokens at K = 100,000), the synthetic 32,768 ×
+    100,000 word table in one build, the MH probe's three kernels (pair caps
+    16, 32 and 64), dlrm-mlperf's bulk and serve_p99 bags and its train
+    gather's gradient (bags of one id, 128 bf16 columns)."""
+    from repro_torch.kernels.alias import kernel as ak
+    from repro_torch.kernels.embedding_bag import kernel as ek
+    from repro_torch.kernels.gibbs import kernel as gk
+    K, T = FULL["n_topics"], TRAINER["max_package"]
+    plans = [gk.gibbs_argmax_plan(T, K), ak.alias_build_plan(32_768, K)]
+    plans += [ak.mh_resample_plan(T, K, cap, ALIAS["n_mh"]) for cap in (16, 32, 64)]
+    plans += [ek.bag_plan(128, 1, B, 26, True, 0) for B in (RECSYS["bulk_batch"],
+                                                             RECSYS["p99_batch"])]
+    plans += ek.bwd_plans(1, 128, 1, ek.bwd_vec(128, 2, 0), ek.bwd_copy(128, 2, 0), 0)
+    return plans
+
+
+def preflight_phase():
+    """[preflight]: every kernel instantiation as built for this card
+    (``repro_torch.analysis.smem``: regs, static and dynamic shared bytes,
+    spills, blocks an SM, binaryVersion), held to sm_90's limits, and the
+    plans of this run's largest launches (each instantiation among the
+    built ones, its int arguments within int32)."""
+    from repro_torch.analysis import smem
+    t0 = time.perf_counter()
+    attrs = smem.card_attributes()
+    card = card_line()
+    for a in attrs:
+        log(f"[preflight] {smem.attribute_line(a)}; card {card}")
+    plans = smoke_plans()
+    findings = smem.check_plans(plans) + smem.check_attributes(attrs, plans)
+    bad = [f for f in findings if f.severity == "error"]
+    if bad:
+        raise AssertionError("[preflight] sm_90 limits:\n" + "\n".join(f.message for f in bad))
+    for f in findings:
+        if f.severity == "warning":
+            log(f"[preflight] warning: {f.message}")
+    built = {(a["library"], a["kernel"]): a for a in attrs}
+    for p in plans:
+        a = built[(p.library, p.kernel)]
+        log(f"[preflight] plan {p.kernel}: {a['threads']} threads, {a['dynamic_smem']:,} "
+            f"dynamic shared bytes, {a['blocks_per_sm']} blocks/SM, int arguments "
+            f"{dict(p.int_args)}")
+    if any(a["binary_version"] != 90 for a in attrs):
+        raise AssertionError("[preflight] a kernel is not built for sm_90a")
+    log(f"[preflight] {len(attrs)} kernel instantiations built for sm_90a within its register "
+        f"and shared-memory limits ({sum(a['local_bytes'] > 0 for a in attrs)} spill); "
+        f"{len(plans)} plans of this run's launches fit ({time.perf_counter() - t0:.1f} s)")
+
+
+def preflight_gates():
+    """[preflight] gates: ``launch.train --preflight``, ``launch.serve
+    --preflight`` and ``launch.dryrun --verify`` (exit 0), and the train gate
+    on a 430 GB-a-rank session (exit 1), each ``repro_torch.launch.<name>
+    .main`` called here with its report captured; each gate's seconds and
+    their sum against the budget."""
+    import contextlib
+    import importlib
+    import io
+    t0 = time.perf_counter()
+    for name, (module, argv, want) in PREFLIGHT["gates"].items():
+        main = importlib.import_module(f"repro_torch.launch.{module}").main
+        out, t = io.StringIO(), time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            try:
+                code = main(argv)
+            except SystemExit as exc:
+                code = exc.code
+        text = out.getvalue()
+        passes = [ln.split()[1:4] for ln in text.splitlines() if ln.startswith("[preflight] ")
+                  and ln.split()[1] in ("PASS", "FAIL")]
+        log(f"[preflight] {name}: exit {code} (want {want}) in {time.perf_counter() - t:.1f} s; "
+            "passes " + ", ".join(f"{p[1]} {p[0]} {p[2]}" for p in passes))
+        if code != want:
+            raise AssertionError(f"[preflight] {name} exited {code}, want {want}:\n{text[-4000:]}")
+    spent = time.perf_counter() - t0
+    log(f"[preflight] {len(PREFLIGHT['gates'])} gates in {spent:.1f} s (budget "
+        f"{PREFLIGHT['budget_s']} s{'' if spent <= PREFLIGHT['budget_s'] else ', OVER'})")
 
 
 # ------------------------------------------------------------ examples phase
@@ -4755,11 +4862,11 @@ def stream_launch_ranks_phase():
     """[launch.train streamed ranks]: ``launch.train.main`` starting its own
     4 ranks on the card (``--data-shards 2 --model-shards 2
     --ranks-per-device 4``) on SMALL's geometry in 3 segments, α from epoch
-    2: an uninterrupted run from memory; killed after segment 1 of epoch 2
-    (exit 17) and resumed, from memory; the same from a ``--corpus-dir``,
-    the resume with rank 1's first read of segment 0 failing (retried on
-    rank 1). Each resumed run must equal the uninterrupted one (every rank's
-    views, α and the global z) bit for bit."""
+    2: an uninterrupted run from memory; from a ``--corpus-dir``, killed
+    after segment 1 of epoch 2 (exit 17) and resumed with rank 1's first
+    read of segment 0 failing (retried on rank 1). The resumed run must
+    equal the uninterrupted one (every rank's views, α and the global z) bit
+    for bit."""
     import shutil
     from repro_torch.data import sources
     from repro_torch.launch import mesh, train
@@ -4803,32 +4910,30 @@ def stream_launch_ranks_phase():
         n_data_shards=4, n_vocab_shards=4, n_topics=cfg.n_topics, seed=cfg.shard_seed), d)
     secs = {}
     gold, _, secs["uninterrupted"] = run("gold", *seg)
-    _, code_mem, secs["killed"] = run("mem", *seg, *kill)
-    res, _, secs["resumed"] = run("mem", *seg, "--resume")
     _, code_dir, secs["killed --corpus-dir"] = run("dir", "--corpus-dir", d, *kill)
     t0 = time.perf_counter()
     faulted = mesh.spawn(stream_launch_fault_main, data=2, model=2, device="cuda",
                          ranks_per_device=4, backend="gloo",
                          args=(argv("dir", "--corpus-dir", d, "--resume"),))
     secs["resumed --corpus-dir, fault"] = time.perf_counter() - t0
-    n = dict(uninterrupted=counts(gold), resumed=counts(res), resumed_corpus_dir_fault=counts(faulted))
+    n = dict(uninterrupted=counts(gold), resumed_corpus_dir_fault=counts(faulted))
     n_seg, per = S["segments"], 4 * 4                   # 4 ranks × 4 rounds a segment
     done = (S["kill_at"] - 1) * n_seg + S["kill_at_segment"]
-    want = dict(uninterrupted=S["epochs"] * n_seg * per, resumed=(S["epochs"] * n_seg - done) * per,
+    want = dict(uninterrupted=S["epochs"] * n_seg * per,
                 resumed_corpus_dir_fault=(S["epochs"] * n_seg - done) * per)
-    if (code_mem, code_dir) != (17, 17) or any(n[k]["gibbs_argmax"] != v for k, v in want.items()):
-        raise AssertionError(f"launch.train streamed ranks: kill exits {code_mem} / {code_dir}, "
+    if code_dir != 17 or any(n[k]["gibbs_argmax"] != v for k, v in want.items()):
+        raise AssertionError(f"launch.train streamed ranks: kill exit {code_dir}, "
                              f"launches {n}, want gibbs_argmax {want}")
     if faulted[1].get("injected") != 1:
         raise AssertionError("launch.train streamed ranks: rank 1's fault plane did not fire once")
-    for label, other in (("resumed", res), ("--corpus-dir resumed under a fault", faulted)):
-        same(gold, other, f"launch.train streamed ranks, {label} vs uninterrupted")
+    same(gold, faulted, "launch.train streamed ranks, --corpus-dir resumed under a fault vs "
+                        "uninterrupted from memory")
     log(f"[launch.train streamed ranks] --data-shards 2 --model-shards 2 --ranks-per-device 4, "
-        f"{n_seg} segments, {S['epochs']} epochs, α from epoch 2: killed after segment "
-        f"{S['kill_at_segment']} of epoch {S['kill_at']} (exit 17) and resumed, from memory and "
-        f"from a --corpus-dir (the resume with rank 1's first read of segment 0 failing, retried "
-        f"there): every rank's views, α and the global z equal the uninterrupted run's bit for "
-        f"bit; launches {n}; seconds " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+        f"{n_seg} segments, {S['epochs']} epochs, α from epoch 2: from a --corpus-dir, killed "
+        f"after segment {S['kill_at_segment']} of epoch {S['kill_at']} (exit 17) and resumed "
+        f"with rank 1's first read of segment 0 failing (retried there): every rank's views, α "
+        f"and the global z equal the uninterrupted run's from memory bit for bit; launches {n}; "
+        f"seconds " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
     shutil.rmtree(root, ignore_errors=True)
     return n
 
@@ -4864,6 +4969,9 @@ def main():
     alias_build, mh_small_err = alias_kernel_phase()
     bag_small_err = bag_kernel_phase()
     mark("kernel phases")
+    preflight_phase()
+    preflight_gates()
+    mark("preflight")
     corpus, truth = full_corpus(with_truth=True)
     launches, gibbs_epoch_stats = full_width_phase(corpus)
     alias_launches, mh, cell_build = alias_phase(corpus)

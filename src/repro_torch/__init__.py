@@ -10,13 +10,25 @@ none, unless the caller passes ``device="cpu"``; nothing falls back quietly.
 """
 from __future__ import annotations
 
-import torch
+# torch is imported where it is used, so that the AST-only gates
+# (``python -m repro_torch.analysis.preflight --passes concurrency,lint``) run
+# without it
 
 
-def resolve_device(device="cuda") -> torch.device:
+def has_card() -> bool:
+    """Whether a CUDA card is there: the port's one device probe (the
+    ``repro_torch.analysis`` lint holds every other module to asking here)."""
+    import torch
+
+    return torch.cuda.is_available()
+
+
+def resolve_device(device="cuda") -> "torch.device":   # noqa: F821
     """``torch.device`` for ``device``; raises if it names CUDA and there is none."""
+    import torch
+
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type == "cuda" and not has_card():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev

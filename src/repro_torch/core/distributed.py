@@ -196,6 +196,15 @@ def specs(model_shards: int = 1, pod_axis: bool = False) -> dict:
             "stack": stk_s, "tables": phi_s}
 
 
+def model_gather(planes: torch.Tensor, layout: RankLayout) -> torch.Tensor:
+    """[n, M, capb] stacked bucket views → [n, M, P·capb] whole sub-blocks,
+    bucket-major (model rank j's bucket at [j·capb, (j+1)·capb)): the P = 1
+    layout. One ``all_gather`` over "model" carries every plane; JAX ships
+    the same planes as (P − 1) ``ppermute`` hops each (ROADMAP §3)."""
+    g = coll.all_gather(planes, layout, "model")              # [P, n, M, capb]
+    return g.permute(1, 2, 0, 3).reshape(planes.shape[0], planes.shape[1], -1)
+
+
 def build_epoch_body(cfg: RingConfig, layout: Optional[RankLayout] = None,
                      pod_axis: bool = False):
     """One rank's ring epoch: THE round loop, for one device (``layout=None``)
@@ -215,8 +224,9 @@ def build_epoch_body(cfg: RingConfig, layout: Optional[RankLayout] = None,
     against its resident Φ, ship z after its update. With P > 1 every rank
     samples only its bucket against its slice of rows (words rebased by
     −j·rows/P); Θ needs the whole visiting stack's (doc, z), all-gathered
-    over "model" in bucket-major order, and Ψ's round deltas are summed over
-    "model" every round, so every draw equals the P = 1 ring's. At the end
+    over "model" in bucket-major order (``model_gather``), and Ψ's round
+    deltas are summed over "model" every round, so every draw equals the
+    P = 1 ring's. A ring of one rank (M = 1) ships nothing. At the end
     Ψ's deltas are summed over the rotation group. ``pod_axis`` offsets the
     seed by pod · 0x9E3779B9 (mod 2³²) so the pods' samplers decorrelate.
     """
@@ -252,12 +262,6 @@ def build_epoch_body(cfg: RingConfig, layout: Optional[RankLayout] = None,
     alias = cfg.sampler == "alias"
     cap_p = cfg.doc_topic_cap or cfg.n_topics
 
-    def model_gather(a):
-        """[M, capb] bucket view → [M, P·capb] whole sub-blocks, bucket-major
-        (model rank j's bucket at [j·capb, (j+1)·capb)): the P = 1 layout."""
-        g = coll.all_gather(a, layout, "model")               # [P, M, capb]
-        return g.permute(1, 0, 2).reshape(a.shape[0], -1)
-
     def epoch(phi, psi, wl, dl, uid, z, alpha, beta, seed, *tables):
         if len(tables) != (5 if alias else 0):
             raise TypeError(f"the {cfg.sampler} epoch takes {5 if alias else 0} tables, "
@@ -284,8 +288,8 @@ def build_epoch_body(cfg: RingConfig, layout: Optional[RankLayout] = None,
                 # Θ/pairs need the whole visiting stack's (doc, z): the valid
                 # mask rides as doc = −1 (pads carry doc 0, so max(·, 0)
                 # restores the P = 1 flat views exactly)
-                flat_d = model_gather(torch.where(wl_c >= 0, dl_c, -1)).reshape(-1)
-                flat_z = model_gather(z_c).reshape(-1)
+                flat_d, flat_z = model_gather(
+                    torch.stack([torch.where(wl_c >= 0, dl_c, -1), z_c]), layout).reshape(2, -1)
                 flat_valid = flat_d >= 0
                 flat_d = torch.clamp(flat_d, min=0)
             else:

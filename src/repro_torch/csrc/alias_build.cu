@@ -65,6 +65,8 @@
 // 64-bit (R * K reaches 3.3e9).
 #include <cuda_runtime.h>
 
+#include "kernel_attributes.cuh"
+
 namespace {
 
 constexpr int kRows = 32;          // rows a warp, one per lane; one warp a block
@@ -481,4 +483,13 @@ extern "C" int alias_build_launch(const float* w, const float* scale, int R, int
         w, scale, R, K, nw, prob, alias, bitmaps);
   }
   return (int)cudaGetLastError();
+}
+
+// Registers, shared memory, spills and blocks an SM of every kernel the launch
+// function above can reach, at the block and dynamic shared memory it launches
+// them with (kernel_attributes.cuh); i < 0 gives their number. Launches nothing.
+extern "C" int alias_build_attributes(int i, const char** name, long long* out) {
+  static const KernelEntry kAll[] = {
+      {"alias_build_kernel", (const void*)alias_build_kernel, kRows, 0, false}};
+  return kernel_attributes(kAll, (int)(sizeof(kAll) / sizeof(kAll[0])), i, name, out);
 }

@@ -47,6 +47,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "kernel_attributes.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;            // 8 warps a block
@@ -310,4 +312,23 @@ extern "C" int embedding_bag_launch(const void* table, const int* ids,
                          out);
   }
   return (int)cudaGetLastError();
+}
+
+// Registers, shared memory, spills and blocks an SM of every kernel the launch
+// function above can reach, at the block and dynamic shared memory it launches
+// them with (kernel_attributes.cuh); i < 0 gives their number. Launches nothing.
+extern "C" int embedding_bag_attributes(int i, const char** name, long long* out) {
+#define EB_SCALAR(T, N) {"embedding_bag_kernel_scalar<" N ">", \
+                         (const void*)embedding_bag_kernel_scalar<T>, kThreads, 0, false}
+#define EB_VECTOR(T, N, L) {"embedding_bag_kernel_vector<" N ", " #L ">", \
+                            (const void*)embedding_bag_kernel_vector<T, L>, kThreads, 0, false}
+#define EB_VECTORS(T, N) EB_VECTOR(T, N, 1), EB_VECTOR(T, N, 2), EB_VECTOR(T, N, 4), \
+                         EB_VECTOR(T, N, 8), EB_VECTOR(T, N, 16), EB_VECTOR(T, N, 32)
+  static const KernelEntry kAll[] = {EB_SCALAR(float, "float"), EB_SCALAR(__nv_bfloat16, "bf16"),
+                                     EB_VECTORS(float, "float"),
+                                     EB_VECTORS(__nv_bfloat16, "bf16")};
+#undef EB_VECTORS
+#undef EB_VECTOR
+#undef EB_SCALAR
+  return kernel_attributes(kAll, (int)(sizeof(kAll) / sizeof(kAll[0])), i, name, out);
 }

@@ -65,6 +65,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "kernel_attributes.cuh"
+
 namespace {
 
 constexpr unsigned kAll = 0xffffffffu;
@@ -726,4 +728,27 @@ extern "C" int embedding_bag_bwd_launch(const void* grad, const long long* order
   if (err != cudaSuccess) return (int)err;
   if ((err = cudaEventRecord(ev[1], ls)) != cudaSuccess) return (int)err;
   return (int)cudaStreamWaitEvent(s, ev[1], 0);
+}
+
+// Registers, shared memory, spills and blocks an SM of every kernel the launch
+// function above can reach, at the block and dynamic shared memory it launches
+// them with (kernel_attributes.cuh); i < 0 gives their number. Launches nothing.
+extern "C" int embedding_bag_bwd_attributes(int i, const char** name, long long* out) {
+#define BWD_SHORT(T, N, V) {"short_runs_kernel<" N ", " #V ">", \
+                            (const void*)short_runs_kernel<T, V>, kShortThreads, 0, false}
+#define BWD_LONG(T, N, C) {"long_runs_kernel<" N ", " #C ">", (const void*)long_runs_kernel<T, C>, \
+                           kLongThreads, long_smem_bytes<T>(), true}
+  static const KernelEntry kAll[] = {
+      {"tiles_kernel", (const void*)tiles_kernel, 256, 0, false},
+      {"select_long_kernel", (const void*)select_long_kernel, kSelectThreads, 0, false},
+      {"sort_long_kernel", (const void*)sort_long_kernel, kSortThreads, 0, false},
+      BWD_SHORT(float, "float", 1), BWD_SHORT(float, "float", 2), BWD_SHORT(float, "float", 4),
+      BWD_SHORT(__nv_bfloat16, "bf16", 1), BWD_SHORT(__nv_bfloat16, "bf16", 2),
+      BWD_SHORT(__nv_bfloat16, "bf16", 4),
+      BWD_LONG(float, "float", 4), BWD_LONG(float, "float", 8), BWD_LONG(float, "float", 16),
+      BWD_LONG(__nv_bfloat16, "bf16", 2), BWD_LONG(__nv_bfloat16, "bf16", 4),
+      BWD_LONG(__nv_bfloat16, "bf16", 8), BWD_LONG(__nv_bfloat16, "bf16", 16)};
+#undef BWD_LONG
+#undef BWD_SHORT
+  return kernel_attributes(kAll, (int)(sizeof(kAll) / sizeof(kAll[0])), i, name, out);
 }

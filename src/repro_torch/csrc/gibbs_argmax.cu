@@ -29,6 +29,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "kernel_attributes.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -133,4 +135,13 @@ extern "C" int gibbs_argmax_launch(const float* phi, const float* psi,
         temperature, K, out);
   }
   return (int)cudaGetLastError();
+}
+
+// Registers, shared memory, spills and blocks an SM of every kernel the launch
+// function above can reach, at the block and dynamic shared memory it launches
+// them with (kernel_attributes.cuh); i < 0 gives their number. Launches nothing.
+extern "C" int gibbs_argmax_attributes(int i, const char** name, long long* out) {
+  static const KernelEntry kAll[] = {
+      {"gibbs_argmax_kernel", (const void*)gibbs_argmax_kernel, kThreads, 0, false}};
+  return kernel_attributes(kAll, (int)(sizeof(kAll) / sizeof(kAll[0])), i, name, out);
 }

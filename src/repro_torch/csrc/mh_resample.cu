@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_attributes.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -341,4 +343,17 @@ extern "C" int mh_resample_launch(
   }
 #undef MH_ARGS
   return (int)cudaGetLastError();
+}
+
+// Registers, shared memory, spills and blocks an SM of every kernel the launch
+// function above can reach, at the block and dynamic shared memory it launches
+// them with (kernel_attributes.cuh); i < 0 gives their number. Launches nothing.
+extern "C" int mh_resample_attributes(int i, const char** name, long long* out) {
+  static const KernelEntry kAll[] = {
+      {"mh_resample_kernel_regs<16>", (const void*)mh_resample_kernel_regs<16>, kThreads, 0,
+       false},
+      {"mh_resample_kernel_regs<32>", (const void*)mh_resample_kernel_regs<32>, kThreads, 0,
+       false},
+      {"mh_resample_kernel", (const void*)mh_resample_kernel, kThreads, 0, false}};
+  return kernel_attributes(kAll, (int)(sizeof(kAll) / sizeof(kAll[0])), i, name, out);
 }

@@ -28,7 +28,7 @@ mode around the whole step and each product counts once):
   card count the same;
 - **collectives**: ``dist/collectives.py`` reports each collective it
   issues by JAX's primitive name (``psum``, ``pmax``, ``all_gather``,
-  ``ppermute``) with its payload bytes, in place of JAX's parse of compiled
+  ``ppermute``) with its payload bytes, shape and dtype, in place of JAX's parse of compiled
   HLO (``collective_bytes``, ``hlo_collective_counts``), which torch has no
   counterpart of and which is not ported.
 
@@ -40,7 +40,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
@@ -58,6 +58,9 @@ class Cost:
                                    # JAX primitive name → payload bytes
     kernels: Dict[str, Dict[str, float]] = dataclasses.field(default_factory=dict)
                                    # kernel name → {"calls", "bytes"} charged
+    collective_log: List[Tuple[str, Tuple[int, ...], str, float]] = dataclasses.field(
+        default_factory=list)      # each collective in order: (JAX primitive name,
+                                   # payload shape, dtype, bytes)
 
 
 # the costs being counted, innermost last; kernel bodies hide their aten ops
@@ -154,6 +157,12 @@ def count_cost(fn: Callable[..., Any], *args: Any, **kwargs: Any):
     return cost, out
 
 
+def in_kernel() -> bool:
+    """Whether the ops running now are the body of a hand-written kernel's
+    wrapper under an active count (hidden from it)."""
+    return bool(_hidden[0])
+
+
 @contextlib.contextmanager
 def kernel_call(name: str):
     """Around a hand-written kernel's wrapper: hide the aten ops of its body
@@ -178,12 +187,16 @@ def kernel_call(name: str):
             cost.moved_bytes += float(nbytes)
 
 
-def charge_collective(kind: str, nbytes: float) -> None:
+def charge_collective(kind: str, nbytes: float, shape: Sequence[int] = (),
+                      dtype: Optional[Any] = None) -> None:
     """Record one collective of JAX primitive name ``kind`` moving
-    ``nbytes`` of payload from this rank."""
+    ``nbytes`` of payload from this rank, a tensor of ``shape`` and
+    ``dtype`` (the sharding audit reads them, ``analysis.shardcheck``)."""
     for cost in _active:
         cost.collectives[kind] = cost.collectives.get(kind, 0.0) + 1
         cost.collective_bytes[kind] = cost.collective_bytes.get(kind, 0.0) + float(nbytes)
+        cost.collective_log.append((kind, tuple(int(d) for d in shape),
+                                    str(dtype).replace("torch.", ""), float(nbytes)))
 
 
 # ------------------------------------------------------ analytic reports ---

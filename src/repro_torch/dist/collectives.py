@@ -16,7 +16,7 @@ bound, and one byte per element per rank on the wire (a quarter of f32).
 
 Each collective is reported to an active ``dist.analysis.count_cost`` under
 the name of its JAX primitive (``psum``, ``pmax``, ``all_gather``,
-``ppermute``) with its payload bytes, groups of one rank included (JAX's
+``ppermute``) with its payload bytes, shape and dtype, groups of one rank included (JAX's
 jaxpr holds a ``psum`` over an axis of size 1 too).
 """
 from __future__ import annotations
@@ -55,7 +55,8 @@ def all_reduce_(t: torch.Tensor, layout: RankLayout, name: str, op: str = "sum")
     """In-place ``all_reduce`` of ``t`` over group ``name`` (``op``: sum or
     max); returns ``t``."""
     group, ranks = layout.group(name)
-    analysis.charge_collective({"sum": "psum", "max": "pmax"}[op], analysis.tensor_bytes(t))
+    analysis.charge_collective({"sum": "psum", "max": "pmax"}[op], analysis.tensor_bytes(t),
+                               t.shape, t.dtype)
     if len(ranks) == 1:
         return t
     rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
@@ -74,7 +75,7 @@ def all_reduce_(t: torch.Tensor, layout: RankLayout, name: str, op: str = "sum")
 def all_gather(t: torch.Tensor, layout: RankLayout, name: str) -> torch.Tensor:
     """[n, *t.shape]: every rank's ``t`` in group order, on ``t``'s device."""
     group, ranks = layout.group(name)
-    analysis.charge_collective("all_gather", analysis.tensor_bytes(t))
+    analysis.charge_collective("all_gather", analysis.tensor_bytes(t), t.shape, t.dtype)
     if len(ranks) == 1:
         return t[None].clone()
     src = _host(t) if _via_host(t, layout) else t.contiguous()
@@ -93,7 +94,7 @@ class Shift:
     def __init__(self, layout: RankLayout, name: str, tensors: List[torch.Tensor]):
         group, ranks = layout.group(name)
         for t in tensors:               # one transfer (a JAX ppermute) per tensor
-            analysis.charge_collective("ppermute", analysis.tensor_bytes(t))
+            analysis.charge_collective("ppermute", analysis.tensor_bytes(t), t.shape, t.dtype)
         self._device = tensors[0].device
         if len(ranks) == 1:
             self._reqs, self._bufs = [], [t.clone() for t in tensors]

@@ -6,17 +6,25 @@ use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``ctypes``; PyTorch's headers are never included, so a build takes seconds.
 A library is rebuilt when any source under ``csrc/`` is newer than it.
 
+Every wrapper computes its :class:`LaunchPlan` (the instantiation and the C
+``int`` arguments it passes) before it launches and passes the arguments
+``launch_args`` checked; ``repro_torch.analysis.smem`` holds the same plans,
+and the built kernels' own block, registers and shared memory
+(``attributes``), to sm_90's limits.
+
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no ``nvcc``.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -100,6 +108,88 @@ def check_arg(name: str, x: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+# sm_90's launch limits (CUDA C++ Programming Guide, compute capability 9.0)
+MAX_THREADS_PER_BLOCK = 1024
+SHARED_DEFAULT = 48 * 1024      # a block's shared bytes without an opt-in
+SHARED_OPT_IN = 227 * 1024      # with cudaFuncSetAttribute(MaxDynamicSharedMemorySize)
+REGISTERS_PER_SM = 65_536
+INT32_MAX = 2 ** 31 - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """One kernel launch as its wrapper is about to make it: the library
+    (``csrc/<library>.cu``), the kernel instantiation as the library's
+    ``<library>_attributes`` names it, and the C ``int`` arguments of the
+    launch function (name, value). The block, the dynamic shared bytes and
+    the grid are the launch function's own: ``attributes`` reports the
+    first two, and every grid in ``csrc`` is one-dimensional and no larger
+    than an ``int`` argument (or the card's resident blocks, or, in
+    ``embedding_bag_bwd``, about a 128th of the items)."""
+
+    library: str
+    kernel: str
+    int_args: Tuple[Tuple[str, int], ...] = ()
+
+
+def plan_problems(plan: LaunchPlan) -> List[str]:
+    """The ``int`` arguments of ``plan`` that int32 cannot carry; empty when
+    the launch can pass them."""
+    return [f"int argument {name} = {v:,} overflows int32" for name, v in plan.int_args
+            if not -INT32_MAX - 1 <= v <= INT32_MAX]
+
+
+def check_plan(plan: LaunchPlan) -> LaunchPlan:
+    """Raise ``ValueError`` unless every ``int`` argument of ``plan`` fits
+    int32 (ctypes would cut an overlong one silently); returns ``plan``."""
+    problems = plan_problems(plan)
+    if problems:
+        raise ValueError(f"{plan.library}: launch of {plan.kernel} refused: "
+                         + "; ".join(problems))
+    return plan
+
+
+@functools.lru_cache(maxsize=4096)
+def launch_args(plan: LaunchPlan) -> Tuple[int, ...]:
+    """The ``int`` arguments of ``plan``, in order, once ``check_plan`` has
+    passed it: what a wrapper passes to its launch function. Cached, so a
+    shape is checked once and a launch pays a lookup."""
+    return tuple(v for _, v in check_plan(plan).int_args)
+
+
+def shared_limit(opt_in: bool) -> int:
+    """The most shared bytes a block may take on sm_90, with or without the
+    source's opt-in."""
+    return SHARED_OPT_IN if opt_in else SHARED_DEFAULT
+
+
+# the fields of each entry <library>_attributes reports, in order
+ATTRIBUTE_FIELDS = ("regs", "static_smem", "dynamic_smem", "max_dynamic_smem", "local_bytes",
+                    "binary_version", "ptx_version", "max_threads", "threads", "blocks_per_sm",
+                    "opt_in")
+
+
+def attributes(name: str) -> List[Dict[str, object]]:
+    """The built library ``lib<name>.so``'s kernels as the card reports them
+    (``cudaFuncGetAttributes`` and the occupancy API, through its
+    ``<name>_attributes`` entry point): one dict a kernel instantiation its
+    launch can reach, ``kernel`` and ``library`` beside
+    ``ATTRIBUTE_FIELDS``. Needs the card; launches nothing."""
+    fn = getattr(load(name), f"{name}_attributes")
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_char_p), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = []
+    for i in range(fn(-1, None, None)):
+        kname = ctypes.c_char_p()
+        vals = (ctypes.c_longlong * len(ATTRIBUTE_FIELDS))()
+        err = fn(i, ctypes.byref(kname), vals)
+        if err:
+            raise RuntimeError(f"{name}_attributes({i}) failed: CUDA error {err}")
+        out.append({"library": name, "kernel": kname.value.decode(),
+                    **dict(zip(ATTRIBUTE_FIELDS, vals))})
+    return out
 
 
 # each kernel's launch counter: (kernel, its ops module, the counter's name)

@@ -9,11 +9,12 @@ outputs, launch on the current stream and raise if the launch fails.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch import kernels as kernels_mod
-from repro_torch.kernels import check_arg
+from repro_torch.kernels import LaunchPlan, check_arg
 
 _fns = {}
 _P = ctypes.c_void_p
@@ -40,6 +41,14 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+@functools.lru_cache(maxsize=1024)
+def alias_build_plan(R: int, K: int) -> LaunchPlan:
+    """The launch ``alias_build_cuda`` makes for R rows of K slots (``nw``:
+    the scratch's 32-bit words a row and kind, one bit per 32-slot tile)."""
+    return LaunchPlan("alias_build", "alias_build_kernel",
+                      (("R", R), ("K", K), ("nw", -(-K // 1024))))
+
+
 def alias_build_cuda(weights, scale, out=None):
     """Launch the Walker sweep over every row at once: weights [R, K] f32 and
     the mean-1 scale [R] f32 (from ``ops._scale``) → (prob [R, K] f32, alias
@@ -58,14 +67,14 @@ def alias_build_cuda(weights, scale, out=None):
     prob, alias = out
     check_arg("prob", prob, torch.float32, (R, K), dev)
     check_arg("alias", alias, torch.int32, (R, K), dev)
+    R_arg, K_arg, nw = kernels_mod.launch_args(alias_build_plan(R, K))
     # scratch: per row and kind, one bit per 32-slot tile that holds a slot of
     # that kind
-    nw = -(-K // 1024)
     bitmaps = torch.empty((R, 2, nw), dtype=torch.int32, device=dev)
     fn = _launcher("alias_build", [_P, _P, _I, _I, _I, _P, _P, _P, _P])
     with torch.cuda.device(dev):
-        err = fn(weights.data_ptr(), scale.data_ptr(), R, K, nw, prob.data_ptr(),
-                 alias.data_ptr(), bitmaps.data_ptr(), _stream(dev))
+        err = fn(weights.data_ptr(), scale.data_ptr(), R_arg, K_arg, nw,
+                 prob.data_ptr(), alias.data_ptr(), bitmaps.data_ptr(), _stream(dev))
     if err:
         raise RuntimeError(f"alias_build kernel launch failed: CUDA error {err}")
     return prob, alias
@@ -81,6 +90,17 @@ def mh_slot_bound(cap: int) -> int:
     least of ``MH_SLOT_BOUNDS`` that holds them, or 0 for the generic kernel,
     which reads the row from memory for each lookup."""
     return next((b for b in MH_SLOT_BOUNDS if cap <= b), 0)
+
+
+@functools.lru_cache(maxsize=1024)
+def mh_resample_plan(T: int, K: int, cap: int, n_mh: int) -> LaunchPlan:
+    """The launch ``mh_resample_cuda`` makes for T tokens of K topics and
+    pair rows of ``cap`` slots: the register kernel of ``mh_slot_bound(cap)``
+    slots, or the generic one."""
+    bound = mh_slot_bound(cap)
+    kernel = f"mh_resample_kernel_regs<{bound}>" if bound else "mh_resample_kernel"
+    return LaunchPlan("mh_resample", kernel, (("n_mh", n_mh), ("T", T), ("K", K),
+                                              ("cap", cap), ("slot_bound", bound)))
 
 
 def mh_resample_cuda(phi, psi, doc_topic, doc_count, wq, wp, wa, alpha, ap, aa,
@@ -110,6 +130,7 @@ def mh_resample_cuda(phi, psi, doc_topic, doc_count, wq, wp, wa, alpha, ap, aa,
             ("z", z, torch.int32, (T,)), ("uid", uid, torch.int64, (T,)),
             ("beta", beta, torch.float32, ()), ("alpha_sum", alpha_sum, torch.float32, ())):
         check_arg(name, x, dtype, shape, dev)
+    ints = kernels_mod.launch_args(mh_resample_plan(T, K, cap, n_mh))
     out = torch.empty(T, dtype=torch.int32, device=dev)
     fn = _launcher("mh_resample", [_P] * 14 + [ctypes.c_uint32, _P, _P, ctypes.c_float]
                    + [_I] * 5 + [_P, _P])
@@ -118,8 +139,8 @@ def mh_resample_cuda(phi, psi, doc_topic, doc_count, wq, wp, wa, alpha, ap, aa,
                  doc_count.data_ptr(), wq.data_ptr(), wp.data_ptr(), wa.data_ptr(),
                  alpha.data_ptr(), ap.data_ptr(), aa.data_ptr(), w.data_ptr(),
                  d.data_ptr(), z.data_ptr(), uid.data_ptr(), int(seed2) & 0xFFFF_FFFF,
-                 beta.data_ptr(), alpha_sum.data_ptr(), float(vocab_size), n_mh, T, K,
-                 cap, mh_slot_bound(cap), out.data_ptr(), _stream(dev))
+                 beta.data_ptr(), alpha_sum.data_ptr(), float(vocab_size), *ints,
+                 out.data_ptr(), _stream(dev))
     if err:
         raise RuntimeError(f"mh_resample kernel launch failed: CUDA error {err}")
     return out

@@ -20,7 +20,7 @@ import math
 import torch
 
 from repro_torch import kernels as kernels_mod
-from repro_torch.kernels import check_arg
+from repro_torch.kernels import LaunchPlan, check_arg
 
 from repro_torch.kernels.embedding_bag.ref import row_runs
 
@@ -54,6 +54,19 @@ def bag_geometry(D: int, elem_size: int, B: int, F: int, aligned: bool):
     bags = AHEAD // math.gcd(AHEAD, F)
     runs = -(-B // (32 // lanes * bags))
     return lanes, bags, max(1, -(-runs // WARPS_PER_BLOCK))
+
+
+@functools.lru_cache(maxsize=1024)
+def bag_plan(D: int, dtype: int, B: int, F: int, aligned: bool, mean: int) -> LaunchPlan:
+    """The launch ``embedding_bag_cuda`` makes (``dtype`` 0: f32, 1: bf16):
+    the path and grid of ``bag_geometry``."""
+    lanes, bags, blocks = bag_geometry(D, 2 if dtype else 4, B, F, aligned)
+    t = "bf16" if dtype else "float"
+    kernel = (f"embedding_bag_kernel_vector<{t}, {lanes}>" if lanes
+              else f"embedding_bag_kernel_scalar<{t}>")
+    return LaunchPlan("embedding_bag", kernel, (("F", F), ("D", D), ("mean", mean),
+                                                ("dtype", dtype), ("lanes", lanes),
+                                                ("bags", bags), ("blocks", blocks)))
 
 
 def _launcher():
@@ -91,14 +104,13 @@ def embedding_bag_cuda(table, ids, weights=None, combiner: str = "sum") -> torch
         check_arg("weights", weights, torch.float32, (B, F), dev)
     out = torch.empty((B, D), dtype=table.dtype, device=dev)
     t_ptr, o_ptr = table.data_ptr(), out.data_ptr()
-    lanes, bags, blocks = bag_geometry(D, table.element_size(), B, F,
-                                       (t_ptr | o_ptr) % 16 == 0)
+    ints = kernels_mod.launch_args(bag_plan(D, _DTYPES[table.dtype], B, F,
+                                            (t_ptr | o_ptr) % 16 == 0, int(combiner == "mean")))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _launcher()(
-            t_ptr, ids.data_ptr(), None if weights is None else weights.data_ptr(), B, F, D,
-            int(combiner == "mean"), _DTYPES[table.dtype], lanes, bags, blocks, o_ptr,
-            stream)
+            t_ptr, ids.data_ptr(), None if weights is None else weights.data_ptr(), B, *ints,
+            o_ptr, stream)
     if err:
         raise RuntimeError(f"embedding_bag kernel launch failed: CUDA error {err}")
     return out
@@ -163,6 +175,22 @@ def long_runs(starts, N: int, long_run: int):
     found = torch.nonzero_static(counts > long_run, size=M, fill_value=-1)[:, 0]
     key = torch.where(found >= 0, counts[found], -1)
     return found[torch.argsort(key, descending=True, stable=True)]
+
+
+@functools.lru_cache(maxsize=1024)
+def bwd_plans(F: int, D: int, dtype: int, vec: int, copy: int, mean: int):
+    """Every launch ``embedding_bag_bwd_runs_cuda`` can make for a [B, D]
+    gradient of F ids a bag (``dtype`` 0: f32, 1: bf16; ``vec`` from
+    ``bwd_vec``, ``copy`` from ``bwd_copy``): the plan's kernels (the tiles;
+    where a run is long, the long runs' selection and sort), the short-run
+    kernel and the long-run kernel. The launch function's int arguments
+    ride the last two."""
+    t, lib = ("bf16" if dtype else "float"), "embedding_bag_bwd"
+    ints = (("F", F), ("D", D), ("mean", mean), ("dtype", dtype), ("vec", vec), ("copy", copy))
+    return (LaunchPlan(lib, "tiles_kernel"), LaunchPlan(lib, "select_long_kernel"),
+            LaunchPlan(lib, "sort_long_kernel"),
+            LaunchPlan(lib, f"short_runs_kernel<{t}, {vec}>", ints),
+            LaunchPlan(lib, f"long_runs_kernel<{t}, {copy}>", ints))
 
 
 _long_streams = {}
@@ -271,13 +299,15 @@ def embedding_bag_bwd_runs_cuda(grad_out, order, starts, F: int, weights=None,
     if U == 0:
         return out
     elem, ptr = grad_out.element_size(), grad_out.data_ptr()
+    plans = bwd_plans(F, D, _DTYPES[grad_out.dtype], bwd_vec(D, elem, ptr),
+                      bwd_copy(D, elem, ptr), int(combiner == "mean"))
+    ints = kernels_mod.launch_args(plans[-1])
     scratch, _, _ = _scratch(starts, N)
     with torch.cuda.device(dev):
         err = _bwd_lib()[0](
             ptr, order.data_ptr(), starts.data_ptr(),
-            None if weights is None else weights.data_ptr(), U, N, F, D,
-            int(combiner == "mean"), _DTYPES[grad_out.dtype], bwd_vec(D, elem, ptr),
-            bwd_copy(D, elem, ptr), TILE_ITEMS, LONG_RUN, scratch.data_ptr(), out.data_ptr(),
+            None if weights is None else weights.data_ptr(), U, N, *ints, TILE_ITEMS, LONG_RUN,
+            scratch.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream, _long_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"embedding_bag_bwd kernel launch failed: CUDA error {err}")

@@ -6,13 +6,20 @@ The library is built at the first launch (``repro_torch.kernels.load``).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch import kernels as kernels_mod
-from repro_torch.kernels import check_arg
+from repro_torch.kernels import LaunchPlan, check_arg
 
 _fn = None
+
+
+@functools.lru_cache(maxsize=1024)
+def gibbs_argmax_plan(T: int, K: int) -> LaunchPlan:
+    """The launch ``gibbs_argmax_cuda`` makes for T rows of K topics."""
+    return LaunchPlan("gibbs_argmax", "gibbs_argmax_kernel", (("T", T), ("K", K)))
 
 
 def _launcher():
@@ -48,6 +55,7 @@ def gibbs_argmax_cuda(phi_rows, psi_rows, theta_rows, alpha, beta, token_uid,
     check_arg("alpha", alpha, torch.float32, (K,), dev)
     check_arg("beta", beta.reshape(1), torch.float32, (1,), dev)
     check_arg("token_uid", token_uid, torch.int64, (T,), dev)
+    T_arg, K_arg = kernels_mod.launch_args(gibbs_argmax_plan(T, K))
     out = torch.empty(T, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -56,7 +64,7 @@ def gibbs_argmax_cuda(phi_rows, psi_rows, theta_rows, alpha, beta, token_uid,
             0 if psi_rows.dim() == 1 else K, theta_rows.data_ptr(),
             alpha.data_ptr(), beta.data_ptr(), token_uid.data_ptr(),
             int(seed) & 0xFFFF_FFFF, float(vocab_size), float(temperature),
-            T, K, out.data_ptr(), stream)
+            T_arg, K_arg, out.data_ptr(), stream)
     if err:
         raise RuntimeError(f"gibbs_argmax kernel launch failed: CUDA error {err}")
     return out

@@ -18,9 +18,10 @@ compiler to ask, so each cell gets two records:
   ported) or ``fail`` (with the error), as JAX records a failed build.
 * **the one-rank record** (``one_rank``), the counterpart of JAX's compile
   and ``memory_analysis``: the same cell built for one rank, its arguments
-  drawn on the card and one step run after one warm-up step: ``step_ms``
-  (CUDA events), ``live_bytes_per_device`` (``max_memory_allocated`` over
-  the step, after ``reset_peak_memory_stats``), ``fits_80gb_hbm``, the
+  drawn on the card and ``TIMED_STEPS`` steps run after one warm-up step:
+  ``step_ms`` (their median, CUDA events: one step alone can take a host
+  stall), ``live_bytes_per_device`` (``max_memory_allocated`` over the
+  steps, after ``reset_peak_memory_stats``), ``fits_80gb_hbm``, the
   flops, bytes and moved bytes ``dist/analysis.count_cost`` counts over one
   more step, ``useful_flops_ratio`` and its roofline share (the larger of
   the flops over the f32 peak and the moved bytes over the HBM rate, over
@@ -71,6 +72,7 @@ HBM_BYTES = 80e9             # device memory
 
 # JAX's production meshes as (pods, data, model)
 MESHES = {False: (1, 16, 16), True: (2, 16, 16)}
+TIMED_STEPS = 3              # a one-rank step's time is their median
 
 def mesh_layout(multi_pod: bool) -> shd.RankLayout:
     return shd.RankLayout(*MESHES[multi_pod])
@@ -196,12 +198,15 @@ class OneRank:
         if cuda:
             torch.cuda.reset_peak_memory_stats()
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            cell.fn(*args)
-            b.record()
-            b.synchronize()
+            times = []
+            for _ in range(TIMED_STEPS):
+                a.record()
+                cell.fn(*args)
+                b.record()
+                b.synchronize()
+                times.append(float(a.elapsed_time(b)))
             live = int(torch.cuda.max_memory_allocated())
-            out.update(step_ms=float(a.elapsed_time(b)), live_bytes_per_device=live,
+            out.update(step_ms=sorted(times)[TIMED_STEPS // 2], live_bytes_per_device=live,
                        fits_80gb_hbm=bool(live < HBM_BYTES))
         else:
             cell.fn(*args)
@@ -366,14 +371,17 @@ def main(argv=None) -> int:
                     help="machine-readable output only (suppresses the human "
                          "`#` lines; with --shard-table emits one JSON document)")
     ap.add_argument("--verify", action="store_true",
-                    help="the static contract checks: not ported (ROADMAP item 13a)")
+                    help="run the repro_torch.analysis launch gate (sharding / sm_90 "
+                         "launch budgets / determinism / concurrency / lint) on the "
+                         "default P=2 alias session and exit 0/1 (--json: the report)")
     args = ap.parse_args(argv)
 
     if args.verify:
-        print("launch.dryrun --verify: the static contract checks (repro.analysis."
-              "preflight) are not ported to PyTorch yet (ROADMAP item 13a)",
-              file=sys.stderr)
-        return 2
+        from repro_torch.analysis import preflight as pf
+
+        report = pf.run_preflight(pf.SessionSpec())
+        print(report.to_json(indent=2) if args.json else report.render())
+        return 0 if report.ok else 1
     if args.shard_table:
         print_shard_table(out=args.out, as_json=args.json)
         return 0

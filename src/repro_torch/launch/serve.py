@@ -20,8 +20,10 @@ mixed-length traffic is all-distinct. Mid-run the model is hot-swapped
 (``--swap-mid``, on by default) to the one built from Φ + 1.
 
 The same flags as ``repro.launch.serve``, plus ``--device`` (``cuda`` by default;
-``cpu`` on request; a missing card raises). ``--preflight`` is refused: the
-static analysis passes are not ported (ROADMAP queue 1, item 13a).
+``cpu`` on request; a missing card raises). ``--preflight`` runs the serving
+gate (the ``concurrency`` and ``lint`` passes of ``repro_torch.analysis``,
+and the check that the fleet's thread classes are in the analyzer's
+inventory) and exits 0 or 1 before anything is built.
 
 ``--bench-out`` writes ``repro.launch.serve``'s record plus the device, the card's
 name and power limit (``nvidia-smi``), the peak device memory and what the
@@ -147,7 +149,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--bench-out", type=str, default=None,
                     help="write a machine-readable JSON record here")
     ap.add_argument("--preflight", action="store_true",
-                    help="static contract checks (not ported)")
+                    help="run the serving-side static contract checks "
+                         "(repro_torch.analysis: concurrency thread contracts + "
+                         "repo lint) and exit before building any engine: pure "
+                         "AST, no model trained, no thread started; exit 0 iff "
+                         "every check passes")
     ap.add_argument("--preflight-json", action="store_true",
                     help="with --preflight: machine-readable report")
     ap.add_argument("--device", default="cuda",
@@ -156,12 +162,34 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+# the thread-bearing serving classes the gate must find in the analyzer's
+# inventory (discovery skipping one would certify a contract it never read)
+SERVING_CLASSES = ("TopicFleet", "ResultCache", "TopicEngine", "SnapshotWatcher",
+                   "CircuitBreaker", "FaultPlane")
+
+
+def preflight_gate(as_json: bool = False) -> int:
+    """The static serving gate: the concurrency and lint passes over the
+    port, and every class of ``SERVING_CLASSES`` in the concurrency
+    inventory. Prints the report; returns the exit code (0 iff it holds)."""
+    from repro_torch.analysis import preflight as pf
+
+    report = pf.run_preflight(pf.SessionSpec(), passes=("concurrency", "lint"))
+    inventory = next((f for r in report.results for f in r.findings
+                      if f.check == "concurrency.inventory"), None)
+    missing = [c for c in SERVING_CLASSES if inventory is None or c not in inventory.message]
+    print(report.to_json(indent=2) if as_json else report.render())
+    if missing:
+        print("[preflight] serving classes missing from the concurrency inventory: "
+              + ", ".join(missing))
+    return 0 if report.ok and not missing else 1
+
+
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.preflight:
-        ap.error("--preflight: the static analysis passes are not ported "
-                 "(ROADMAP queue 1, item 13a)")
+        raise SystemExit(preflight_gate(args.preflight_json))
 
     import numpy as np
     import torch

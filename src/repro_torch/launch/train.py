@@ -44,9 +44,12 @@ block of every segment, from memory or from a ``--corpus-dir`` (plain or
 
 Rank 0 prints, checkpoints and publishes; a started world returns each
 rank's :func:`rank_summary`. Refused: a streamed corpus with ``--pods`` > 1
-(as the JAX driver refuses it: segments are single-configuration), and
-``--preflight`` (ROADMAP queue 1, item 13a: the static analysis passes have
-no torch counterpart yet).
+(as the JAX driver refuses it: segments are single-configuration).
+
+``--preflight [--preflight-json]`` runs the launch gate
+(``repro_torch.analysis.preflight.verify_trainer_config``) on the session
+the flags describe and exits 0 or 1 before any rank starts; its own epoch
+runs on gloo ranks on the CPU at a shrunk corpus and K.
 """
 import argparse
 import os
@@ -104,7 +107,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--bench-out", default="BENCH_train.json",
                     help="machine-readable bench record ('' disables)")
     ap.add_argument("--preflight", action="store_true",
-                    help="static contract checks (not ported)")
+                    help="run the launch gate (repro_torch.analysis: sharding "
+                         "contract, sm_90 launch budgets, determinism, thread "
+                         "contracts, repo lint) on this session's geometry and "
+                         "exit 0 iff every check passes; no Trainer is built and "
+                         "no rank of the session starts")
     ap.add_argument("--preflight-json", action="store_true",
                     help="with --preflight: machine-readable report")
     ap.add_argument("--device", default="cuda",
@@ -199,13 +206,23 @@ def main(argv=None):
     ap = build_parser()
     argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
-    if args.preflight:
-        ap.error("--preflight: the static analysis passes are not ported "
-                 "(ROADMAP queue 1, item 13a)")
     if args.kill_at_segment > 0 and args.kill_at <= 0:
         ap.error("--kill-at-segment requires --kill-at (the epoch to die "
                  "in); without it no KillSwitch is armed and the failure "
                  "simulation would silently never fire")
+    if args.preflight:
+        # the launch gate: verify the session's contracts (sharding layout,
+        # sm_90 launch budgets, determinism, repo invariants) before any of
+        # its ranks starts; no Trainer is built, nothing is allocated on the card
+        from repro_torch.analysis import preflight as pf
+
+        try:
+            cfg = config_from_args(args)
+        except ValueError as exc:
+            ap.error(str(exc))
+        report = pf.verify_trainer_config(cfg)
+        print(report.to_json(indent=2) if args.preflight_json else report.render())
+        raise SystemExit(0 if report.ok else 1)
 
     from repro_torch.launch import mesh
 

@@ -1,7 +1,7 @@
 """Rank bodies and the JAX host-mesh runner shared by the port's multi-rank
 tests (``tests/test_torch_ring.py``, ``test_torch_shard_model.py``,
 ``test_torch_pods.py``, ``test_torch_trainer_multipod.py``,
-``test_torch_dryrun.py``).
+``test_torch_dryrun.py``, ``test_torch_preflight.py``).
 
 The rank bodies run in processes started by ``repro_torch.launch.mesh.spawn``
 (gloo over CPU processes), so this module imports torch and the port only,
@@ -258,3 +258,13 @@ def train_cell_body(layout, scs, cfg, epochs):
         else:
             st = cell.fn(*args)
     return [x.numpy().copy() for x in st], cost.collectives, cost.collective_bytes
+
+
+def skipped_shift_rank(layout, sc, cfgs, seed):
+    """``analysis.preflight.session_rank`` on a ring whose z re-ship is a
+    copy, not a shift: a seeded fault for the sharding audit."""
+    from repro_torch.analysis import preflight
+    from repro_torch.dist import collectives as coll
+
+    coll.shift = lambda layout, name, tensors: [t.clone() for t in tensors]
+    return preflight.session_rank(layout, sc, cfgs, seed)

@@ -466,8 +466,18 @@ def test_cli_records_every_jax_id_at_both_meshes_without_jax():
 
 
 def test_cli_verify_names_its_roadmap_item():
-    proc = _run_cli("--verify")
-    assert proc.returncode != 0 and "13a" in proc.stderr
+    """--verify is the launch gate on the default P = 2 alias session: exit
+    0, and --json the report with the five passes (the subprocess holds no
+    jax)."""
+    proc = _run_cli("--verify", "--json")
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    doc = json.loads(proc.stdout)
+    assert doc["ok"] is True
+    assert [p["pass"] for p in doc["passes"]] == ["sharding", "smem", "determinism",
+                                                  "concurrency", "lint"]
+    sharding = doc["session"]["sharding"]
+    assert sharding["ppermute_formula"] == 12
+    assert (sharding["ppermute_counted"], sharding["model_gathers_counted"]) == ([8] * 4, [2] * 4)
     table = _run_cli("--shard-table", "--json")
     assert table.returncode == 0
     rows = json.loads(table.stdout)["shard_table"]["rows"]

@@ -551,10 +551,15 @@ def test_launch_serve_warms_a_fleet_through_its_front_as_jax_does(monkeypatch):
     assert t["replicas"] == j["replicas"] == 2
 
 
-def test_launch_serve_refuses_preflight_and_a_missing_card(monkeypatch):
+def test_launch_serve_refuses_preflight_and_a_missing_card(monkeypatch, capsys):
+    """--preflight is the serving gate: concurrency + lint over the port and
+    the fleet's classes in the inventory, exit 0 before any engine is
+    built; without it a missing card raises."""
     with pytest.raises(SystemExit) as exc:
         tlaunch.main(["--preflight"])
-    assert exc.value.code == 2
+    assert exc.value.code == 0
+    out = capsys.readouterr().out
+    assert "[preflight] OK" in out and "missing from the concurrency inventory" not in out
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tlaunch.main(_LAUNCH)                      # --device defaults to cuda

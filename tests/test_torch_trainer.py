@@ -491,21 +491,28 @@ class TrainResultView:
 # ------------------------------ refusals ----------------------------------
 
 # the mesh flags train across ranks, streamed or not; what stays refused is a
-# streamed corpus on several pods (as the JAX driver refuses it), and --preflight
+# streamed corpus on several pods (as the JAX driver refuses it). --preflight
+# is the launch gate: it exits 0 on the default session before any Trainer
+# is built
 @pytest.mark.parametrize("flags", [["--pods", "2", "--n-segments", "2"],
                                    ["--pods", "2", "--data-shards", "2", "--n-segments", "3"],
                                    ["--pods", "2", "--corpus-dir", "segments"],
                                    ["--pods", "2", "--sharded-model", "--model-shards", "2",
                                     "--n-segments", "2"],
                                    ["--preflight"]])
-def test_launch_train_refuses_unported_flags(capsys, flags):
+def test_launch_train_refuses_unported_flags(capsys, monkeypatch, flags):
+    if flags[0] == "--preflight":
+        def no_trainer(*a, **kw):
+            raise AssertionError("the gate built a Trainer")
+        monkeypatch.setattr("repro_torch.training.Trainer", no_trainer)
     with pytest.raises(SystemExit) as exc:
         tlaunch.main(["--device", "cpu", "--bench-out", ""] + flags)
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
+    out, err = capsys.readouterr()
     if flags[0] == "--preflight":
-        assert "ROADMAP" in err and "--preflight" in err
+        assert exc.value.code == 0, out
+        assert "[preflight] OK" in out and "[export]" not in out
     else:
+        assert exc.value.code == 2
         assert "segment streaming is single-configuration" in err
 
 
