@@ -125,19 +125,47 @@ timed beside its bound and ``index_add_``; dlrm-mlperf 10 steps and xdeepfm,
 din, autoint 5 steps each on one fixed batch (a batch that does not fit the
 card is halved, and the cut printed): step ms, samples/s, peak GiB, a
 falling loss, two steps from one state bit for bit, untouched rows
-unchanged, a profiled step. Then the dry run ([dryrun]): ``python -m
+unchanged, a profiled step. Then the GNN workload ([gnn], graphsage-reddit):
+``gather_segment_sum`` (message passing on the row-gradient kernel, forward
+and gradient) bit for bit against its plain version at one ogb_products edge
+chunk (1,048,576 edges, d = 100), at cora's width (d = 1,433) and at
+minibatch_lg's level-2 block (d = 602), the bag's dense gradient at its
+level-1 block; then the four train cells through ``cell.fn`` at full size:
+full_graph_sm on a ``random_graph`` of cora's size (20 AdamW steps, the
+loss must fall), minibatch_lg fed by the ``NeighborSampler`` on a
+``random_graph`` of reddit's 232,965 nodes (average degree cut to 20, 1,024
+seeds, fanouts 15/10), ogb_products (59 edge chunks a layer) and molecule on
+drawn inputs, 3 steps each, step 1 twice from one state bit for bit, then
+one more step with every launch of the row-gradient kernel held against its
+plain version bit for bit; step ms, peak GiB, launches. Then the LM/MoE
+workload ([lm]): qwen3-0.6b's train_4k at full width on one microbatch of
+2 × 4,096 (remat on) and qwen2-moe-a2.7b's at 2 of its 24 layers, 3 AdamW
+steps each, step 1 twice bit for bit, one more step held as the GNN's (the
+embedding gradient, the MoE dispatch with its overflow run, the combine and
+their transposes), the launches with the most rows and the longest run
+timed at their own inputs; serving at full depth in bf16, qwen3-0.6b and
+qwen2-moe-a2.7b (28.6 GB): a 4,096-token chunked-prefill step at B = 4
+into a 32,768-position cache and 16 decode steps (tokens/s, peak GiB),
+``prefill`` and one more decode step held; the chunk's logits against
+``prefill``'s and the decode logits against ``forward``'s (qwen3 in bf16;
+the MoE, whose bf16 routers flip near-ties, in f32 at capacity factor E/k,
+where nothing drops, and a decode routing that differs from ``forward``'s
+must be a near-tie). Then the dry run ([dryrun]): ``python -m
 repro_torch.launch.dryrun --all --both-meshes --json`` in a subprocess (the
 parent has freed its table by then): every cell of every arch at the 16×16
-and 2×16×16 meshes, each recsys cell's one-rank step on this card (ms,
-live bytes, counted flops and bytes, roofline share); dlrm-mlperf's four
-cells, every serve_p99 and din's and autoint's train_batch must be ok, any
-other cell ok or out of memory; peacock-lda's three cells recorded, not run
-(84 GB of arguments at one rank); the LM and GNN ids skipped; dlrm's step
-within 0.5–2× of the train phase's; the shard table's P = 1 row not
-fitting 80 GB and its P = 2 row fitting. Then the five example twins
-([examples], ``examples/*_torch.py``, in parallel on the card): each must
-exit 0 after its own assertions and launch its path's kernels. A small loop
-holds the four small recsys configs on the card against the CPU.
+and 2×16×16 meshes, each cell's one-rank step on this card (ms, live bytes,
+counted flops and bytes, roofline share; an LM train step on one
+microbatch); dlrm-mlperf's four cells, every serve_p99, din's and
+autoint's train_batch, graphsage-reddit's four cells and smollm-135m's and
+qwen3-0.6b's train_4k must be ok, any other cell ok or out of memory;
+the cells whose one-rank arguments pass 80 GB (peacock-lda's three, the
+MoE archs' train_4k, every decode_32k, all prefill_32k but smollm-135m's)
+recorded, not run; long_500k skipped with JAX's reason; dlrm's step within
+0.5–2× of the train phase's; the shard table's P = 1 row not fitting 80 GB
+and its P = 2 row fitting. Then the six example twins ([examples],
+``examples/*_torch.py``, in parallel on the card): each must exit 0 after
+its own assertions and launch its path's kernels. A small loop holds the
+four small recsys configs on the card against the CPU.
 
 Then RT-LDA serving at K = 100,000, V = 32,768: ``launch.serve``'s own model
 (quick_train's first ``gibbs_argmax`` launch held against the plain
@@ -2809,15 +2837,642 @@ def recsys_small_phase():
         f"{worst:.3g}); {ops.launches - before} kernel lookups on the card")
 
 
+# ------------------------------------------------------------- GNN phase
+# graphsage-reddit's four train cells at full size through cell.fn, every
+# float scatter on their paths a launch of the row-gradient kernel
+# (gather_segment_sum, segment_sum / gather_rows) or the bag kernel
+# (minibatch_lg's aggregate)
+GNN = dict(seed=26, steps=3, cora_steps=20, cora_degree=3, reddit_degree=20,
+           reddit_seeds=1024, chunk=1_048_576)
+
+
+def fingerprint(tree):
+    """A bit-level digest of a tensor tree: per leaf, the int64 sum of its
+    words (the element bits as int16 or int32), in sorted key order."""
+    from repro_torch.checkpoint.io import leaves
+    out = []
+    for x in leaves(tree):
+        x = x.detach().contiguous()
+        w = x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+        out.append(int(w.sum(dtype=torch.int64)))
+    return out
+
+
+def plain_segment_sum(rows, seg, n):
+    """segment_sum's plain version on the card: the row-gradient kernel's
+    plain version (its order), copied into the distinct rows of zeros."""
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_padded_bwd_ref
+    u, sums = embedding_bag_padded_bwd_ref(rows, seg.reshape(-1, 1), None, "sum")
+    out = torch.zeros((n, rows.shape[1]), dtype=rows.dtype, device=rows.device)
+    return out.index_copy_(0, u, sums.to(rows.dtype))
+
+
+def scatter_check(h, src, dst, n, label):
+    """gather_segment_sum(h, src, dst, n) in one chunk and its gradient with
+    respect to h (itself with src and dst swapped) against their plain
+    versions, bit for bit; timed beside index_add_ (the library call, whose
+    order changes from run to run). Returns its numbers."""
+    from repro_torch.kernels.embedding_bag import ops
+    E = src.shape[0]
+    x = h.detach().requires_grad_(True)
+    out = ops.gather_segment_sum(x, src, dst, n, E)
+    want = plain_segment_sum(h[src.long()], dst, n)
+    if not same_bits(out.detach(), want):
+        raise AssertionError(f"gather_segment_sum {label}: differs from its plain version by "
+                             f"{float((out.detach() - want).abs().max())}")
+    up = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(5),
+                     device="cuda", dtype=h.dtype)
+    (grad,) = torch.autograd.grad(out, x, up)
+    want_g = plain_segment_sum(up[dst.long()], src, h.shape[0])
+    if not same_bits(grad, want_g):
+        raise AssertionError(f"gather_segment_sum {label}: its gradient differs from the "
+                             f"plain version by {float((grad - want_g).abs().max())}")
+    del x, out, want, up, grad, want_g
+    ms = timed_ms(lambda: ops.gather_segment_sum(h, src, dst, n, E), 5)
+    plain_ms, _ = events_ms(lambda: plain_segment_sum(h[src.long()], dst, n))
+    rows = h[src.long()]
+    lib_ms = timed_ms(lambda: torch.zeros((n, h.shape[1]), dtype=h.dtype, device="cuda")
+                      .index_add_(0, dst.long(), rows), 5)
+    # each edge's source row read once, both ids read, the output written once
+    moved = rows.numel() * rows.element_size() + E * 8 + n * h.shape[1] * h.element_size()
+    b_ms, b_by = bound(moved, rows.numel())
+    log(f"[gnn] gather_segment_sum at {label} ({E:,} edges of {h.shape[1]} "
+        f"{str(h.dtype).replace('torch.', '')} into {n:,}): kernel == plain bit for bit, "
+        f"forward and gradient; {ms:.4f} ms (plain {plain_ms:.4f}, index_add_ {lib_ms:.4f}, "
+        f"bound {b_ms:.4f} by {b_by})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms)
+
+
+@contextlib.contextmanager
+def held_bwd(keep=None):
+    """Every launch of the row-gradient kernel inside the block held against
+    its plain version on the same inputs, bit for bit (the distinct rows and
+    the sums): a mismatch raises. Yields the list of the launches' shapes
+    (ids, distinct rows, longest run, D, dtype); ``keep``, a dict, gets the
+    inputs of the launch with the longest run (``run``) and of the one with
+    the most distinct rows (``wide``), for timing."""
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_padded_bwd_ref
+    real, calls = ops.embedding_bag_bwd_cuda, []
+
+    def held(grad_out, ids, weights=None, combiner="sum"):
+        u, sums = real(grad_out, ids, weights, combiner)
+        wu, ws = embedding_bag_padded_bwd_ref(grad_out, ids, weights, combiner)
+        if not (torch.equal(u, wu) and same_bits(sums, ws)):
+            raise AssertionError(f"embedding_bag_bwd on the path ({tuple(ids.shape)} ids, D "
+                                 f"{grad_out.shape[1]}, {grad_out.dtype}): differs from its "
+                                 f"plain version")
+        flat = ids.reshape(-1)
+        run = int(torch.unique(flat[flat >= 0], return_counts=True)[1].max())
+        calls.append(dict(ids=flat.numel(), distinct_rows=u.numel(), longest_run=run,
+                          D=grad_out.shape[1], dtype=str(grad_out.dtype)))
+        if keep is not None and weights is None and ids.shape[1] == 1:
+            args = (grad_out.detach(), ids)
+            if run > keep.get("run", (-1,))[0]:
+                keep["run"] = (run, args)
+            if u.numel() > keep.get("wide", (-1,))[0]:
+                keep["wide"] = (u.numel(), args)
+        return u, sums
+
+    ops.embedding_bag_bwd_cuda = held
+    try:
+        yield calls
+    finally:
+        ops.embedding_bag_bwd_cuda = real
+
+
+def held_line(calls):
+    """A summary of ``held_bwd``'s launches for a log line."""
+    if not calls:
+        return "no launch of embedding_bag_bwd"
+    return (f"{len(calls)} launches of embedding_bag_bwd, each equal to its plain version bit "
+            f"for bit ({min(c['ids'] for c in calls):,}–{max(c['ids'] for c in calls):,} ids, "
+            f"D {sorted({c['D'] for c in calls})}, {sorted({c['dtype'] for c in calls})}, "
+            f"the longest run {max(c['longest_run'] for c in calls):,} items)")
+
+
+def bwd_at_call(label, grad, ids, tag):
+    """The row-gradient kernel at one launch's own inputs taken from the path
+    (``held_bwd``'s ``keep``): timed as the path launches it (its stable
+    sort included), the plain version once, ``index_add_`` into a zeroed
+    [U, D] f32 (a yardstick, never on the path) and the bytes bound."""
+    from repro_torch.kernels.embedding_bag.kernel import LONG_RUN, embedding_bag_bwd_cuda
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_padded_bwd_ref, row_runs
+    order, rows, starts = row_runs(ids)
+    U, N, D = rows.numel(), ids.shape[0], grad.shape[1]
+    counts = starts[1:] - starts[:-1]
+    pad = N - int(counts.sum())
+    ms = timed_ms(lambda: embedding_bag_bwd_cuda(grad, ids, None, "sum"), 5)
+    plain_ms, _ = events_ms(lambda: embedding_bag_padded_bwd_ref(grad, ids, None, "sum"))
+    inverse = torch.full((N,), U, dtype=torch.int64, device="cuda")
+    inverse[order[pad:]] = torch.repeat_interleave(torch.arange(U, device="cuda"), counts)
+    acc = torch.zeros((U + 1, D), dtype=torch.float32, device="cuda")
+    gradf = grad.float()
+    library_ms = timed_ms(lambda: acc.index_add_(0, inverse, gradf), 5)
+    # each item's row and id read once, each distinct row and its f32 sum
+    # written once; one add an element
+    moved = (N - pad) * (D * grad.element_size() + 4) + U * (8 + D * 4)
+    bound_ms, bound_by = bound(moved, (N - pad) * D)
+    longest, n_long = int(counts.max()), int((counts > LONG_RUN).sum())
+    log(f"{tag} embedding_bag_bwd at {label} ({N:,} ids, {U:,} distinct rows, the longest run "
+        f"{longest:,}, {n_long} runs longer than {LONG_RUN}, D={D}, {grad.dtype}): "
+        f"{ms:.4f} ms with its sort (plain {plain_ms:.4f}, index_add_ {library_ms:.4f}, bound "
+        f"{bound_ms:.4f} by {bound_by})")
+    return dict(ids=N, distinct_rows=U, longest_run=longest, long_runs=n_long, D=D,
+                dtype=str(grad.dtype), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms)
+
+
+def bag_dense_check(table, nb, label):
+    """The sampled aggregate's bag kernel with its dense row gradient (the
+    table an activation) against the plain versions, bit for bit in the
+    gradient (the row-gradient kernel, mean over the valid mask)."""
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_padded_bwd_ref
+    ids, w = nb.clamp_min(0).to(torch.int32).contiguous(), (nb >= 0).to(torch.float32)
+    x = table.detach().requires_grad_(True)
+    out = ops.embedding_bag(x, ids, w, "mean", dense_grad=True)
+    up = torch.randn(out.shape, generator=torch.Generator(device="cuda").manual_seed(6),
+                     device="cuda")
+    (grad,) = torch.autograd.grad(out, x, up)
+    u, sums = embedding_bag_padded_bwd_ref(up, ids, w, "mean")
+    want = torch.zeros_like(grad).index_copy_(0, u, sums)
+    if grad.is_sparse or not same_bits(grad, want):
+        raise AssertionError(f"embedding_bag dense gradient {label}: differs from the plain "
+                             "version")
+    log(f"[gnn] embedding_bag mean with its dense row gradient at {label} "
+        f"({ids.shape[0]:,} × {ids.shape[1]} into {table.shape[0]:,} rows of "
+        f"{table.shape[1]}): the gradient equals the plain version bit for bit")
+
+
+def pad_graph(g, N, E):
+    """A random_graph laid into a full-graph cell's padded shapes: its nodes
+    first, the padding edges from and to the last padded node, every real
+    node in the loss."""
+    src, dst = g.edge_list()
+    feats = torch.zeros((N, g.feats.shape[1]))
+    feats[:g.n_nodes] = torch.from_numpy(g.feats)
+    s = torch.full((E,), N - 1, dtype=torch.int32)
+    d = s.clone()
+    s[:len(src)], d[:len(dst)] = torch.from_numpy(src), torch.from_numpy(dst)
+    labels = torch.zeros(N, dtype=torch.int32)
+    labels[:g.n_nodes] = torch.from_numpy(g.labels)
+    mask = (torch.arange(N) < g.n_nodes).to(torch.float32)
+    return [t.cuda() for t in (feats, s, d, labels, mask)]
+
+
+def pad_blocks(feats, neigh, labels, sizes):
+    """A NeighborSampler draw laid into minibatch_lg's padded level sizes
+    (zero feature rows, −1 neighbor rows)."""
+    fs = []
+    for f, n in zip(feats, sizes):
+        if f.shape[0] > n:
+            raise AssertionError(f"a sampled level of {f.shape[0]} rows exceeds the cell's {n}")
+        x = torch.zeros((n, f.shape[1]), device="cuda")
+        x[:f.shape[0]] = torch.from_numpy(f).cuda()
+        fs.append(x)
+    ns = []
+    for nb, n in zip(neigh, sizes):
+        x = torch.full((n, nb.shape[1]), -1, dtype=torch.int32)
+        x[:nb.shape[0]] = torch.from_numpy(nb)
+        ns.append(x.cuda())
+    return fs, ns, torch.from_numpy(labels).cuda()
+
+
+def train_cell(label, cell, args, steps, want_fall=False, tag="[gnn]", keep=None):
+    """``steps`` AdamW steps of a cell from ``args`` (params and state
+    first), the first run twice from one state (the same bits), the counts
+    from 0 before and read after; then one more step with every launch of
+    the row-gradient kernel held against its plain version (``held_bwd``,
+    ``keep`` as there) → its report."""
+    from repro_torch.kernels.embedding_bag import ops
+    params, state, *inputs = args
+    free_card()
+    bag0, bwd0 = ops.launches, ops.bwd_launches
+    losses, times, prints = [], [], []
+    for i in range(steps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        new, new_state, loss = cell.fn(params, state, *inputs)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+        losses.append(float(loss))
+        if i == 0:
+            prints.append(fingerprint((new, new_state, loss)))
+            del new, new_state, loss
+            again = cell.fn(params, state, *inputs)
+            prints.append(fingerprint(again))
+            new, new_state, loss = again
+            del again
+        params, state = new, new_state
+        del new, new_state
+    launches = (ops.launches - bag0, ops.bwd_launches - bwd0)
+    peak = peak_gib()
+    with held_bwd(keep) as calls:
+        cell.fn(params, state, *inputs)
+    if len(calls) * (steps + 1) != launches[1]:
+        raise AssertionError(f"{label}: the held step made {len(calls)} launches of "
+                             f"embedding_bag_bwd, the {steps + 1} steps {launches[1]}")
+    if prints[0] != prints[1]:
+        raise AssertionError(f"{label}: step 1 twice from one state gave different bits")
+    if not all(np.isfinite(losses)) or (want_fall and not losses[-1] < losses[0]):
+        raise AssertionError(f"{label}: losses {losses}")
+    med = float(np.median(times[1:] if steps > 1 else times))
+    log(f"{tag} {label}: {steps} AdamW steps through cell.fn, median step {med:.4f} ms "
+        f"(CUDA events; first {times[0]:.4f}), peak {peak:.2f} GiB, losses "
+        f"{[round(x, 5) for x in (losses if steps <= 5 else losses[:3] + losses[-2:])]}; "
+        f"step 1 twice from one state: the same bits in every parameter, moment and the "
+        f"loss; launches embedding_bag={launches[0]} embedding_bag_bwd={launches[1]}; one "
+        f"more step: {held_line(calls)}")
+    return dict(step_ms=med, peak_gib=peak, losses=losses, bag=launches[0], bwd=launches[1],
+                held=len(calls))
+
+
+def gnn_phase():
+    """The GNN slice on the card: segment_sum / gather_rows bit for bit at one
+    ogb_products edge chunk (d = 100 f32), at cora's feature width (d =
+    1,433) and at minibatch_lg's level-2 block (d = 602), the bag's dense
+    gradient at the level-1 block; then the four cells (full_graph_sm on a
+    random_graph of cora's size for 20 steps, minibatch_lg fed by the
+    NeighborSampler on a random_graph of reddit's nodes, ogb_products and
+    molecule on their drawn inputs). Returns each cell's report."""
+    from repro_torch.configs import gnn_archs as ga
+    from repro_torch.data import sampler as smp
+    from repro_torch.dist import sharding as shd
+    G = GNN
+    g = torch.Generator(device="cuda").manual_seed(G["seed"])
+    spec = ga.spec()
+    scat = {}
+    n = shd.round_up(ga.GNN_SHAPES["ogb_products"]["n_nodes"], 512)
+    h = torch.randn((n, 100), generator=g, device="cuda")
+    src = torch.randint(0, n, (G["chunk"],), generator=g, device="cuda", dtype=torch.int32)
+    dst = torch.randint(0, n, (G["chunk"],), generator=g, device="cuda", dtype=torch.int32)
+    scat["ogb_products edge chunk"] = scatter_check(h, src, dst, n + 1,
+                                                   "one ogb_products edge chunk")
+    del h, src, dst
+    h = torch.randn((3072, 1433), generator=g, device="cuda")
+    e = torch.randint(0, 3072, (2, 10752), generator=g, device="cuda", dtype=torch.int32)
+    scat["cora width"] = scatter_check(h, e[0], e[1], 3073, "full_graph_sm's edges (d = 1,433)")
+    sizes = [1024, 15360, 153600]
+    h2 = torch.randn((sizes[2], 602), generator=g, device="cuda")
+    ids = torch.arange(sizes[2], device="cuda", dtype=torch.int32)
+    seg = ids // 10
+    scat["minibatch_lg level 2"] = scatter_check(h2, ids, seg, sizes[1],
+                                                 "minibatch_lg's level-2 block (d = 602)")
+    h1 = torch.randn((sizes[1], 128), generator=g, device="cuda")
+    nb = torch.arange(sizes[1], device="cuda", dtype=torch.int32).reshape(1024, 15)
+    nb[torch.rand(nb.shape, generator=g, device="cuda") < 0.1] = -1
+    bag_dense_check(h1, nb, "minibatch_lg's level-1 block (h[1], d = 128)")
+    del h2, ids, seg, h1, nb
+    free_card()
+
+    runs = {}
+    # full_graph_sm: a random graph of cora's nodes (avg degree cut to fit
+    # the cell's 10,752 padded edges), 20 steps, the loss must fall
+    shape = ga.GNN_SHAPES["full_graph_sm"]
+    t0 = time.perf_counter()
+    graph = smp.random_graph(G["seed"], shape["n_nodes"], G["cora_degree"], shape["d_feat"],
+                             shape["n_classes"])
+    cell = spec.cell("full_graph_sm")
+    params, state = cell.make_args(g, "cuda")[:2]
+    inputs = pad_graph(graph, 3072, 10752)
+    log(f"[gnn] full_graph_sm: random_graph of {graph.n_nodes:,} nodes, {graph.n_edges:,} edges "
+        f"(avg degree {G['cora_degree']}: cora's 10,556 edges pad to the cell's 10,752), "
+        f"{shape['d_feat']} features, {shape['n_classes']} classes, drawn in "
+        f"{time.perf_counter() - t0:.2f} s")
+    runs["full_graph_sm"] = train_cell("full_graph_sm (random_graph at cora's size)", cell,
+                                       [params, state] + inputs, G["cora_steps"], want_fall=True)
+    # minibatch_lg: the NeighborSampler on a random graph of reddit's nodes
+    shape = ga.GNN_SHAPES["minibatch_lg"]
+    t0 = time.perf_counter()
+    graph = smp.random_graph(G["seed"], shape["n_nodes"], G["reddit_degree"], shape["d_feat"],
+                             shape["n_classes"])
+    drawn = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sampler = smp.NeighborSampler(graph, shape["fanouts"], seed=G["seed"])
+    seeds = np.random.default_rng(G["seed"]).choice(graph.n_nodes, G["reddit_seeds"],
+                                                    replace=False)
+    feats, neigh, labels = sampler.sample(seeds)
+    sampled = time.perf_counter() - t0
+    log(f"[gnn] minibatch_lg: random_graph of {graph.n_nodes:,} nodes and {graph.n_edges:,} "
+        f"edges (avg degree cut to {G['reddit_degree']} from the published graph's "
+        f"{shape['n_edges'] / shape['n_nodes']:.0f}, so the host draw stays within seconds; "
+        f"the blocks' shapes do not change while the degree exceeds the fanouts "
+        f"{shape['fanouts']}), drawn in {drawn:.2f} s; NeighborSampler on "
+        f"{G['reddit_seeds']} seeds in {sampled:.2f} s: levels "
+        f"{[f.shape[0] for f in feats]}, padding {[int((x < 0).sum()) for x in neigh]}")
+    del graph
+    cell = spec.cell("minibatch_lg")
+    params, state = cell.make_args(g, "cuda")[:2]
+    fs, ns, ls = pad_blocks(feats, neigh, labels, sizes)
+    runs["minibatch_lg"] = train_cell("minibatch_lg (NeighborSampler blocks)", cell,
+                                      [params, state, fs, ns, ls], G["steps"])
+    del fs, ns, ls, feats, neigh
+    for name in ("ogb_products", "molecule"):
+        free_card()
+        cell = spec.cell(name)
+        t0 = time.perf_counter()
+        args = cell.make_args(g, "cuda")
+        torch.cuda.synchronize()
+        log(f"[gnn] {name}: inputs drawn on the card in {time.perf_counter() - t0:.2f} s "
+            f"({ga.GNN_SHAPES[name]})")
+        runs[name] = train_cell(name, cell, list(args), G["steps"])
+        del args
+    if runs["minibatch_lg"]["bag"] == 0 or any(r["bwd"] == 0 for r in runs.values()):
+        raise AssertionError(f"a GNN cell launched no kernel: {runs}")
+    free_card()
+    return runs, scat
+
+
+# -------------------------------------------------------------- LM phase
+# qwen3-0.6b's train_4k at full width on one microbatch, qwen2-moe-a2.7b's
+# train step at two layers and its serving at full depth in bf16
+LM = dict(seed=27, steps=3, serve_batch=4, prompt=4096, cache=32_768, decode=16,
+          check_batch=2, tol={"bfloat16": (0.03, 0.1), "float32": (1e-3, 2e-3)},
+          tie_eps=1e-4)
+
+
+def lm_train(label, cfg, cell):
+    """``LM['steps']`` steps of an LM train cell (one microbatch), step 1 run
+    twice from one state (the same bits)."""
+    g = torch.Generator(device="cuda").manual_seed(LM["seed"])
+    t0 = time.perf_counter()
+    args = cell.make_args(g, "cuda")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    tokens = args[2].numel()
+    keep = {}
+    rep = train_cell(label, cell, list(args), LM["steps"], tag="[lm]", keep=keep)
+    rep.update(tokens_per_s=tokens / (rep["step_ms"] / 1e3), setup_s=setup,
+               n_params=cfg.n_params)
+    log(f"[lm] {label}: {cfg.n_params / 1e9:.3f}·10⁹ params ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}"
+        + (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k}" if cfg.moe else "")
+        + f"), {tokens} tokens a step: {rep['tokens_per_s']:.1f} tokens/s, step "
+        f"{rep['step_ms']:.4f} ms, peak {rep['peak_gib']:.2f} GiB, set-up {setup:.2f} s")
+    del args
+    free_card()
+    seen = []
+    for k, what in (("wide", "the launch with the most distinct rows"),
+                    ("run", "the launch with the longest run")):
+        if k in keep and not any(keep[k][1] is a for a in seen):
+            seen.append(keep[k][1])
+            rep[k] = bwd_at_call(f"{label}: {what}", *keep[k][1], "[lm]")
+    del keep, seen
+    return rep
+
+
+def logit_stats(got, want, tol):
+    """(max |Δ|, the share of rows whose every logit lies within |Δ| ≤ atol
+    + rtol·|want|, the share of rows whose argmax agrees)."""
+    rtol, atol = tol
+    d = (got - want).abs()
+    ok = (d <= atol + rtol * want.abs()).reshape(-1, d.shape[-1]).all(-1)
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean()
+    return float(d.max()), float(ok.float().mean()), float(agree)
+
+
+@contextlib.contextmanager
+def routes_of(moe):
+    """Record every MoE router call inside the block: a list of (probs [T,
+    E] f32, expert ids [T, k]), one a layer a call, in call order."""
+    real, calls = moe.route, []
+
+    def recorded(x, router, cfg):
+        probs, gate, expert = real(x, router, cfg)
+        calls.append((probs.detach(), expert))
+        return probs, gate, expert
+
+    moe.route = recorded
+    try:
+        yield calls
+    finally:
+        moe.route = real
+
+
+def first_flips(dec_routes, fwd_routes, n_layers, B, P, D, mcfg):
+    """({batch row: its first (decode step, layer) whose expert ids differ
+    from forward's at that position, with forward's gap between its k-th and
+    (k+1)-th router probability there}, the router's numbers: forward's gaps
+    over every decode position and layer (min, median), and the largest
+    |Δ probability| between the two paths' routers on the rows before each
+    batch row's flip). Raises where a flip's gap is not below
+    ``LM['tie_eps']``: only a near-tie may flip. ({}, {}) for a dense model."""
+    if mcfg is None:
+        return {}, {}
+    k, S = mcfg.top_k, P + D
+    flips, gaps, dev = {}, [], 0.0
+    for b in range(B):
+        for i in range(D):
+            for layer in range(n_layers):
+                dp, de = dec_routes[i * n_layers + layer]
+                fp, fe = fwd_routes[layer]
+                row = b * S + P + i
+                p = torch.sort(fp[row], descending=True).values
+                gap = float(p[k - 1] - p[k])
+                gaps.append(gap)
+                if b in flips:
+                    continue
+                if torch.equal(torch.sort(de[b]).values, torch.sort(fe[row]).values):
+                    dev = max(dev, float((dp[b] - fp[row]).abs().max()))
+                    continue
+                flips[b] = dict(step=i, layer=layer, gap=gap,
+                                experts=(torch.sort(de[b]).values.tolist(),
+                                         torch.sort(fe[row]).values.tolist()))
+    stats = dict(gap_min=min(gaps), gap_median=float(np.median(gaps)), held_router_dev=dev)
+    bad = {b: f for b, f in flips.items() if not f["gap"] < LM["tie_eps"]}
+    if bad:
+        raise AssertionError(f"router flips that are no near-tie (gap ≥ {LM['tie_eps']}): "
+                             f"{bad}; {stats}")
+    return flips, stats
+
+
+def lm_serve(cfg, label, check_dtype):
+    """``cfg`` at full depth in bf16: one 4,096-token chunked-prefill step at
+    B = 4 into a 32,768-position cache, then 16 decode steps (the timed
+    path); then one more decode step and ``prefill`` of the prompt with
+    every row-gradient launch held against its plain version
+    (``held_bwd``). Then the check, in ``check_dtype``, on the prompt's
+    first ``LM['check_batch']`` rows (the f32 weights of qwen2-moe take 57
+    GB) and a cache of the 4,112 positions it fills: the chunk's logits
+    against ``prefill``'s and the decode logits against ``forward``'s over
+    the whole sequence, within ``LM['tol']`` of its dtype. An MoE is checked
+    in f32 (weights drawn again in f32): in bf16 its rows disagree wherever
+    rounding flips a near-tie of a router's top-k (near-uniform routers of
+    random weights), which sends a token to another expert; the bf16 path's
+    argmax agreement is printed. In f32 such a flip is rare but was seen
+    once in 768 decode routings, and the decode rows from it on part from
+    forward's: so each batch row's first decode routing that differs from
+    forward's must be a near-tie there (``first_flips``), and every decode
+    row before it, and every row of a batch row with none, is held to the
+    tolerance. The check runs an MoE at capacity factor E/k (15) on both
+    sides: an expert's capacity is then at least the step's tokens, so no
+    pair drops (at 4, random routers load some experts past it, and
+    ``forward``, whose token order puts the second row's decode positions
+    last, drops pairs the decode steps keep)."""
+    import dataclasses
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.models import moe, transformer as tf
+    L = LM
+    g = torch.Generator(device="cuda").manual_seed(L["seed"] + 1)
+    free_card()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, g, "cuda", cfg.dtype)
+    cache = tf.init_kv_cache(cfg, L["serve_batch"], L["cache"], device="cuda")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    B, P, D = L["serve_batch"], L["prompt"], L["decode"]
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g, device="cuda",
+                           dtype=torch.int32)
+    bag0, bwd0 = ops.launches, ops.bwd_launches
+    # ---- the main path: chunked prefill, then decode ----
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    nxt, chunk_logits, cache = tf.serve_step(cfg, params, prompt, cache, 0)
+    b.record()
+    b.synchronize()
+    prefill_ms = a.elapsed_time(b)
+    cur, times = nxt, []
+    for i in range(D):
+        a.record()
+        cur, logits, cache = tf.decode_step(cfg, params, cur, cache, P + i)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    launches = (ops.launches - bag0, ops.bwd_launches - bwd0)
+    # ---- end of the main path ----
+    peak = peak_gib()
+    decode_ms = float(np.sum(times))
+    if not torch.isfinite(chunk_logits).all() or not torch.isfinite(logits).all():
+        raise AssertionError(f"{label} serving: non-finite logits")
+    cache_gb = 2 * cache["k"].numel() * cache["k"].element_size() / 1e9
+    with held_bwd() as held_decode:               # one more decode step, held
+        tf.decode_step(cfg, params, cur, cache, P + D)
+    del cache, logits
+    with held_bwd() as held_prefill:              # the prompt at the chunk's shapes
+        want, _ = tf.prefill(cfg, params, prompt, max_len=P)
+    bf16_agree = float((chunk_logits.argmax(-1) == want.argmax(-1)).float().mean())
+    del want
+    log(f"[lm] {label} serving at full depth in bf16 ({cfg.n_params / 1e9:.3f}·10⁹ params, "
+        f"{sum(x.numel() * x.element_size() for x in tf.leaves(params)) / 1e9:.2f} GB; "
+        f"cache {B} × {L['cache']:,} positions, {cache_gb:.2f} GB; set-up {setup:.2f} s): a "
+        f"{P:,}-token chunked-prefill step at B = {B} {prefill_ms:.4f} ms "
+        f"({B * P / prefill_ms * 1e3:.1f} tokens/s), {D} decode steps {decode_ms:.4f} ms "
+        f"({B * D / decode_ms * 1e3:.1f} tokens/s, median step "
+        f"{float(np.median(times)):.4f} ms), peak {peak:.2f} GiB; the chunk's argmax agrees "
+        f"with prefill's on {bf16_agree:.4f} of the rows; launches embedding_bag="
+        f"{launches[0]} embedding_bag_bwd={launches[1]}; held: prefill at B = {B}: "
+        f"{held_line(held_prefill)}; one more decode step: {held_line(held_decode)}")
+
+    # ---- the check, in check_dtype ----
+    c = dataclasses.replace(cfg, dtype=check_dtype)
+    if c.moe is not None:
+        # C = ceil(T·k/E)·E/k ≥ T: no expert can overflow, so no pair drops
+        cf = c.moe.n_experts / c.moe.top_k
+        c = dataclasses.replace(c, moe=dataclasses.replace(c.moe, capacity_factor=cf))
+    if check_dtype != cfg.dtype:
+        del params
+        free_card()
+        params = tf.init_params(c, g, "cuda", check_dtype)
+    tol = L["tol"][str(check_dtype).replace("torch.", "")]
+    Bc = L["check_batch"]
+    pc = prompt[:Bc]
+    cache = tf.init_kv_cache(c, Bc, P + D, device="cuda")
+    _, first, cache = tf.serve_step(c, params, pc, cache, 0)
+    want, _ = tf.prefill(c, params, pc, max_len=P)
+    pre = logit_stats(first, want, tol)
+    del want
+    seq, cur, got = [pc], first.argmax(-1).to(torch.int32)[:, None], []
+    with routes_of(moe) as dec_routes:
+        for i in range(D):
+            seq.append(cur)
+            nxt, step_logits, cache = tf.decode_step(c, params, cur, cache, P + i)
+            got.append(step_logits)
+            cur = nxt
+    del cache
+    with torch.no_grad(), routes_of(moe) as fwd_routes:
+        x, head, _ = tf.forward(c, params, torch.cat(seq, dim=1))
+        ref = x[:, P:].to(torch.float32) @ head.to(torch.float32)
+    got = torch.stack(got, dim=1)
+    dec = logit_stats(got, ref, tol)
+    # an MoE's decode row may part from forward's after a router near-tie
+    # flips (the two paths' GEMMs differ in shape): each batch row's first
+    # decode step whose expert ids differ from forward's at that position
+    # must be a near-tie in forward's router, and the rows before it are held
+    flips, router = first_flips(dec_routes, fwd_routes, c.n_layers, Bc, P, D, c.moe)
+    held = torch.ones((Bc, D), dtype=torch.bool, device="cuda")
+    for b_, f in flips.items():
+        held[b_, f["step"]:] = False
+    rtol, atol = tol
+    ok = ((got - ref).abs() <= atol + rtol * ref.abs()).all(-1)
+    n_held, n_ok = int(held.sum()), int((ok & held).sum())
+    del params, x, head, ref, got, dec_routes, fwd_routes
+    free_card()
+    log(f"[lm] {label} checked in {str(check_dtype).replace('torch.', '')} at full depth"
+        + ("" if c.moe is None else f", capacity factor {c.moe.capacity_factor} (no drops)")
+        + ": the "
+        f"chunk's logits vs prefill's: max |Δ| {pre[0]:.4g}, argmax agrees on {pre[2]:.4f}; "
+        f"decode vs forward ({D} steps × B = {Bc}): max |Δ| {dec[0]:.4g}, argmax agrees on "
+        f"{dec[2]:.4f}; within |Δ| ≤ {tol[1]} + {tol[0]}·|logit|: chunk {pre[1]:.4f} of the "
+        f"rows (must be 1), decode {n_ok} of the {n_held} held rows (must be all)"
+        + ("" if c.moe is None else
+           f"; router flips against forward's (batch row: step, layer, forward's gap between "
+           f"its top-{c.moe.top_k} and next probability, which must be below "
+           f"{L['tie_eps']}): {flips or 'none'}; forward's gaps over the {D} decode "
+           f"positions × {c.n_layers} layers: min {router['gap_min']:.3g}, median "
+           f"{router['gap_median']:.3g}; the routers' largest |Δ probability| on the held "
+           f"rows {router['held_router_dev']:.3g}"))
+    if pre[1] < 1.0 or n_ok < n_held:
+        raise AssertionError(f"{label}: chunked prefill / decode disagree with prefill / "
+                             f"forward: {pre}, {dec}, {n_ok} of {n_held} held decode rows")
+    return dict(prefill_ms=prefill_ms, decode_ms=decode_ms,
+                prefill_tokens_per_s=B * P / prefill_ms * 1e3,
+                decode_tokens_per_s=B * D / decode_ms * 1e3, peak_gib=peak,
+                bf16_prefill_argmax_agrees=bf16_agree, prefill_vs_chunk=pre,
+                decode_vs_forward=dec, decode_rows_held=n_held, router_flips=flips,
+                router=router,
+                bag=launches[0], bwd=launches[1],
+                held=len(held_prefill) + len(held_decode))
+
+
+def lm_phase():
+    """The LM/MoE slice on the card: qwen3-0.6b's train_4k at full width on
+    one microbatch of 2 × 4,096 (remat on), qwen2-moe-a2.7b's train step at
+    full width cut to 2 layers; then serving at full depth in bf16, the
+    dense qwen3-0.6b and qwen2-moe-a2.7b (``lm_serve``)."""
+    import dataclasses
+    from repro_torch.configs import base, lm_archs as la
+    runs = {}
+    cell = la.specs()["qwen3-0.6b"].cell("train_4k").one_rank_cut()
+    runs["qwen3-0.6b train_4k"] = lm_train(f"qwen3-0.6b train_4k, {cell.reduced}",
+                                           la.QWEN3_0_6B, cell)
+    cfg = dataclasses.replace(la.QWEN2_MOE, n_layers=2)
+    cell = base.build_lm_cell(cfg, "train_4k", None, micro_per_device=1, batch=1)
+    runs["qwen2-moe-a2.7b train_4k (2 layers)"] = lm_train(
+        "qwen2-moe-a2.7b train_4k at 2 of 24 layers, one sequence of 4,096", cfg, cell)
+    runs["qwen3-0.6b serving"] = lm_serve(la.QWEN3_0_6B, "qwen3-0.6b", torch.bfloat16)
+    runs["qwen2-moe-a2.7b serving"] = lm_serve(la.QWEN2_MOE, "qwen2-moe-a2.7b", torch.float32)
+    if any(r["bwd"] == 0 for r in runs.values() if r is not runs["qwen3-0.6b serving"]):
+        raise AssertionError(f"an LM path launched no row-gradient kernel: {runs}")
+    return runs
+
+
 # ------------------------------------------------------------ dry run phase
 # python -m repro_torch.launch.dryrun over every cell at both production
 # meshes, each cell's one-rank step on this card; the cells earlier phases
-# ran must be ok, the rest ok or out of memory (xdeepfm's CIN at its batches)
-DRYRUN = dict(budget_s=90, timeout_s=600,
+# ran must be ok, the rest ok or out of memory (xdeepfm's CIN at its
+# batches, minicpm-2b's train_4k); the budget: 87.4–113.5 s in runs with
+# the GNN and LM cells (one timed step for an LM train or prefill cell,
+# three for the rest: 90.1 s), on an H100 80GB HBM3 at 700 W
+DRYRUN = dict(budget_s=120, timeout_s=600,
               must_ok=[("dlrm-mlperf", s) for s in ("train_batch", "serve_p99", "serve_bulk",
                                                     "retrieval_cand")]
               + [(a, "serve_p99") for a in ("xdeepfm", "din", "autoint")]
-              + [("din", "train_batch"), ("autoint", "train_batch")],
+              + [("din", "train_batch"), ("autoint", "train_batch")]
+              + [("graphsage-reddit", s) for s in ("full_graph_sm", "minibatch_lg",
+                                                   "ogb_products", "molecule")]
+              + [("smollm-135m", "train_4k"), ("qwen3-0.6b", "train_4k")],
               step_ratio=(0.5, 2.0))
 
 
@@ -2832,8 +3487,9 @@ def dryrun_phase(dlrm_step_ms):
     now). Holds the records to their contract, prints each one-rank step's
     ms, live GiB, roofline share and bottleneck, and returns the
     ``embedding_bag`` and ``embedding_bag_bwd`` launches of those steps."""
-    from repro_torch.configs import NOT_PORTED
+    from repro_torch.configs import all_specs
 
+    specs = all_specs()
     t0 = time.perf_counter()
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun"]
     proc = subprocess.run(cmd + ["--all", "--both-meshes", "--json"], capture_output=True,
@@ -2848,9 +3504,9 @@ def dryrun_phase(dlrm_step_ms):
     one = {}
     for r in recs:
         key = (r["arch"], r["shape"])
-        if r["arch"] in NOT_PORTED:
+        if r["shape"] in specs[r["arch"]].skip:
             if r["status"] != "skip":
-                raise AssertionError(f"{key}: a not-ported id must be skipped, got {r}")
+                raise AssertionError(f"{key}: JAX skips this cell, got {r}")
             continue
         if r["status"] != "ok":
             raise AssertionError(f"{key} [{r['mesh']}]: {r['status']}: {r.get('error')}")
@@ -2863,8 +3519,11 @@ def dryrun_phase(dlrm_step_ms):
             if ("peacock-lda", shape, m) not in meshes:
                 raise AssertionError(f"peacock-lda/{shape} has no record at {m}")
     launches = {"embedding_bag": 0, "embedding_bag_bwd": 0}
+    by_family = {}
     for key, o in sorted(one.items()):
-        if key[0] == "peacock-lda":
+        if o["status"] == "not_run":
+            if key in DRYRUN["must_ok"] or o["arguments_bytes"] < 80e9:
+                raise AssertionError(f"{key}: not run at one rank: {o}")
             log(f"[dryrun] {key[0]}/{key[1]}: not run at one rank ({o['reason']}); "
                 f"arguments {o['arguments_bytes'] / 1e9:.2f} GB")
             continue
@@ -2878,11 +3537,15 @@ def dryrun_phase(dlrm_step_ms):
         if o["live_bytes_per_device"] < o["arguments_bytes"]:
             raise AssertionError(f"{key}: live bytes {o['live_bytes_per_device']} below its "
                                  f"arguments' {o['arguments_bytes']}")
+        fam = by_family.setdefault(specs[key[0]].family, dict.fromkeys(launches, 0))
         for k in launches:
             launches[k] += o["launches"][k]
+            fam[k] += o["launches"][k]
         kern = ", ".join(f"{k} {v['calls']:.0f}x {v['bytes'] / 1e6:.1f} MB"
                          for k, v in o["cost"]["kernels"].items())
-        log(f"[dryrun] {key[0]}/{key[1]}: one-rank step {o['step_ms']:.4f} ms, live "
+        log(f"[dryrun] {key[0]}/{key[1]}"
+            + (f" ({o['reduced']})" if o.get("reduced") else "")
+            + f": one-rank step {o['step_ms']:.4f} ms, live "
             f"{o['live_bytes_per_device'] / 2**30:.2f} GiB (arguments "
             f"{o['arguments_bytes'] / 2**30:.2f} GiB), counted {o['cost']['flops'] / 1e9:.3f} "
             f"GFLOP, {o['cost']['bytes'] / 1e9:.3f} GB in and out of its ops, "
@@ -2907,8 +3570,13 @@ def dryrun_phase(dlrm_step_ms):
         raise AssertionError("the shard table must not fit P = 1 and must fit P = 2")
     spent = time.perf_counter() - t0
     log(f"[dryrun] {len(recs)} records, {len(one)} cells; {spent:.1f} s (budget "
-        f"{DRYRUN['budget_s']} s{'' if spent <= DRYRUN['budget_s'] else ', OVER'})")
-    return launches
+        f"{DRYRUN['budget_s']} s{'' if spent <= DRYRUN['budget_s'] else ', OVER'}); launches "
+        f"of the one-rank steps by family: {by_family}")
+    for fam in ("gnn", "lm"):
+        if not by_family.get(fam, {}).get("embedding_bag_bwd"):
+            raise AssertionError(f"the {fam} cells' one-rank steps launched no row-gradient "
+                                 f"kernel: {by_family}")
+    return launches, by_family
 
 
 # ------------------------------------------------------------ preflight phase
@@ -3013,7 +3681,8 @@ def preflight_gates():
 EXAMPLES = dict(budget_s=60, timeout_s=600,
                 kernels={"serve_topics": ("gibbs_argmax",), "live_refresh": ("gibbs_argmax",),
                          "out_of_core": ("gibbs_argmax",), "fleet_demo": ("gibbs_argmax",),
-                         "big_model": ("alias_build", "mh_resample")})
+                         "big_model": ("alias_build", "mh_resample"),
+                         "lm_train": ("embedding_bag_bwd",)})
 
 
 def examples_phase():
@@ -3059,7 +3728,7 @@ def examples_phase():
     if failed:
         raise AssertionError("\n".join(failed))
     spent = time.perf_counter() - t0
-    log(f"[examples] 5 twins in {spent:.1f} s (budget {EXAMPLES['budget_s']} s"
+    log(f"[examples] {len(procs)} twins in {spent:.1f} s (budget {EXAMPLES['budget_s']} s"
         f"{'' if spent <= EXAMPLES['budget_s'] else ', OVER'})")
     return out
 
@@ -5050,9 +5719,13 @@ def main():
     mark("recsys")
     bwd, train = recsys_train_phase(recsys.pop())    # its only reference to the 48 GB table
     mark("recsys_train")
-    gc.collect()                       # the dry run's child draws its own 48 GB table
+    gc.collect()                       # the recsys tables go before the GNN and LM phases
     torch.cuda.empty_cache()
-    dry_launches = dryrun_phase(train["dlrm-mlperf"]["step_ms"])
+    gnn, gnn_scatter = gnn_phase()
+    mark("gnn")
+    lm = lm_phase()
+    mark("lm")
+    dry_launches, dry_by_family = dryrun_phase(train["dlrm-mlperf"]["step_ms"])
     mark("dryrun")
     example_launches = examples_phase()
     mark("examples")
@@ -5095,6 +5768,9 @@ def main():
                                    **{f"recsys_train_{a}": r["launches"]
                                       for a, r in train.items()},
                                    dryrun_one_rank=dry_launches["embedding_bag"],
+                                   **{f"dryrun_one_rank_{f}": n["embedding_bag"]
+                                      for f, n in dry_by_family.items()},
+                                   **{f"gnn_{c}": r["bag"] for c, r in gnn.items()},
                                    **{p: n["embedding_bag"] for p, n in quality.items()}),
              max_abs_err=max(bag_small_err, bag_full_err), multi_hot=bag["multi_hot"],
              **bag["lookup"]),
@@ -5105,7 +5781,19 @@ def main():
              launches=train["dlrm-mlperf"]["bwd_launches"],
              launches_by_path={**{f"recsys_train_{a}": r["bwd_launches"]
                                   for a, r in train.items()},
-                               "dryrun_one_rank": dry_launches["embedding_bag_bwd"]},
+                               **{f"gnn_{c}": r["bwd"] for c, r in gnn.items()},
+                               **{f"lm_{c}": r["bwd"] for c, r in lm.items()},
+                               "dryrun_one_rank": dry_launches["embedding_bag_bwd"],
+                               **{f"dryrun_one_rank_{f}": n["embedding_bag_bwd"]
+                                  for f, n in dry_by_family.items()},
+                               **{f"example_{name}": counts["embedding_bag_bwd"]
+                                  for name, counts in example_launches.items()
+                                  if counts.get("embedding_bag_bwd")}},
+             gather_segment_sum=gnn_scatter,
+             at_lm_launches={f"{c}: {k}": r[k] for c, r in lm.items()
+                             for k in ("wide", "run") if k in r},
+             held_on_path={**{f"gnn_{c}": r["held"] for c, r in gnn.items()},
+                           **{f"lm_{c}": r["held"] for c, r in lm.items()}},
              **bwd)]}))
     log(f"card: {card_line()}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

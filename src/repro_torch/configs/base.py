@@ -1,5 +1,5 @@
 """Cell builders: (architecture × input shape × layout) → a runnable step
-(port of the recsys half of ``repro.configs.base``; the LDA cells are in
+(port of ``repro.configs.base``; the LDA cells are in
 ``configs/peacock_lda.py``).
 
 A ``Cell`` holds the step function, a maker of its arguments (real inputs
@@ -11,19 +11,27 @@ PyTorch runs eagerly. The dry run (``launch/dryrun.py``) cuts the global
 arguments to one rank's bytes with the specs.
 
 Step functions by shape kind:
-  train_*      → recsys train step: fwd + bwd, SGD on the table rows a batch
-                 touches, AdamW on the dense parameters
+  train_*      → full train step: fwd + bwd + optimizer update (LM:
+                 microbatched gradient accumulation, f32 master params, bf16
+                 compute; GNN: AdamW; recsys: SGD on the table rows a batch
+                 touches, AdamW on the dense parameters)
+  prefill_*    → one chunked-prefill ``serve_step`` (C = 4,096) against a
+                 seq_len KV cache
+  decode_*     → one-token ``serve_step`` against a seq_len KV cache
   serve_*      → recsys batch forward; retrieval_cand → streamed top-k scoring
   (LDA)        → one rank's ring Gibbs epoch / RT-LDA serving batch
 
-A recsys cell of more than one rank is built (its specs and formulas are
-what the dry run records) but its step raises: the row-sharded recsys step
-across ranks is not ported (ROADMAP item 13b, "Open from it"). The LM and
-GNN halves are not ported (ROADMAP items 13e, 13d).
+A cell of more than one rank is built (its specs and formulas are what the
+dry run records) but the recsys, GNN and LM steps raise across ranks: they
+are ported for one rank only (ROADMAP items 13b, 13f, 13g). An LM train
+cell at one rank carries ``one_rank_cut``: the same step on one microbatch,
+which the dry run's one-rank record runs (the global batch is 128
+microbatches there).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -31,7 +39,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.dist import sharding as shd
+from repro_torch.models import gnn as gnn_mod
 from repro_torch.models import recsys as rec_mod
+from repro_torch.models import transformer as tf_mod
+from repro_torch.optim import schedules
 from repro_torch.optim.adamw import AdamW
 
 
@@ -58,12 +69,16 @@ class Cell:
                                    # for a dict arg (JAX's in_shardings)
     arg_roles: Tuple[str, ...] = ()
                                    # per arg: the role its bytes count under
+    one_rank_cut: Optional[Callable[[], "Cell"]] = None
+                                   # the cell a one-rank run takes instead
+                                   # (an LM train step on one microbatch)
+    reduced: str = ""              # what that cut cell leaves out
 
 
 @dataclasses.dataclass
 class ArchSpec:
     arch_id: str
-    family: str                    # recsys | lda (lm | gnn: ROADMAP 13e, 13d)
+    family: str                    # lm | gnn | recsys | lda
     shapes: Dict[str, Dict[str, Any]]
     build: Callable[[str, Any], Optional[Cell]]   # (shape, layout)
     skip: Dict[str, str] = dataclasses.field(default_factory=dict)  # shape → reason
@@ -236,3 +251,356 @@ def build_recsys_cell(cfg, forward_fn, input_maker, flops_fn,
                 model_coll_bytes=2 * lookup_bytes + table_bytes,
                 arg_specs=(pspecs, opt_specs, (bspec[0],), *input_specs),
                 arg_roles=("params", "opt_state", "labels") + ("inputs",) * n_inputs)
+
+
+# ===========================================================================
+# LM family
+# ===========================================================================
+
+LM_SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}
+
+_SHARDED_LM = ("the LM {} step across ranks (FSDP over 'data', tensor parallelism over "
+               "'model'; ROADMAP item 13g)")
+
+
+def _dp_size(layout) -> int:
+    return 1 if layout is None else layout.data * layout.pods
+
+
+def _lm_attn_flops(cfg, seq: int, tokens: int, bwd: bool) -> float:
+    """QK^T + PV over an average causal window of S/2: 4·L·H·dh·(S/2) per token."""
+    per_tok = 4.0 * cfg.n_layers * cfg.n_heads * cfg.d_head * (seq / 2.0)
+    return per_tok * tokens * (3.0 if bwd else 1.0)
+
+
+def lm_train_flops(cfg, batch: int, seq: int) -> float:
+    """6·N_active·T + causal attention term (fwd+bwd = 3× fwd)."""
+    tokens = batch * seq
+    return 6.0 * cfg.n_active_params * tokens + _lm_attn_flops(cfg, seq, tokens, True)
+
+
+def _lm_params(cfg, generator, dev, dtype):
+    """``cfg``'s parameter tree on ``dev`` in ``dtype``: drawn by
+    ``init_params``, or empty ``meta`` tensors of the same shapes."""
+    if dev.type == "meta":
+        return tf_mod.tree_map(lambda s: torch.empty(s, dtype=dtype, device=dev),
+                               tf_mod.param_shapes(cfg))
+    return tf_mod.init_params(cfg, generator, dev, dtype)
+
+
+def _tokens(cfg, shape, generator, dev):
+    if dev.type == "meta":
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+    return torch.randint(0, cfg.vocab_size, shape, generator=generator, device=dev,
+                         dtype=torch.int32)
+
+
+def build_lm_cell(cfg, shape_name: str, layout=None, micro_per_device: int = 2,
+                  batch: Optional[int] = None) -> Cell:
+    """``batch`` (default: the shape's global batch) sets the batch of a cut
+    cell (``one_rank_cut``)."""
+    info = LM_SHAPES[shape_name]
+    S, B = info["seq_len"], info["global_batch"] if batch is None else batch
+    kind = info["kind"]
+    multi_pod = layout is not None and layout.pods > 1
+    param_specs = shd.lm_param_specs(cfg)
+    batch_spec = shd.lm_batch_spec(multi_pod)
+
+    if kind == "train":
+        dp = _dp_size(layout)
+        n_micro = max(1, B // (dp * micro_per_device))
+        assert B % n_micro == 0
+        opt = AdamW(lr=functools.partial(
+            schedules.wsd, peak_lr=1e-3, warmup_steps=2000,
+            stable_steps=100_000, decay_steps=10_000))
+
+        def train_step(params, opt_state, tokens, labels):
+            mb_tok = tokens.reshape(n_micro, tokens.shape[0] // n_micro, S)
+            mb_lab = labels.reshape(n_micro, labels.shape[0] // n_micro, S)
+            grads, losses = None, []
+            for i in range(n_micro):
+                leaves = tf_mod.tree_map(lambda p: p.detach().requires_grad_(True), params)
+                loss = tf_mod.lm_loss(cfg, tf_mod.tree_map(lambda p: p.to(cfg.dtype), leaves),
+                                      mb_tok[i], mb_lab[i])
+                g = torch.autograd.grad(loss, tf_mod.leaves(leaves))
+                grads = list(g) if grads is None else [a.add_(b) for a, b in zip(grads, g)]
+                losses.append(loss.detach())
+            # in place: no second copy of the gradients (JAX's sum, then / n_micro)
+            grads = tf_mod.tree_unflatten(params, [x.div_(n_micro) for x in grads])
+            params, opt_state = opt.update(grads, opt_state, params)
+            return params, opt_state, torch.stack(losses).mean()
+
+        def make_args(generator, device="cuda", params=None):
+            """(params f32, AdamW state {"step", "m", "v"} at step 0, tokens
+            [B, S] int32, labels [B, S] int32), tokens and labels drawn in
+            [0, vocab_size)."""
+            dev = resolve_device(device)
+            if params is None:
+                params = _lm_params(cfg, generator, dev, torch.float32)
+            else:
+                params = tf_mod.tree_map(lambda p: p.to(torch.float32), params)
+            zeros = lambda: tf_mod.tree_map(torch.zeros_like, params)
+            opt_state = {"step": torch.zeros((), dtype=torch.int32, device=dev),
+                         "m": zeros(), "v": zeros()}
+            return (params, opt_state, _tokens(cfg, (B, S), generator, dev),
+                    _tokens(cfg, (B, S), generator, dev))
+
+        cut = None
+        if batch is None and _dp_size(layout) == 1 and n_micro > 1:
+            def cut():
+                c = build_lm_cell(cfg, shape_name, None, micro_per_device, micro_per_device)
+                c.reduced = (f"one microbatch ({micro_per_device} x {S} tokens) of the "
+                             f"global batch's {n_micro} (B = {B})")
+                return c
+
+        return Cell(
+            arch=cfg.name, shape=shape_name, step_kind="train",
+            fn=one_rank_only(train_step, layout, _SHARDED_LM.format("train")),
+            make_args=make_args, model_flops=lm_train_flops(cfg, B, S), donate=(0, 1),
+            # FSDP weight all-gathers (bf16, fwd+bwd per microbatch) + f32 grad
+            # all-reduce + Megatron-TP activation all-reduces (2/layer, ~3x)
+            model_coll_bytes=(2.0 * cfg.n_params * 2 * n_micro
+                              + 4.0 * cfg.n_params
+                              + 2 * 3 * cfg.n_layers * B * S * cfg.d_model * 2.0),
+            note=f"n_micro={n_micro}",
+            arg_specs=(param_specs, {"step": (), "m": param_specs, "v": param_specs},
+                       batch_spec, batch_spec),
+            arg_roles=("params", "opt_state", "tokens", "labels"),
+            one_rank_cut=cut,
+        )
+
+    if kind in ("prefill", "decode"):
+        # Unified serving step over a (sequence-sharded) KV cache: C=4096
+        # chunks for prefill (Sarathi-style, S/C steps complete the prompt),
+        # C=1 for decode. The step made is the prompt's last: the chunk is
+        # written at [S - C, S), so it attends the whole cache.
+        C = min(4096, S) if kind == "prefill" else 1
+
+        def serve_step(params, tokens, cache, cache_len):
+            return tf_mod.serve_step(cfg, params, tokens, cache, cache_len)
+
+        def make_args(generator, device="cuda", params=None):
+            """(params in cfg.dtype, tokens [B, C] int32, the cache {"k", "v"}
+            [L, B, S, KV, dh] zeros in cfg.dtype, cache_len 0-d int32 = S − C)."""
+            dev = resolve_device(device)
+            if params is None:
+                params = _lm_params(cfg, generator, dev, cfg.dtype)
+            else:
+                params = tf_mod.tree_map(lambda p: p.to(cfg.dtype), params)
+            shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.d_head)
+            new = torch.empty if dev.type == "meta" else torch.zeros
+            cache = {"k": new(shape, dtype=cfg.dtype, device=dev),
+                     "v": new(shape, dtype=cfg.dtype, device=dev)}
+            return (params, _tokens(cfg, (B, C), generator, dev), cache,
+                    torch.tensor(S - C, dtype=torch.int32, device=dev))
+
+        cache_spec = shd.lm_cache_spec(multi_pod)
+        # per step: 2·N_active per token + QK/PV against the cached sequence
+        flops = B * C * (2.0 * cfg.n_active_params
+                         + 4.0 * cfg.n_layers * cfg.n_heads * cfg.d_head
+                         * (S / 2.0 if kind == "prefill" else S))
+        return Cell(
+            arch=cfg.name, shape=shape_name, step_kind=kind,
+            fn=one_rank_only(serve_step, layout, _SHARDED_LM.format(kind)),
+            make_args=make_args, model_flops=flops,
+            # param all-gather over "data" (FSDP at serve) + per-layer TP
+            # activation all-reduce + LSE combine over the seq-sharded cache
+            model_coll_bytes=(2.0 * cfg.n_params
+                              + 2 * cfg.n_layers * B * C * cfg.d_model * 2.0
+                              + cfg.n_layers * B * cfg.n_heads * C
+                              * (cfg.d_head + 2) * 4.0),
+            donate=(2,),
+            note=f"C={C}" + (f" ({S//C} chunk steps/prompt)" if kind == "prefill" else ""),
+            arg_specs=(param_specs, batch_spec, {"k": cache_spec, "v": cache_spec}, ()),
+            arg_roles=("params", "tokens", "cache", "cache_len"),
+        )
+
+    raise ValueError(shape_name)
+
+
+def make_lm_arch(cfg, skip_long: bool = True) -> ArchSpec:
+    skip = {}
+    if skip_long:
+        skip["long_500k"] = "pure full-attention arch — sub-quadratic required (DESIGN.md §5)"
+    # MoE dispatch buffers scale with the global microbatch → smaller micros
+    mpd = 1 if cfg.moe is not None else 2
+    return ArchSpec(
+        arch_id=cfg.name, family="lm", shapes=LM_SHAPES,
+        build=lambda shape, layout: build_lm_cell(cfg, shape, layout, micro_per_device=mpd),
+        skip=skip,
+    )
+
+
+# ===========================================================================
+# GNN family
+# ===========================================================================
+
+GNN_OPT = AdamW(lr=1e-3, weight_decay=0.0)
+_SHARDED_GNN = ("the GNN train step across ranks (data parallelism over nodes and edges; "
+                "ROADMAP item 13f)")
+
+
+def _gnn_params(cfg, generator, dev):
+    if dev.type == "meta":
+        return {k: torch.empty(s, device=dev)
+                for k, s in sorted(gnn_mod.param_shapes(cfg).items())}
+    return gnn_mod.init_params(cfg, generator, dev)
+
+
+def _gnn_train_step(loss_fn):
+    """A train step of ``loss_fn(params, *inputs)``: its gradient, then AdamW."""
+    def train_step(params, opt_state, *inputs):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        loss = loss_fn(leaves, *inputs)
+        names = sorted(leaves)
+        grads = dict(zip(names, torch.autograd.grad(loss, [leaves[k] for k in names])))
+        params, opt_state = GNN_OPT.update(grads, opt_state, params)
+        return params, opt_state, loss.detach()
+    return train_step
+
+
+def _graph_inputs(shape, N: int, E: int, d_in: int, n_classes: int, generator, dev,
+                  graph_pool: bool):
+    """Drawn inputs of a full-graph cell, padded as JAX's cell pads them: the
+    real nodes first (n_nodes · batch), features N(0, 1) on every row, edges
+    between real nodes (within one graph of the batch for ``molecule``),
+    the padding edges from and to the last padded node (isolated and masked,
+    or in no graph). Returns (feats, src, dst, labels [N], mask [N] f32) or,
+    pooled, (feats, src, dst, graph_ids [N], labels [n_graphs])."""
+    n_graphs = shape.get("batch", 1)
+    per, per_e = shape["n_nodes"], shape["n_edges"]
+    n_real, e_real = per * n_graphs, per_e * n_graphs
+    if dev.type == "meta":
+        e = lambda *s, dt=torch.int32: torch.empty(s, dtype=dt, device=dev)
+        feats = e(N, d_in, dt=torch.float32)
+        tail = (e(N), e(n_graphs)) if graph_pool else (e(N), e(N, dt=torch.float32))
+        return (feats, e(E), e(E)) + tail
+    ri = lambda hi, n: torch.randint(0, hi, (n,), generator=generator, device=dev)
+    feats = torch.randn((N, d_in), generator=generator, device=dev)
+    base = (torch.arange(e_real, device=dev) // per_e) * per if graph_pool else 0
+    lo = per if graph_pool else n_real
+    src = torch.full((E,), N - 1, dtype=torch.int64, device=dev)
+    dst = torch.full((E,), N - 1, dtype=torch.int64, device=dev)
+    src[:e_real] = base + ri(lo, e_real)
+    dst[:e_real] = base + ri(lo, e_real)
+    src, dst = src.to(torch.int32), dst.to(torch.int32)
+    if graph_pool:
+        gid = torch.full((N,), n_graphs, dtype=torch.int64, device=dev)
+        gid[:n_real] = torch.arange(n_real, device=dev) // per
+        return feats, src, dst, gid.to(torch.int32), ri(n_classes, n_graphs).to(torch.int32)
+    mask = (torch.arange(N, device=dev) < n_real).to(torch.float32)
+    return feats, src, dst, ri(n_classes, N).to(torch.int32), mask
+
+
+def _block_inputs(cfg, sizes, generator, dev):
+    """Drawn inputs of ``minibatch_lg``: features N(0, 1) per level, each
+    level-l node's fanout row the indices of its own slots in level l+1
+    (i · fanout + j, as a full sampler draw lays them out) with about one in
+    ten −1 (padding), and labels."""
+    fan = cfg.fanouts
+    if dev.type == "meta":
+        return ([torch.empty((n, cfg.d_in), device=dev) for n in sizes],
+                [torch.empty((sizes[i], fan[i]), dtype=torch.int32, device=dev)
+                 for i in range(len(fan))],
+                torch.empty((sizes[0],), dtype=torch.int32, device=dev))
+    feats = [torch.randn((n, cfg.d_in), generator=generator, device=dev) for n in sizes]
+    neigh = []
+    for i, f in enumerate(fan):
+        nb = torch.arange(sizes[i] * f, device=dev, dtype=torch.int32).reshape(sizes[i], f)
+        drop = torch.rand((sizes[i], f), generator=generator, device=dev) < 0.1
+        neigh.append(torch.where(drop, torch.full_like(nb, -1), nb))
+    labels = torch.randint(0, cfg.n_classes, (sizes[0],), generator=generator, device=dev,
+                           dtype=torch.int32)
+    return feats, neigh, labels
+
+
+def build_gnn_cell(cfg, shape_name: str, shape: Dict[str, Any], layout=None) -> Cell:
+    multi_pod = layout is not None and layout.pods > 1
+    pspecs = shd.gnn_param_specs(gnn_mod.param_shapes(cfg))
+    opt_specs = {"step": (), "m": pspecs, "v": pspecs}
+    rows = shd.gnn_rows_spec(multi_pod)
+    d_in, d_h = cfg.d_in, cfg.d_hidden
+
+    def state(generator, dev, params):
+        params = _gnn_params(cfg, generator, dev) if params is None else params
+        zeros = lambda: {k: torch.zeros_like(v) for k, v in params.items()}
+        return params, {"step": torch.zeros((), dtype=torch.int32, device=dev),
+                        "m": zeros(), "v": zeros()}
+
+    if shape_name in ("full_graph_sm", "ogb_products", "molecule"):
+        n_graphs = shape.get("batch", 1)
+        # pad nodes/edges to divide both meshes (padding nodes are isolated and
+        # masked; padding edges point src/dst at a padded node)
+        N = shd.round_up(shape["n_nodes"] * n_graphs, 512)
+        E = shd.round_up(shape["n_edges"] * n_graphs, 512)
+        graph_pool = shape_name == "molecule"
+
+        if graph_pool:
+            # disjoint-union batching: graph_ids map nodes → graph for readout
+            train_step = _gnn_train_step(
+                lambda p, feats, src, dst, graph_ids, labels: gnn_mod.loss_graph_pool(
+                    cfg, p, feats, src, dst, graph_ids, n_graphs, labels))
+            graph_spec = (shd.divisible_rows_spec(n_graphs, layout, multi_pod)
+                          if layout is not None else (None,))
+            in_specs = ((rows[0], None), rows, rows, rows, graph_spec)
+            roles = ("feats", "edges", "edges", "graph_ids", "labels")
+        else:
+            train_step = _gnn_train_step(
+                lambda p, feats, src, dst, labels, mask: gnn_mod.loss_full(
+                    cfg, p, feats, src, dst, labels, mask))
+            in_specs = ((rows[0], None), rows, rows, rows, rows)
+            roles = ("feats", "edges", "edges", "labels", "mask")
+
+        def make_args(generator, device="cuda", params=None):
+            dev = resolve_device(device)
+            return state(generator, dev, params) + _graph_inputs(
+                shape, N, E, d_in, cfg.n_classes, generator, dev, graph_pool)
+
+        flops = 3 * (2 * N * (d_in * d_h * 2) + 2 * N * d_h * d_h * 2 * (cfg.n_layers - 1)
+                     + 2 * N * d_h * cfg.n_classes)
+        return Cell(cfg.name, shape_name, "train",
+                    one_rank_only(train_step, layout, _SHARDED_GNN), make_args,
+                    model_flops=float(flops), donate=(0, 1),
+                    # cross-shard message halo: ~every edge crosses shards at
+                    # random placement (fwd + bwd gather/scatter)
+                    model_coll_bytes=3.0 * E * (d_in + d_h) * 4.0,
+                    arg_specs=(pspecs, opt_specs) + in_specs,
+                    arg_roles=("params", "opt_state") + roles)
+
+    if shape_name == "minibatch_lg":
+        Bn = shape["batch_nodes"]
+        fan = cfg.fanouts
+        sizes = [Bn]
+        for f in fan:
+            sizes.append(sizes[-1] * f)
+        train_step = _gnn_train_step(
+            lambda p, feats, neigh, labels: gnn_mod.loss_sampled(cfg, p, feats, neigh, labels))
+
+        def make_args(generator, device="cuda", params=None):
+            dev = resolve_device(device)
+            return state(generator, dev, params) + _block_inputs(cfg, sizes, generator, dev)
+
+        # layer 0 (d_in→d_h, self+neigh mats) over levels 0..L-1; deeper layers
+        # (d_h→d_h) over shrinking level sets; classifier over the seeds
+        tot = sum(sizes)
+        flops = 3.0 * (
+            2 * sum(sizes[:-1]) * cfg.d_in * d_h * 2
+            + sum(2 * sum(sizes[: cfg.n_layers - l]) * d_h * d_h * 2
+                  for l in range(1, cfg.n_layers))
+            + 2 * sizes[0] * d_h * cfg.n_classes)
+        level = (rows[0], None)
+        return Cell(cfg.name, shape_name, "train",
+                    one_rank_only(train_step, layout, _SHARDED_GNN), make_args,
+                    model_flops=float(flops), donate=(0, 1),
+                    model_coll_bytes=3.0 * tot * cfg.d_in * 4.0,
+                    note="padded bipartite blocks (real sampler feeds these)",
+                    arg_specs=(pspecs, opt_specs, [level] * len(sizes), [level] * len(fan),
+                               rows),
+                    arg_roles=("params", "opt_state", "feats", "neigh", "labels"))
+
+    raise ValueError(shape_name)

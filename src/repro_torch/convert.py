@@ -84,3 +84,25 @@ def adamw_state_from_numpy(state, device):
     out = AdamWState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=dev),
                      m=tree(m), v=tree(v))
     return out._asdict() if as_dict else out
+
+
+def gnn_params_from_numpy(params, device) -> dict:
+    """A GraphSAGE parameter dict (e.g. the JAX package's ``gnn.init_params``,
+    as numpy), every leaf f32, the names kept."""
+    dev = resolve_device(device)
+    return {k: _t(v, np.float32, dev) for k, v in params.items()}
+
+
+def lm_params_from_numpy(params, device, dtype=torch.float32) -> dict:
+    """An LM parameter tree (e.g. the JAX package's ``transformer.init_params``,
+    as numpy): ``{"embed", "layers": {name: [L, ...]}, "ln_f"[, "lm_head"]}``
+    with the names and the stacked layers kept, every leaf in ``dtype`` (the
+    f32 → bf16 cast rounds to nearest even, as JAX's ``astype``)."""
+    dev = resolve_device(device)
+
+    def tree(x):
+        if isinstance(x, dict):
+            return {k: tree(v) for k, v in x.items()}
+        return _t(x, np.float32, dev).to(dtype)
+
+    return tree(params)

@@ -199,6 +199,95 @@ def table_rows_spec() -> tuple:
     return ("model", None)
 
 
+# ------------------------- LM: FSDP over the data axes × TP over "model" ---
+
+
+def lm_param_specs(cfg: Any) -> dict:
+    """Specs matching ``models.transformer.param_shapes(cfg)``'s structure.
+
+    Projection weights split their TP-natural dim over ``"model"`` (column
+    parallel for wq/wk/wv/w1/w3, row parallel for wo/w2) and the shared
+    ``d_model`` dim over ``"data"`` (FSDP); norm scales replicate; the
+    embedding splits its vocab rows over ``"model"`` (vocab-parallel).
+    """
+    layers = {
+        "ln1": (None, None), "ln2": (None, None),
+        "wq": (None, "data", "model"),
+        "wk": (None, "data", "model"),
+        "wv": (None, "data", "model"),
+        "wo": (None, "model", "data"),
+    }
+    if cfg.qk_norm:
+        layers.update({"qnorm": (None, None), "knorm": (None, None)})
+    if cfg.moe is None:
+        layers.update({"w1": (None, "data", "model"),
+                       "w3": (None, "data", "model"),
+                       "w2": (None, "model", "data")})
+    else:
+        layers["moe_router"] = (None, None, None)
+        if cfg.moe.moe_shard == "expert":
+            ew = (None, "model", None, None)         # expert parallelism
+            layers.update({"moe_w1": ew, "moe_w3": ew, "moe_w2": ew})
+        else:                                        # per-expert tensor parallel
+            layers.update({"moe_w1": (None, None, None, "model"),
+                           "moe_w3": (None, None, None, "model"),
+                           "moe_w2": (None, None, "model", None)})
+        if cfg.moe.n_shared_experts:
+            layers.update({"moe_sw1": (None, "data", "model"),
+                           "moe_sw3": (None, "data", "model"),
+                           "moe_sw2": (None, "model", "data")})
+    specs = {"embed": ("model", None), "layers": layers, "ln_f": (None,)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = (None, "model")
+    return specs
+
+
+def lm_batch_spec(multi_pod: bool = False) -> tuple:
+    """[B, S] token batches: batch over the data-parallel axes."""
+    return (dp_axes(multi_pod), None)
+
+
+def lm_cache_spec(multi_pod: bool = False) -> tuple:
+    """[L, B, S, KV, dh] KV cache: batch over dp, sequence over "model"
+    (the assigned archs' KV head counts rarely divide 16, the sequence
+    always does)."""
+    return (None, dp_axes(multi_pod), "model", None, None)
+
+
+def moe_expert_spec() -> tuple:
+    """[E, C, d] dispatch buffer under expert parallelism: experts → "model"."""
+    return ("model", None, None)
+
+
+# ------------------------------ GNN: pure data parallelism over nodes/edges ---
+
+
+def gnn_param_specs(shapes: Any) -> dict:
+    """GraphSAGE weights are KB-scale: replicate everywhere."""
+    return {k: () for k in shapes}
+
+
+def gnn_rows_spec(multi_pod: bool = False) -> tuple:
+    """Node/edge row arrays: rows split over every mesh axis."""
+    return (((POD_AXIS,) if multi_pod else ()) + RING_AXES,)
+
+
+def divisible_rows_spec(n: int, layout: "RankLayout", multi_pod: bool = False) -> tuple:
+    """Row spec over the largest dp-first axis set whose product divides n
+    (small row counts, e.g. per-graph labels, cannot always use the full
+    ``gnn_rows_spec`` flattening)."""
+    axes = ((POD_AXIS,) if multi_pod else ()) + RING_AXES
+    sizes = {POD_AXIS: layout.pods, "data": layout.data, "model": layout.model}
+    chosen: List[str] = []
+    prod = 1
+    for ax in axes:
+        size = sizes[ax]
+        if size > 1 and n % (prod * size) == 0:
+            chosen.append(ax)
+            prod *= size
+    return (tuple(chosen),) if chosen else (None,)
+
+
 def stack_spec(n_model_shards: int = 1) -> tuple:
     """Layout of the [S, M, cap] token stacks of a single-pod ring: split over
     the flattened ring, or with word sharding (``n_model_shards > 1``) over

@@ -14,23 +14,27 @@ compiler to ask, so each cell gets two records:
   (``sampler_traffic``), and the roofline terms against the H100: the
   useful FLOPs over every rank's f32 peak, one rank's argument bytes read
   once over its HBM rate, the collective bytes over every rank's NVLink.
-  ``status`` is ``ok``, ``skip`` (with the reason: the LM and GNN ids, not
-  ported) or ``fail`` (with the error), as JAX records a failed build.
+  ``status`` is ``ok``, ``skip`` (with JAX's reason: the LM archs'
+  ``long_500k``) or ``fail`` (with the error), as JAX records a failed build.
 * **the one-rank record** (``one_rank``), the counterpart of JAX's compile
   and ``memory_analysis``: the same cell built for one rank, its arguments
-  drawn on the card and ``TIMED_STEPS`` steps run after one warm-up step:
-  ``step_ms`` (their median, CUDA events: one step alone can take a host
-  stall), ``live_bytes_per_device`` (``max_memory_allocated`` over the
-  steps, after ``reset_peak_memory_stats``), ``fits_80gb_hbm``, the
-  flops, bytes and moved bytes ``dist/analysis.count_cost`` counts over one
-  more step, ``useful_flops_ratio`` and its roofline share (the larger of
-  the flops over the f32 peak and the moved bytes over the HBM rate, over
+  drawn on the card and ``timed_steps(family, step_kind)`` steps run after
+  one warm-up step: ``step_ms`` (their median, CUDA events: a step of
+  milliseconds alone can take a host stall), ``live_bytes_per_device``
+  (``max_memory_allocated`` over the steps, after
+  ``reset_peak_memory_stats``), ``fits_80gb_hbm``, the flops, bytes and
+  moved bytes ``dist/analysis.count_cost`` counts over the warm-up step,
+  ``useful_flops_ratio`` and its roofline share (the larger of the flops
+  over the f32 peak and the moved bytes over the HBM rate, over
   ``step_ms``; above 1 where the traffic stayed in the 50 MB L2 cache). A
-  cell whose one-rank
-  arguments exceed the card's 80 GB is recorded with the reckoned bytes
-  and not run (peacock-lda's Φ or P̂ is 84 GB at V = 210,000). A step that
-  runs out of memory is a ``fail`` naming the error. Each arch's
-  parameters are drawn once and shared by its shapes.
+  cell whose one-rank arguments exceed the card's 80 GB is recorded with
+  the reckoned bytes and not run (peacock-lda's Φ or P̂ is 84 GB at V = 210,000; the MoE
+  archs' train cells, every ``decode_32k`` and all ``prefill_32k`` but
+  smollm-135m's). A step that runs out of memory is a ``fail`` naming the
+  error. Each arch's parameters are drawn once and shared by its shapes
+  (cast to each cell's dtype). Where the cell has a ``one_rank_cut`` (an LM
+  train step, 128 microbatches at one rank) the record runs the cut cell and
+  says what it cuts under ``reduced``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch autoint --shape serve_p99
@@ -74,6 +78,13 @@ HBM_BYTES = 80e9             # device memory
 MESHES = {False: (1, 16, 16), True: (2, 16, 16)}
 TIMED_STEPS = 3              # a one-rank step's time is their median
 
+
+def timed_steps(family: str, step_kind: str) -> int:
+    """The timed steps of a cell's one-rank record: one for an LM train or
+    prefill cell, whose step takes seconds, so that a host stall of
+    milliseconds does not move it; ``TIMED_STEPS`` for every other cell."""
+    return 1 if family == "lm" and step_kind in ("train", "prefill") else TIMED_STEPS
+
 def mesh_layout(multi_pod: bool) -> shd.RankLayout:
     return shd.RankLayout(*MESHES[multi_pod])
 
@@ -83,10 +94,12 @@ def mesh_name(multi_pod: bool) -> str:
 
 
 def _rank_bytes(arg, spec, layout: shd.RankLayout) -> float:
-    """Bytes of one rank's block of ``arg`` (a tensor, a dict of them, or a
-    Python scalar, which JAX holds as a 0-dim 4-byte array)."""
+    """Bytes of one rank's block of ``arg`` (a tensor, a dict or list of
+    them, or a Python scalar, which JAX holds as a 0-dim 4-byte array)."""
     if isinstance(arg, dict):
         return sum(_rank_bytes(arg[k], spec[k], layout) for k in arg)
+    if isinstance(arg, (list, tuple)):
+        return sum(_rank_bytes(a, s, layout) for a, s in zip(arg, spec))
     if isinstance(arg, torch.Tensor):
         return float(math.prod(shd.block_shape(arg.shape, spec, layout)) * arg.element_size())
     return 4.0
@@ -112,6 +125,13 @@ def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+
+def _shapes(tree):
+    """The shapes of a parameter tree (a dict of tensors, nested or not)."""
+    if isinstance(tree, dict):
+        return tuple((k, _shapes(tree[k])) for k in sorted(tree))
+    return tuple(tree.shape)
 
 
 class OneRank:
@@ -148,6 +168,9 @@ class OneRank:
             rec["card"] = self.card
         try:
             cell = spec.cell(shape, None)
+            if cell.one_rank_cut is not None:
+                cell = cell.one_rank_cut()
+                rec["reduced"] = cell.reduced
             args_b = sum(argument_bytes(cell, shd.RankLayout(1, 1, 1)).values())
         except Exception as e:  # noqa: BLE001 — a failed build is a recorded bug
             rec.update(status="fail", error=f"build: {type(e).__name__}: {e}")
@@ -165,7 +188,7 @@ class OneRank:
         args = None
         try:
             args = self._args(spec.arch_id, cell)
-            rec.update(self._step(cell, args))
+            rec.update(self._step(cell, args, spec.family))
             rec["status"] = "ok"
         except torch.cuda.OutOfMemoryError as e:
             rec.update(status="fail", fits_80gb_hbm=False,
@@ -183,38 +206,45 @@ class OneRank:
     def _args(self, arch: str, cell):
         g = torch.Generator(device=self.dev).manual_seed(self.seed)
         takes_params = cell.arg_roles[:1] == ("params",)
-        args = cell.make_args(g, self.dev, params=self.params.get(arch) if takes_params else None)
+        params = self.params.get(arch) if takes_params else None
+        if params is not None and _shapes(params) != _shapes(cell.make_args(None, "meta")[0]):
+            params = None                # graphsage-reddit: each shape its own widths
+        args = cell.make_args(g, self.dev, params=params)
         if takes_params:
             self.params[arch] = args[0]
         return args
 
-    def _step(self, cell, args) -> dict:
+    def _step(self, cell, args, family: str) -> dict:
+        """The warm-up step (under ``count_cost`` unless ``skip_cost``: the
+        flops and bytes of a step), then the timed steps."""
         cuda = self.dev.type == "cuda"
         sync = torch.cuda.synchronize if cuda else (lambda: None)
         kernels.reset_launch_counts()
-        cell.fn(*args)                                   # warm-up
-        sync()
         out: dict = {}
+        if self.skip_cost:
+            cell.fn(*args)
+        else:
+            cost, _ = analysis.count_cost(cell.fn, *args)
+        sync()
         if cuda:
             torch.cuda.reset_peak_memory_stats()
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             times = []
-            for _ in range(TIMED_STEPS):
+            n = timed_steps(family, cell.step_kind)
+            for _ in range(n):
                 a.record()
                 cell.fn(*args)
                 b.record()
                 b.synchronize()
                 times.append(float(a.elapsed_time(b)))
             live = int(torch.cuda.max_memory_allocated())
-            out.update(step_ms=sorted(times)[TIMED_STEPS // 2], live_bytes_per_device=live,
-                       fits_80gb_hbm=bool(live < HBM_BYTES))
+            out.update(step_ms=sorted(times)[n // 2], timed_steps=n,
+                       live_bytes_per_device=live, fits_80gb_hbm=bool(live < HBM_BYTES))
         else:
             cell.fn(*args)
             out.update(step_ms=None, live_bytes_per_device=None,
                        fits_80gb_hbm=None, measured="not measured: no card")
         if not self.skip_cost:
-            cost, _ = analysis.count_cost(cell.fn, *args)
-            sync()
             out["cost"] = {"flops": cost.flops, "bytes": cost.bytes,
                            "moved_bytes": cost.moved_bytes,
                            "kernels": cost.kernels, "collectives": cost.collectives,
@@ -269,16 +299,6 @@ def run_cell(spec, shape: str, multi_pod: bool, one_rank=None) -> dict:
     if one_rank is not None:
         rec["one_rank"] = one_rank.record(spec, shape)
     return rec
-
-
-def skip_records(arch_id: str, shapes, meshes) -> list:
-    """Skip records of an id the port does not have (the LM and GNN ids)."""
-    from repro_torch.configs import NOT_PORTED, not_ported_reason
-
-    shapes = shapes or NOT_PORTED[arch_id][2]
-    return [{"arch": arch_id, "shape": s, "mesh": mesh_name(mp),
-             "chips": mesh_layout(mp).world_size, "status": "skip",
-             "reason": not_ported_reason(arch_id)} for s in shapes for mp in meshes]
 
 
 def print_shard_table(n_topics: int = 100_000, vocab: int = 1_000_000,
@@ -386,7 +406,7 @@ def main(argv=None) -> int:
         print_shard_table(out=args.out, as_json=args.json)
         return 0
 
-    from repro_torch.configs import NOT_PORTED, all_ids, all_specs
+    from repro_torch.configs import all_ids, all_specs
 
     specs = all_specs()
     # a record costs no compile here, so --all covers both meshes unless
@@ -398,7 +418,7 @@ def main(argv=None) -> int:
     elif args.arch is None:
         ap.error("give --arch, --all or --shard-table")
     else:
-        if args.arch not in NOT_PORTED and args.arch not in specs:
+        if args.arch not in specs:
             ap.error(f"unknown arch '{args.arch}'; known: {sorted(all_ids())}")
         ids = [args.arch]
     one_rank = OneRank(args.device, skip_cost=args.skip_cost)
@@ -406,13 +426,10 @@ def main(argv=None) -> int:
         print(f"# card: {one_rank.card}", flush=True)
     t0 = time.perf_counter()
     for arch in ids:
-        if arch in NOT_PORTED:
-            recs = skip_records(arch, [args.shape] if args.shape else None, meshes)
-        else:
-            spec = specs[arch]
-            shapes = [args.shape] if args.shape else list(spec.shapes)
-            recs = [run_cell(spec, s, mp, one_rank) for s in shapes for mp in meshes]
-            one_rank.release(arch)
+        spec = specs[arch]
+        shapes = [args.shape] if args.shape else list(spec.shapes)
+        recs = [run_cell(spec, s, mp, one_rank) for s in shapes for mp in meshes]
+        one_rank.release(arch)
         for rec in recs:
             line = json.dumps(rec)
             print(line, flush=True)

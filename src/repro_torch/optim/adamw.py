@@ -57,24 +57,29 @@ class AdamW:
         step = state.step + 1
         lr = self.lr(step) if callable(self.lr) else self.lr
 
+        scale = None
         if self.clip_norm is not None:
             gnorm = global_norm(grads)
             scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-            grads = _map(lambda g: g * scale, grads)
 
         b1, b2 = self.b1, self.b2
-        m = _map(lambda mm, g: b1 * mm + (1 - b1) * g, state.m, grads)
-        v = _map(lambda vv, g: b2 * vv + (1 - b2) * g * g, state.v, grads)
         stepf = step.to(torch.float32)
         c1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=step.device), stepf)
         c2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=step.device), stepf)
 
-        def upd(p, mm, vv):
-            mhat = mm / c1
-            vhat = vv / c2
-            return p - lr * (mhat / (torch.sqrt(vhat) + self.eps) + self.weight_decay * p)
+        def leaf(p, g, mm, vv):
+            # one leaf at a time, so that no second copy of every gradient
+            # (clipped) is ever whole; JAX's operations in JAX's order
+            if scale is not None:
+                g = g * scale
+            m = b1 * mm + (1 - b1) * g
+            v = b2 * vv + (1 - b2) * g * g
+            mhat = m / c1
+            vhat = v / c2
+            return p - lr * (mhat / (torch.sqrt(vhat) + self.eps) + self.weight_decay * p), m, v
 
-        new_params = _map(upd, params, m, v)
+        out = _map(leaf, params, grads, state.m, state.v)
+        new_params, m, v = (_map(lambda t, i=i: t[i], out) for i in range(3))
         new_state = {"step": step, "m": m, "v": v} if as_dict else AdamWState(
             step=step, m=m, v=v)
         return new_params, new_state

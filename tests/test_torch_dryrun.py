@@ -31,7 +31,7 @@ import torch
 
 import _torch_ranks as R
 from _torch_port import one_torch_thread as _one_torch_thread  # noqa: F401  (autouse)
-from repro_torch.configs import NOT_PORTED, all_ids, base as tbase, peacock_lda as tpl
+from repro_torch.configs import all_ids, base as tbase, peacock_lda as tpl
 from repro_torch.configs import recsys_archs as tra
 from repro_torch.core import distributed as tdist
 from repro_torch.data import corpus as tcorpus, synthetic as tsynthetic
@@ -48,11 +48,18 @@ FORWARDS = {"dlrm-mlperf": "dlrm_forward", "xdeepfm": "xdeepfm_forward",
 FLOPS = {"dlrm-mlperf": "_dlrm_flops", "xdeepfm": "_xdeepfm_flops", "din": "_din_flops",
          "autoint": "_autoint_flops"}
 
-# (arch, shape, multi_pod): tests/test_dryrun_small.py's cells that the port
-# has, plus dlrm's train cell and the other two LDA cells
+# (arch, shape, multi_pod): tests/test_dryrun_small.py's cells, plus dlrm's
+# train cell, the other two LDA cells, graphsage-reddit's four and the LM
+# archs' train, prefill and decode cells
 CELLS = [("autoint", "serve_p99", False), ("peacock-lda", "train_segment", False),
          ("peacock-lda", "train_segment", True), ("dlrm-mlperf", "train_batch", False),
-         ("peacock-lda", "serve_rt", False), ("peacock-lda", "train_segment_opt", False)]
+         ("peacock-lda", "serve_rt", False), ("peacock-lda", "train_segment_opt", False),
+         ("graphsage-reddit", "full_graph_sm", False), ("graphsage-reddit", "minibatch_lg", True),
+         ("graphsage-reddit", "ogb_products", False), ("graphsage-reddit", "molecule", True),
+         ("graphsage-reddit", "molecule", False), ("smollm-135m", "train_4k", False),
+         ("qwen3-0.6b", "train_4k", True), ("minicpm-2b", "prefill_32k", False),
+         ("phi3.5-moe-42b-a6.6b", "train_4k", False), ("qwen2-moe-a2.7b", "decode_32k", True),
+         ("qwen2-moe-a2.7b", "train_4k", False), ("smollm-135m", "decode_32k", False)]
 
 JAX_SPECS = r"""
 import json
@@ -97,6 +104,9 @@ def _port_leaves(cell, layout):
         if isinstance(arg, dict):
             for k in sorted(arg):
                 walk(f"{path}['{k}']", arg[k], spec[k])
+        elif isinstance(arg, (list, tuple)):
+            for i, (a, sp) in enumerate(zip(arg, spec)):
+                walk(f"{path}[{i}]", a, sp)
         else:
             out.append([path, list(shd.block_shape(arg.shape, spec, layout)), arg.element_size()])
 
@@ -354,20 +364,20 @@ def test_train_cell_fn_on_two_ranks_equals_jax_ring_epoch():
 
 
 def test_registry_names_every_jax_id():
+    """Every id of JAX's registry, in its order, builds in the port with
+    JAX's family, shapes and skips (the LM and GNN ids were the not-ported
+    ones until they were ported)."""
     from repro.configs import all_specs as jax_specs
-    from repro_torch.configs import get_arch
+    from repro_torch.configs import all_specs, get_arch
 
     jspecs = jax_specs()
-    assert all_ids() == list(jspecs)
-    for arch, (family, item, shapes) in NOT_PORTED.items():
-        assert jspecs[arch].family == family and list(jspecs[arch].shapes) == list(shapes)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
-            get_arch(arch)
+    assert all_ids() == list(jspecs) == list(all_specs())
     for arch in all_ids():
-        if arch not in NOT_PORTED:
-            spec = get_arch(arch)
-            assert spec.family == jspecs[arch].family
-            assert list(spec.shapes) == list(jspecs[arch].shapes)
+        spec = get_arch(arch)
+        assert spec.family == jspecs[arch].family
+        assert list(spec.shapes) == list(jspecs[arch].shapes)
+        assert spec.skip == jspecs[arch].skip
+    assert {get_arch(a).family for a in all_ids()} == {"lm", "gnn", "recsys", "lda"}
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
 
@@ -404,6 +414,37 @@ def test_one_rank_steps_on_the_cpu():
     assert ring["cost"]["flops"] == 0
     assert ring["cost"]["kernels"]["gibbs_argmax"]["calls"] == 2     # two packages
     assert one.record(small, "serve_p99") is serve                  # run once
+
+
+def test_one_rank_steps_of_small_gnn_and_lm_cells_on_the_cpu(monkeypatch):
+    """``OneRank`` on the CPU: small_gnn's full-graph and sampled train cells
+    and small_lm's train cell of 8 microbatches, which the record runs cut
+    to one (``reduced``), and a decode cell sharing the train cell's
+    parameters (cast to the cell's dtype, small_lm's f32)."""
+    from repro_torch.configs import gnn_archs as tga, lm_archs as tla
+
+    sage = tga.small_gnn()
+    tiny = {"full_graph_sm": dict(n_nodes=40, n_edges=150, d_feat=16, n_classes=4, kind="full"),
+            "minibatch_lg": dict(batch_nodes=8, kind="sampled")}
+    gnn = tbase.ArchSpec("sage-small", "gnn", tiny,
+                         lambda shape, layout: tbase.build_gnn_cell(sage, shape, tiny[shape], None))
+    monkeypatch.setitem(tbase.LM_SHAPES, "train_tiny",
+                        dict(seq_len=24, global_batch=8, kind="train"))
+    monkeypatch.setitem(tbase.LM_SHAPES, "decode_tiny",
+                        dict(seq_len=32, global_batch=2, kind="decode"))
+    lm = tbase.make_lm_arch(tla.small_lm(True))
+    one = dryrun.OneRank("cpu")
+    full, sampled = one.record(gnn, "full_graph_sm"), one.record(gnn, "minibatch_lg")
+    train, decode = one.record(lm, "train_tiny"), one.record(lm, "decode_tiny")
+    for rec in (full, sampled, train, decode):
+        assert rec["status"] == "ok", rec
+        assert rec["measured"] == "not measured: no card"
+        assert all(n == 0 for n in rec["launches"].values())      # the plain versions
+    assert set(full["cost"]["kernels"]) == {"embedding_bag_bwd"}
+    assert set(sampled["cost"]["kernels"]) == {"embedding_bag", "embedding_bag_bwd"}
+    assert "embedding_bag_bwd" in train["cost"]["kernels"]        # the MoE and embed scatters
+    assert train["reduced"] == "one microbatch (1 x 24 tokens) of the global batch's 8 (B = 8)"
+    assert "reduced" not in decode and train["cost"]["flops"] > decode["cost"]["flops"] > 0
 
 
 def test_cells_across_ranks_refuse_their_step():
@@ -445,13 +486,17 @@ def test_cli_records_every_jax_id_at_both_meshes_without_jax():
         for shape in spec.shapes:
             for m in ("16x16", "2x16x16"):
                 assert (arch, shape, m) in seen
+    jspecs = jax_specs()
     for r in recs:
-        if r["arch"] in NOT_PORTED:
-            assert r["status"] == "skip" and "not ported" in r["reason"]
+        assert "not ported" not in r.get("reason", "")
+        if r["shape"] in jspecs[r["arch"]].skip:
+            # long_500k: skipped with JAX's own reason
+            assert r["status"] == "skip" and r["reason"] == jspecs[r["arch"]].skip[r["shape"]]
             continue
         assert r["status"] == "ok", r
         one = r["one_rank"]
         assert one["status"] == "not_run"
+        assert ("reduced" in one) == (r["shape"] == "train_4k")   # the LM train steps
         if r["arch"] == "peacock-lda":
             # Φ or P̂ of one rank at V = 210,000: 84 GB
             assert one["fits_80gb_hbm"] is False and one["arguments_bytes"] > 84e9

@@ -56,6 +56,22 @@ def test_fleet_demo_twin():
     assert out["hits"] > 0
 
 
+def test_lm_train_twin(tmp_path):
+    """The WSD/AdamW loop lowers the loss, the newest checkpoint resumes the
+    trained model bit for bit, and greedy decoding through the serving path
+    runs (the JAX example prints its hits and asserts none)."""
+    import lm_train_torch
+
+    out = lm_train_torch.main(device="cpu", ckpt_dir=str(tmp_path / "ck"))
+    losses = out["losses"]
+    assert len(losses) == lm_train_torch.STEPS and np.isfinite(losses).all()
+    assert np.mean(losses[-20:]) < 0.5 * np.mean(losses[:20])
+    assert out["resumed_step"] == lm_train_torch.STEPS
+    assert out["checkpoints"] == [160, 200]                    # keep=2
+    assert len(out["decoded"]) == len(out["truth"]) == 9 and 0 <= out["hits"] <= 9
+    assert set(out["launches"].values()) == {0}          # the plain versions
+
+
 def test_out_of_core_twin_equals_the_jax_example():
     import out_of_core_torch
     from repro.training import Metrics, Trainer, TrainerConfig
