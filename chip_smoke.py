@@ -187,6 +187,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -2329,11 +2330,12 @@ def recsys_phase():
     # plain version bit for bit, and each forward with the plain lookup (a
     # gather) gives the same logits bit for bit; the streamed top-k is the
     # top-k of the whole score plane
-    gather = lambda t, s, i: t[rec._flat_ids(s, i).long()]
+    gather = types.SimpleNamespace(lookup=lambda t, s, i: t[rec._flat_ids(s, i).long()],
+                                   take=rec.LOCAL_READS.take)
     dense, sparse = p99_in[0]
     bag_err = max(bag_err, check_bag(table, rec._flat_ids(cfg.embedding, sparse).reshape(-1, 1),
                                      None, "sum", "dlrm serve_p99 gather"))
-    if not torch.equal(rec.dlrm_forward(cfg, params, dense, sparse, table_lookup=gather),
+    if not torch.equal(rec.dlrm_forward(cfg, params, dense, sparse, reads=gather),
                        rec.dlrm_forward(cfg, params, dense, sparse)):
         raise AssertionError("dlrm forward: kernel lookup and plain gather disagree")
     for arch in ("xdeepfm", "autoint"):
@@ -2342,7 +2344,7 @@ def recsys_phase():
         bag_err = max(bag_err, check_bag(op["table"],
                                          rec._flat_ids(ocfg.embedding, ids).reshape(-1, 1),
                                          None, "sum", f"{arch} serve_p99 gather"))
-        if not torch.equal(forwards[arch](ocfg, op, ids, table_lookup=gather),
+        if not torch.equal(forwards[arch](ocfg, op, ids, reads=gather),
                            forwards[arch](ocfg, op, ids)):
             raise AssertionError(f"{arch} forward: kernel lookup and plain gather disagree")
     full = (query @ cand.T)[0]
@@ -2904,18 +2906,21 @@ def scatter_check(h, src, dst, n, label):
 
 
 @contextlib.contextmanager
-def held_bwd(keep=None):
-    """Every launch of the row-gradient kernel inside the block held against
-    its plain version on the same inputs, bit for bit (the distinct rows and
-    the sums): a mismatch raises. Yields the list of the launches' shapes
-    (ids, distinct rows, longest run, D, dtype); ``keep``, a dict, gets the
-    inputs of the launch with the longest run (``run``) and of the one with
-    the most distinct rows (``wide``), for timing."""
+def held_bwd(keep=None, first=None):
+    """Every launch of the row-gradient kernel inside the block (or only the
+    ``first`` ones) held against its plain version on the same inputs, bit
+    for bit (the distinct rows and the sums): a mismatch raises. Yields the
+    list of the held launches' shapes (ids, distinct rows, longest run, D,
+    dtype); ``keep``, a dict, gets the inputs of the launch with the longest
+    run (``run``) and of the one with the most distinct rows (``wide``), for
+    timing."""
     from repro_torch.kernels.embedding_bag import ops
     from repro_torch.kernels.embedding_bag.ref import embedding_bag_padded_bwd_ref
     real, calls = ops.embedding_bag_bwd_cuda, []
 
     def held(grad_out, ids, weights=None, combiner="sum"):
+        if first is not None and len(calls) >= first:
+            return real(grad_out, ids, weights, combiner)
         u, sums = real(grad_out, ids, weights, combiner)
         wu, ws = embedding_bag_padded_bwd_ref(grad_out, ids, weights, combiner)
         if not (torch.equal(u, wu) and same_bits(sums, ws)):
@@ -3188,9 +3193,12 @@ def gnn_phase():
 # -------------------------------------------------------------- LM phase
 # qwen3-0.6b's train_4k at full width on one microbatch, qwen2-moe-a2.7b's
 # train step at two layers and its serving at full depth in bf16
+# moe_held: of an MoE's serving, only the first layer's dispatch and combine of
+# the one more decode step are held (each plain version takes 0.25-0.5 s; all
+# 96 of them once took ~35 s of the smoke's time)
 LM = dict(seed=27, steps=3, serve_batch=4, prompt=4096, cache=32_768, decode=16,
           check_batch=2, tol={"bfloat16": (0.03, 0.1), "float32": (1e-3, 2e-3)},
-          tie_eps=1e-4)
+          tie_eps=1e-4, moe_held=2)
 
 
 def lm_train(label, cfg, cell):
@@ -3347,11 +3355,12 @@ def lm_serve(cfg, label, check_dtype):
     if not torch.isfinite(chunk_logits).all() or not torch.isfinite(logits).all():
         raise AssertionError(f"{label} serving: non-finite logits")
     cache_gb = 2 * cache["k"].numel() * cache["k"].element_size() / 1e9
-    with held_bwd() as held_decode:               # one more decode step, held
-        tf.decode_step(cfg, params, cur, cache, P + D)
+    is_moe = cfg.moe is not None                  # an MoE holds LM["moe_held"] launches
+    with held_bwd(first=L["moe_held"] if is_moe else None) as held_decode:
+        tf.decode_step(cfg, params, cur, cache, P + D)    # one more decode step, held
     del cache, logits
-    with held_bwd() as held_prefill:              # the prompt at the chunk's shapes
-        want, _ = tf.prefill(cfg, params, prompt, max_len=P)
+    with held_bwd(first=0 if is_moe else None) as held_prefill:
+        want, _ = tf.prefill(cfg, params, prompt, max_len=P)   # the prompt at the chunk's shapes
     bf16_agree = float((chunk_logits.argmax(-1) == want.argmax(-1)).float().mean())
     del want
     log(f"[lm] {label} serving at full depth in bf16 ({cfg.n_params / 1e9:.3f}·10⁹ params, "
@@ -3363,7 +3372,10 @@ def lm_serve(cfg, label, check_dtype):
         f"{float(np.median(times)):.4f} ms), peak {peak:.2f} GiB; the chunk's argmax agrees "
         f"with prefill's on {bf16_agree:.4f} of the rows; launches embedding_bag="
         f"{launches[0]} embedding_bag_bwd={launches[1]}; held: prefill at B = {B}: "
-        f"{held_line(held_prefill)}; one more decode step: {held_line(held_decode)}")
+        + ("not held (cut: the decode step's first layer holds the MoE's kernel)" if is_moe
+           else held_line(held_prefill))
+        + f"; one more decode step: {held_line(held_decode)}"
+        + (f" (cut to layer 0's dispatch and combine, LM['moe_held'])" if is_moe else ""))
 
     # ---- the check, in check_dtype ----
     c = dataclasses.replace(cfg, dtype=check_dtype)
@@ -3545,7 +3557,9 @@ def dryrun_phase(dlrm_step_ms):
                          for k, v in o["cost"]["kernels"].items())
         log(f"[dryrun] {key[0]}/{key[1]}"
             + (f" ({o['reduced']})" if o.get("reduced") else "")
-            + f": one-rank step {o['step_ms']:.4f} ms, live "
+            + f": one-rank step {o['step_ms']:.4f} ms"
+            + (" (timed on its counted warm-up step)" if o.get("timed_on_counted_step") else "")
+            + ", live "
             f"{o['live_bytes_per_device'] / 2**30:.2f} GiB (arguments "
             f"{o['arguments_bytes'] / 2**30:.2f} GiB), counted {o['cost']['flops'] / 1e9:.3f} "
             f"GFLOP, {o['cost']['bytes'] / 1e9:.3f} GB in and out of its ops, "
@@ -5276,12 +5290,16 @@ def stream_small_rank(layout, small):
 def lookup_rank(layout):
     """[lookup_sharded] on this rank of a (1, 1, 4) mesh: its quarter of
     dlrm-mlperf's 187,767,552 × 128 bf16 table, drawn on the card; each
-    batch's rows equal the rank's local gather where it owns the id, every
-    id is hit by exactly one rank; ms a batch and of its all_reduce."""
+    batch's rows (the ``embedding_bag`` kernel's read of the quarter, summed
+    over "model") equal the rank's local gather where it owns the id, every
+    id is hit by exactly one rank; ms a batch and of its all_reduce. Returns
+    the numbers and the quarter (``dlrm_ranks`` trains on it)."""
     from repro_torch.configs import recsys_archs as ra
     from repro_torch.dist import collectives as coll, sharding as shd
+    from repro_torch.kernels.embedding_bag import ops
     from repro_torch.models import recsys
     free_card()
+    bag0 = ops.launches
     spec = ra.DLRM.embedding
     lo, hi = shd.row_slice(spec.padded_rows, layout, "model")
     g = torch.Generator(device="cuda")
@@ -5328,15 +5346,387 @@ def lookup_rank(layout):
                                  owned=int(mine.sum()), dtype=str(rows.dtype))
         del rows, x
     out["peak"] = peak_gib()
-    del shard
+    out["launches"] = ops.launches - bag0
     free_card()
+    return out, shard
+
+
+# The recsys and GNN steps across ranks (ROADMAP 13b, 13f), in stream_world's
+# world of 4 ranks: dlrm-mlperf at (1, 1, 4) on lookup_rank's quarters of its
+# table, then at (1, 2, 2) xdeepfm, din and autoint train_batch and
+# graphsage-reddit's four cells, each against its one-rank step on rank 0.
+# Against the one-rank step (``held_against_one_rank``), limits set from the
+# sound readings of a card run of these phases (PERF.md §6): the
+# largest |Δ| of a dense parameter after the last step, dense_tol (read up
+# to 2.61e-4, minibatch_lg; a sign-flipped update parts a weight by 2·lr =
+# 2e-3); AdamW's m and v after step 1, ‖Δ‖₂ / ‖value‖₂ per tensor,
+# moment_rtol (there m = (1 − β1)·g and v = (1 − β2)·g², the gradient summed
+# in another order: read 4e-7 to 6e-6, and 4.3e-4 for ogb_products, whose
+# sums over 61.9M edges part by ~ε·√E; a scaled gradient, which AdamW's
+# update does not see, parts m by the scale); each table's change p − p_before
+# after step 1 and after the last, Σ|Δ change| / Σ|change|, table_rtol (read
+# 0, and 6.3e-7 for xdeepfm).
+# bulk_parts: dlrm's serve_bulk batch goes through the serve cell in 4 calls of
+# 65,536 rows: at (1, 1, 4) each rank runs the whole dense path of the batch, and
+# four ranks' activations of 262,144 rows (~10 GB each) beside their 11.19 GiB
+# quarters would pass the card's 80 GB
+# cut: xdeepfm's train batch, 16,384 (8,192 a rank): its CIN's outer products
+# take 41.14 GiB at 32,768 on one rank (PERF.md §6), and four ranks at
+# 16,384 each, or rank 0's one-rank step at 32,768 beside the others, pass the card
+RANKS = dict(seed=31, steps=3, untouched=65_536, serve_reps=5, bulk_parts=4,
+             cut={"xdeepfm": 16_384},
+             gnn_steps={"ogb_products": 2}, loss_rtol=1e-5, dense_tol=1e-3,
+             moment_rtol=2e-3, table_rtol=1e-4)
+
+
+class CollectiveClock:
+    """Within the block, host ms (from a synchronize) of the port's
+    collectives (``all_reduce_``, ``all_gather``, ``reduce_scatter`` of
+    ``dist.collectives``: every sum, gather and reduce-scatter of the
+    recsys and GNN steps goes through them)."""
+
+    def __enter__(self):
+        from repro_torch.dist import collectives as coll
+        self.coll, self.real, self.ms = coll, {}, 0.0
+        for name in ("all_reduce_", "all_gather", "reduce_scatter"):
+            self.real[name] = getattr(coll, name)
+            setattr(coll, name, self._timed(self.real[name]))
+        return self
+
+    def _timed(self, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.ms += (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.coll, name, fn)
+
+
+@contextlib.contextmanager
+def held_bag():
+    """Every launch of the ``embedding_bag`` kernel inside the block held
+    against its plain version on the same inputs: the same values for bags
+    of one (a shard's read: the row, or zero at weight 0), else within
+    ``BAG_TOL``. Yields the list of the launches' id shapes."""
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_padded_ref
+    real, calls = ops.embedding_bag_cuda, []
+
+    def launch(table, ids, weights=None, combiner="sum"):
+        out = real(table, ids, weights, combiner)
+        plain = embedding_bag_padded_ref(table, ids, weights, combiner)
+        tol = 0.0 if ids.shape[1] == 1 else BAG_TOL[table.dtype]
+        if not torch.allclose(out.float(), plain.float(), rtol=tol, atol=tol):
+            raise AssertionError(f"embedding_bag on the path ({tuple(ids.shape)} ids, D "
+                                 f"{table.shape[1]}, {table.dtype}): differs from its plain "
+                                 f"version by {float((out.float() - plain.float()).abs().max())}")
+        calls.append(tuple(ids.shape))
+        return out
+
+    ops.embedding_bag_cuda = launch
+    try:
+        yield calls
+    finally:
+        ops.embedding_bag_cuda = real
+
+
+def rank_views(arg, spec, layout):
+    """This rank's block of the global ``arg`` under ``spec`` (dicts and
+    lists elementwise), as tensors of its own."""
+    from repro_torch.dist import sharding as shd
+    if isinstance(arg, dict):
+        return {k: rank_views(arg[k], spec[k], layout) for k in arg}
+    if isinstance(arg, (list, tuple)):
+        return [rank_views(a, s, layout) for a, s in zip(arg, spec)]
+    return shd.local_view(arg, spec, layout).clone()
+
+
+def same_on_ranks(layout, group, tree, label):
+    """Raise unless ``tree`` has the same bits on every rank of ``group``."""
+    if len(layout.group(group)[1]) == 1:
+        return
+    prints = _all_gather_object(fingerprint(tree), layout, group)
+    if any(p != prints[0] for p in prints):
+        raise AssertionError(f"{label}: rank {layout.rank}: the replicas over {group!r} differ")
+
+
+def is_table(name):
+    return name.endswith("table") or name == "linear_w"
+
+
+def cell_steps(layout, label, cell, args, steps, first=None):
+    """``steps`` calls of a train cell's ``fn`` on this rank's ``args``
+    (params and state carried): the first under ``count_cost`` (the step's
+    collectives and bytes) with every kernel launch held against its plain
+    version, the rest timed (host clock to a synchronize) with the
+    collectives' clock; after each, the loss, the replicated parameters and
+    moments (over "world") and each table shard's replicas (over "dp") the
+    same bits. ``first``, a dict, gets copies of the params and state after
+    step 1. Returns (params, state), the losses and the numbers."""
+    from repro_torch.dist import analysis
+    from repro_torch.kernels.embedding_bag import ops
+    if steps < 2:
+        raise ValueError("cell_steps times the steps after the held, counted one: give 2 or more")
+    args, losses, times, coll_ms = list(args), [], [], []
+    free_card()
+    bag0, bwd0 = ops.launches, ops.bwd_launches
+    for i in range(steps):
+        sync_ranks(layout)
+        t0 = time.perf_counter()
+        if i == 0:
+            with held_bag() as bags, held_bwd() as bwds, CollectiveClock() as clock:
+                cost, out = analysis.count_cost(cell.fn, *args)
+        else:
+            with CollectiveClock() as clock:
+                out = cell.fn(*args)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+            coll_ms.append(clock.ms)
+        args[0], args[1] = out[0], out[1]
+        if i == 0 and first is not None:
+            first.update(params={k: v.clone() for k, v in out[0].items()},
+                         state={p: {k: v.clone() for k, v in out[1][p].items()}
+                                for p in ("m", "v")})
+        losses.append(float(out[2]))
+        same_on_ranks(layout, "world", (out[2], {k: v for k, v in out[0].items()
+                                                 if not is_table(k)}, out[1]), label)
+        same_on_ranks(layout, "dp", {k: v for k, v in out[0].items() if is_table(k)},
+                      label + " table shards")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: losses {losses}")
+    return args[:2], losses, dict(
+        step_ms=float(np.median(times)), coll_ms=float(np.median(coll_ms)),
+        timed="step 2" if steps == 2 else f"steps 2-{steps}",
+        coll_calls=cost.collectives, coll_bytes=cost.collective_bytes, peak=peak_gib(),
+        bag=ops.launches - bag0, bwd=ops.bwd_launches - bwd0, held_bag=len(bags),
+        held_bwd=len(bwds), losses=losses)
+
+
+def dlrm_ranks(layout, shard):
+    """[recsys-ranks] dlrm-mlperf at (1, 1, 4) at full width on this rank's
+    quarter of the table (``reduced``: none): the train cell's step 3 times
+    (B = 65,536 on every rank), sampled untouched rows unchanged bit for
+    bit; a serve_p99 batch (held, then timed) and a serve_bulk batch, the
+    same logits on every rank; retrieval over 10⁶ candidates split four
+    ways, equal to rank 0's one-rank ``retrieval_scores`` bit for bit."""
+    import dataclasses
+    from repro_torch.configs import recsys_archs as ra
+    from repro_torch.configs.base import RECSYS_SHAPES
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.models import recsys as rec
+    spec, out = ra.DLRM.embedding, {}
+    lo, hi = shd.row_slice(spec.padded_rows, layout, "model")
+    g = torch.Generator(device="cuda").manual_seed(RANKS["seed"])   # the same on every rank
+    # the dense parameters by init_params' law, drawn beside a stand-in table of 256 rows
+    stub = dataclasses.replace(ra.DLRM, embedding=rec.EmbeddingSpec((1,) * spec.n_fields,
+                                                                    spec.dim))
+    params = {**rec.init_params(stub, g, "cuda"), "table": shard}
+    cell = ra.specs()["dlrm-mlperf"].cell("train_batch", layout)
+    B = RECSYS_SHAPES["train_batch"]["batch"]
+    labels = torch.randint(0, 2, (B,), generator=g, device="cuda").to(torch.float32)
+    inputs = ra._dlrm_inputs(B, g, "cuda")
+    dense = {k: v for k, v in params.items() if k != "table"}
+    opt = {"step": torch.zeros((), dtype=torch.int32, device="cuda"),
+           "m": {k: torch.zeros_like(v) for k, v in dense.items()},
+           "v": {k: torch.zeros_like(v) for k, v in dense.items()}}
+    flat = (inputs[1].long() + torch.from_numpy(spec.offsets).long().cuda()[None, :]).reshape(-1)
+    mine = flat[(flat >= lo) & (flat < hi)] - lo
+    hit = torch.zeros(hi - lo, dtype=torch.bool, device="cuda")
+    hit[mine] = True
+    free_rows = (~hit).nonzero()[:, 0]
+    mine_g = torch.Generator(device="cuda").manual_seed(RANKS["seed"] + 1 + layout.rank)
+    pick = free_rows[torch.randperm(free_rows.numel(), generator=mine_g, device="cuda")
+                     [:RANKS["untouched"]]]
+    moved = mine[:RANKS["untouched"]]
+    before, touched = shard[pick].clone(), shard[moved].clone()
+    del flat, hit, free_rows
+    (params, _), _, out["train"] = cell_steps(layout, "dlrm-mlperf train_batch", cell,
+                                              (params, opt, labels, *inputs), RANKS["steps"])
+    if not same_bits(shard[pick], before) or torch.equal(shard[moved], touched):
+        raise AssertionError(f"dlrm-mlperf at (1, 1, 4), rank {layout.rank}: an untouched row "
+                             f"changed, or no touched row moved")
+    out["train"].update(model_coll_bytes=cell.model_coll_bytes, owned=int(mine.numel()),
+                        untouched=int(pick.numel()), batch=B)
+    del labels, inputs, before, touched, mine
+    for shape in ("serve_p99", "serve_bulk"):
+        free_card()
+        c = ra.specs()["dlrm-mlperf"].cell(shape, layout)
+        x = ra._dlrm_inputs(RECSYS_SHAPES[shape]["batch"], g, "cuda")
+        parts = RANKS["bulk_parts"] if shape == "serve_bulk" else 1
+        n = x[0].shape[0] // parts
+        serve = lambda: torch.cat([c.fn(params, *(a[i * n:(i + 1) * n] for a in x))
+                                   for i in range(parts)])
+        bag0, times = ops.launches, []
+        with torch.no_grad():
+            if shape == "serve_p99":
+                with held_bag() as bags:
+                    logits = serve()
+            for _ in range(RANKS["serve_reps"] if shape == "serve_p99" else 1):
+                sync_ranks(layout)
+                with CollectiveClock() as clock:
+                    t0 = time.perf_counter()
+                    logits = serve()
+                    torch.cuda.synchronize()
+                times.append(((time.perf_counter() - t0) * 1e3, clock.ms))
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"dlrm-mlperf {shape} at (1, 1, 4): logits not finite")
+        same_on_ranks(layout, "world", logits, f"dlrm-mlperf {shape}")
+        out[shape] = dict(ms=float(np.median([t[0] for t in times])),
+                          coll_ms=float(np.median([t[1] for t in times])),
+                          peak=peak_gib(), bag=ops.launches - bag0, batch=logits.shape[0],
+                          parts=parts,
+                          held=len(bags) if shape == "serve_p99" else 0,
+                          model_coll_bytes=c.model_coll_bytes)
+        del x, logits
+    free_card()
+    c = ra.specs()["dlrm-mlperf"].cell("retrieval_cand", layout)
+    q, cand = c.make_args(g, "cuda")
+    local = rank_views(cand, c.arg_specs[1], layout)
+    sync_ranks(layout)
+    with CollectiveClock() as clock:
+        t0 = time.perf_counter()
+        s, i = c.fn(q, local)
+        torch.cuda.synchronize()
+    out["retrieval"] = dict(ms=(time.perf_counter() - t0) * 1e3, coll_ms=clock.ms,
+                            n=cand.shape[0], per_rank=local.shape[0])
+    same_on_ranks(layout, "world", (s, i), "retrieval_cand")
+    if layout.rank == 0:
+        ws, wi = rec.retrieval_scores(q, cand, top_k=100)
+        if not (same_bits(s, ws) and torch.equal(i, wi)):
+            raise AssertionError("retrieval_cand at (1, 1, 4): the merged top-k differs from "
+                                 "the one-rank retrieval_scores")
+    del q, cand, local, params
+    free_card()
+    return out
+
+
+def held_against_one_rank(layout, label, cell, one, args, steps, rep):
+    """Rank 0: ``one``'s (the one-rank cell's) ``steps`` steps from the
+    global ``args``, against the ranks' (``rep``: params and state after
+    step 1 and after the last; tables gathered over "model" by every rank
+    first): the losses, AdamW's m and v after step 1, each dense parameter
+    after the last, and each table's change after both, within ``RANKS``'
+    limits."""
+    from repro_torch.dist import collectives as coll
+    params, first = rep.pop("params"), rep.pop("first")
+    gather = lambda ps: {k: coll.all_gather(v.contiguous(), layout, "model").flatten(0, 1)
+                         for k, v in ps.items() if is_table(k)}
+    tables, tables1 = gather(params), gather(first["params"])
+    if layout.rank == 0:
+        ref, losses = list(args), []
+        before = {k: v.clone() for k, v in ref[0].items() if is_table(k)}
+        worst = {"dense": 0.0, "moment": 0.0, "table": 0.0}
+
+        def hold(kind, name, value, limit):
+            worst[kind] = max(worst[kind], value)
+            if not value <= limit:
+                raise AssertionError(f"{label}: {name} parts from one rank's by {value:.3g} "
+                                     f"({kind}, limit {limit:g})")
+
+        def hold_tables(got, when):
+            for k, b in before.items():
+                moved = ref[0][k].float() - b.float()
+                size = float(moved.abs().sum())
+                if size == 0.0:
+                    raise AssertionError(f"{label}: one rank's step left {k} unchanged")
+                off = float((got[k].float() - b.float() - moved).abs().sum())
+                hold("table", f"{k}'s change {when}", off / size, RANKS["table_rtol"])
+
+        for i in range(steps):
+            ref[0], ref[1], loss = one.fn(*ref)
+            losses.append(float(loss))
+            if i == 0:
+                for part in ("m", "v"):
+                    for k, want in ref[1][part].items():
+                        norm = torch.linalg.vector_norm
+                        off = float(norm(first["state"][part][k] - want))
+                        hold("moment", f"{part}/{k} after step 1",
+                             off / max(float(norm(want)), 1e-30), RANKS["moment_rtol"])
+                hold_tables(tables1, "after step 1")
+        rl = np.array(rep["losses"])
+        if not np.allclose(rl, losses, rtol=RANKS["loss_rtol"], atol=0):
+            raise AssertionError(f"{label}: losses {rep['losses']} against one rank's {losses}")
+        hold_tables(tables, f"after step {steps}")
+        for k, want in ref[0].items():
+            if not is_table(k):
+                hold("dense", k, float((params[k] - want).abs().max()), RANKS["dense_tol"])
+        rep.update(one_rank_losses=losses,
+                   max_loss_rel=float(np.max(np.abs(rl - losses) / np.abs(losses))),
+                   max_table=worst["table"], max_dense=worst["dense"],
+                   max_moment=worst["moment"])
+        del ref, before
+    del tables, tables1, first
+    sync_ranks(layout)
+
+
+def recsys_ranks_22(layout):
+    """[recsys-ranks] xdeepfm, din and autoint train_batch at (1, 2, 2) at
+    full width (xdeepfm at B = 16,384, ``reduced``: the batch,
+    ``RANKS["cut"]``), 3 steps from one global draw, against rank 0's
+    one-rank steps."""
+    from repro_torch.configs import recsys_archs as ra
+    out = {}
+    for arch in ("xdeepfm", "din", "autoint"):
+        cell = ra.specs()[arch].cell("train_batch", layout)
+        g = torch.Generator(device="cuda").manual_seed(RANKS["seed"] + 1)
+        args = list(cell.make_args(g, "cuda"))
+        cut = RANKS["cut"].get(arch)
+        if cut:
+            args = args[:2] + [a[:cut] for a in args[2:]]
+        local = rank_views(args, cell.arg_specs, layout)
+        first = {}
+        (params, _), _, rep = cell_steps(layout, f"{arch} train_batch", cell, local,
+                                         RANKS["steps"], first)
+        del local
+        rep.update(params=params, first=first, batch=args[2].shape[0],
+                   model_coll_bytes=cell.model_coll_bytes)
+        held_against_one_rank(layout, f"{arch} train_batch at (1, 2, 2)", cell,
+                              ra.specs()[arch].cell("train_batch"), args, RANKS["steps"], rep)
+        out[arch] = rep
+        del args, params, first
+        free_card()
+    return out
+
+
+def gnn_ranks(layout):
+    """[gnn-ranks] graphsage-reddit's four cells at (1, 2, 2) on drawn inputs
+    at full width (``reduced``: none; ogb_products 2 steps, the rest 3),
+    against rank 0's one-rank steps."""
+    from repro_torch.configs import gnn_archs as ga
+    out = {}
+    for kind in ga.GNN_SHAPES:
+        cell = ga.spec().cell(kind, layout)
+        g = torch.Generator(device="cuda").manual_seed(RANKS["seed"] + 2)
+        args = list(cell.make_args(g, "cuda"))
+        local = rank_views(args, cell.arg_specs, layout)
+        steps = RANKS["gnn_steps"].get(kind, RANKS["steps"])
+        first = {}
+        (params, _), _, rep = cell_steps(layout, f"graphsage-reddit {kind}", cell, local, steps,
+                                         first)
+        del local
+        rep.update(params=params, first=first, model_coll_bytes=cell.model_coll_bytes)
+        held_against_one_rank(layout, f"graphsage-reddit {kind} at (1, 2, 2)", cell,
+                              ga.spec().cell(kind), args, steps, rep)
+        out[kind] = rep
+        del args, params, first
+        free_card()
     return out
 
 
 def stream_world(layout, dirs, L, small):
     """One world of 4 ranks on the card: [stream-ranks] 4×1 (dense, prefetch
     on/off, alias), word-sharded 2×2 against 2×1 (pod 0 of a 2 × 2×1 mesh),
-    SMALL's streamed 2×2 ring card vs CPU, then [lookup_sharded]."""
+    SMALL's streamed 2×2 ring card vs CPU, then [lookup_sharded] and
+    [recsys-ranks] dlrm-mlperf at (1, 1, 4), [recsys-ranks] xdeepfm, din and
+    autoint and [gnn-ranks] graphsage-reddit at (1, 2, 2)."""
     from repro_torch.launch import mesh
     t, out = {}, {}
     t0 = time.perf_counter()
@@ -5361,8 +5751,18 @@ def stream_world(layout, dirs, L, small):
     t["small"] = time.perf_counter() - t0
     lay14 = mesh.relayout(layout, 1, 1, 4)
     t0 = time.perf_counter()
-    out["lookup"] = lookup_rank(lay14)
+    out["lookup"], shard = lookup_rank(lay14)
     t["lookup"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["dlrm"] = dlrm_ranks(lay14, shard)
+    del shard
+    t["recsys_dlrm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["recsys_22"] = recsys_ranks_22(lay22)
+    t["recsys_22"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["gnn_22"] = gnn_ranks(lay22)
+    t["gnn_22"] = time.perf_counter() - t0
     out["seconds"] = t
     return out
 
@@ -5510,7 +5910,86 @@ def stream_ranks_report(res, T, caps, L, card):
             f"all_reduce ({b['reduce_bytes']} bytes, {b['dtype']}) {b['reduce_ms']:.3f} ms; ids "
             f"owned per rank {[x['batches'][B]['owned'] for x in lk]}; peak GiB per rank "
             f"{[round(x['peak'], 2) for x in lk]}; card {card}")
+    launches["bag"] = dict(lookup_sharded=sum(x["launches"] for x in lk))
+    launches["bwd"] = {}
+    recsys_gnn_report(res, card, launches)
     return launches
+
+
+def coll_text(rep, world):
+    """A path's collectives for a log line: rank 0's calls and payload bytes
+    a step (``count_cost``), the four ranks' total beside JAX's formula."""
+    calls = ", ".join(f"{k} {int(v)}" for k, v in sorted(rep["coll_calls"].items()))
+    mine = sum(rep["coll_bytes"].values())
+    jax = rep["model_coll_bytes"]
+    return (f"collectives a step: {calls} calls, {mine:,.0f} bytes a rank ({mine * world:,.0f} "
+            f"over {world} ranks; JAX's formula model_coll_bytes {jax:,.0f}, "
+            f"{jax / (mine * world):.2f}x the port's), {rep['coll_ms']:.1f} ms")
+
+
+def recsys_gnn_report(res, card, launches):
+    """Check and print [recsys-ranks] and [gnn-ranks]; adds the kernels'
+    launches by path (summed over the ranks) to ``launches["bag"]`` and
+    ``launches["bwd"]``."""
+    W = len(res)
+    bag, bwd = launches["bag"], launches["bwd"]
+    for key, name in (("train", "dlrm-mlperf train_batch"),):
+        reps = [r["dlrm"][key] for r in res]
+        r0 = reps[0]
+        bag["ranks_dlrm_train"] = sum(x["bag"] for x in reps)
+        bwd["ranks_dlrm_train"] = sum(x["bwd"] for x in reps)
+        log(f"[recsys-ranks] {name} at (1, 1, 4) on the row-sharded table (reduced: none; "
+            f"B = {r0['batch']:,} on every rank): {RANKS['steps']} steps, median step "
+            f"{r0['step_ms']:.1f} ms ({r0['timed']}; ranks "
+            f"{[round(x['step_ms'], 1) for x in reps]}), losses {[round(x, 6) for x in r0['losses']]}, "
+            f"the same bits on every rank with every dense parameter and moment; "
+            f"{r0['untouched']:,} sampled untouched rows a rank unchanged bit for bit, touched "
+            f"rows moved; ids owned per rank {[x['owned'] for x in reps]}; step 1 held: "
+            f"{sum(x['held_bag'] for x in reps)} embedding_bag and "
+            f"{sum(x['held_bwd'] for x in reps)} embedding_bag_bwd launches equal to their "
+            f"plain versions; launches {bag['ranks_dlrm_train']} / {bwd['ranks_dlrm_train']}; "
+            f"peak GiB a rank {[round(x['peak'], 2) for x in reps]}; {coll_text(r0, W)}; "
+            f"card {card}")
+    for shape in ("serve_p99", "serve_bulk"):
+        reps = [r["dlrm"][shape] for r in res]
+        bag[f"ranks_dlrm_{shape}"] = sum(x["bag"] for x in reps)
+        log(f"[recsys-ranks] dlrm-mlperf {shape} at (1, 1, 4): B = {reps[0]['batch']:,}"
+            + (f" (reduced: {reps[0]['parts']} calls of {reps[0]['batch'] // reps[0]['parts']:,} "
+               f"rows, RANKS['bulk_parts'])" if reps[0]["parts"] > 1 else "") + ", "
+            f"{reps[0]['ms']:.2f} ms a batch (ranks {[round(x['ms'], 2) for x in reps]}; "
+            f"its sum over 'model' {reps[0]['coll_ms']:.2f} ms), the same logits on every rank"
+            + (f", {sum(x['held'] for x in reps)} held launches equal to the plain version"
+               if shape == "serve_p99" else "")
+            + f"; JAX's formula {reps[0]['model_coll_bytes']:,.0f} bytes; peak GiB a rank "
+            f"{[round(x['peak'], 2) for x in reps]}; card {card}")
+    rt = [r["dlrm"]["retrieval"] for r in res]
+    log(f"[recsys-ranks] dlrm-mlperf retrieval_cand at (1, 1, 4): {rt[0]['n']:,} candidates, "
+        f"{rt[0]['per_rank']:,} a rank; merged top-100 equals the one-rank retrieval_scores "
+        f"bit for bit; {rt[0]['ms']:.2f} ms (its gathers {rt[0]['coll_ms']:.2f} ms); card {card}")
+    for family, key, tag in (("recsys", "recsys_22", "[recsys-ranks]"),
+                             ("gnn", "gnn_22", "[gnn-ranks]")):
+        for name in res[0][key]:
+            reps = [r[key][name] for r in res]
+            r0 = reps[0]
+            path = f"ranks_{'gnn_' if family == 'gnn' else ''}{name}"
+            bag[path] = sum(x["bag"] for x in reps)
+            bwd[path] = sum(x["bwd"] for x in reps)
+            tol = (f"each table's change after steps 1 and {len(r0['losses'])} Σ|Δ| / "
+                   f"Σ|change| ≤ {RANKS['table_rtol']:g} (max {r0['max_table']:.3g}), "
+                   if family == "recsys" else "")
+            log(f"{tag} {name} at (1, 2, 2)"
+                + (f" (reduced: B = {r0['batch']:,})" if name in RANKS["cut"] else "")
+                + f": {len(r0['losses'])} steps, step {r0['step_ms']:.1f} ms ({r0['timed']}; "
+                f"ranks {[round(x['step_ms'], 1) for x in reps]}), losses "
+                f"{[round(x, 6) for x in r0['losses']]}; against the one-rank step: losses "
+                f"rtol {RANKS['loss_rtol']:g} (max {r0['max_loss_rel']:.2g}), {tol}dense "
+                f"|Δ| ≤ {RANKS['dense_tol']:g} (max {r0['max_dense']:.3g}), AdamW m and v "
+                f"after step 1 ‖Δ‖ / ‖value‖ ≤ {RANKS['moment_rtol']:g} (max "
+                f"{r0['max_moment']:.3g}); replicas the same "
+                f"bits; step 1 held: {sum(x['held_bag'] for x in reps)} embedding_bag and "
+                f"{sum(x['held_bwd'] for x in reps)} embedding_bag_bwd launches equal to "
+                f"their plain versions; launches {bag[path]} / {bwd[path]}; peak GiB a rank "
+                f"{[round(x['peak'], 2) for x in reps]}; {coll_text(r0, W)}; card {card}")
 
 
 def stream_launch_fault_main(layout, argv):
@@ -5673,7 +6152,8 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     stream_ranks = stream_ranks_phase(corpus)
-    mark("stream ranks (4x1, word-sharded, card vs cpu, lookup_sharded)")
+    mark("stream ranks (4x1, word-sharded, card vs cpu, lookup_sharded, recsys and GNN "
+         "across ranks)")
     stream_launch = stream_launch_ranks_phase()
     mark("launch.train streamed ranks")
     # `launches` is each kernel's count on its first path (gibbs_epoch, the
@@ -5771,7 +6251,8 @@ def main():
                                    **{f"dryrun_one_rank_{f}": n["embedding_bag"]
                                       for f, n in dry_by_family.items()},
                                    **{f"gnn_{c}": r["bag"] for c, r in gnn.items()},
-                                   **{p: n["embedding_bag"] for p, n in quality.items()}),
+                                   **{p: n["embedding_bag"] for p, n in quality.items()},
+                                   **stream_ranks["bag"]),
              max_abs_err=max(bag_small_err, bag_full_err), multi_hot=bag["multi_hot"],
              **bag["lookup"]),
         dict(name="embedding_bag_bwd", route="cuda",
@@ -5783,6 +6264,7 @@ def main():
                                   for a, r in train.items()},
                                **{f"gnn_{c}": r["bwd"] for c, r in gnn.items()},
                                **{f"lm_{c}": r["bwd"] for c, r in lm.items()},
+                               **stream_ranks["bwd"],
                                "dryrun_one_rank": dry_launches["embedding_bag_bwd"],
                                **{f"dryrun_one_rank_{f}": n["embedding_bag_bwd"]
                                   for f, n in dry_by_family.items()},

@@ -21,9 +21,14 @@ Step functions by shape kind:
   serve_*      → recsys batch forward; retrieval_cand → streamed top-k scoring
   (LDA)        → one rank's ring Gibbs epoch / RT-LDA serving batch
 
-A cell of more than one rank is built (its specs and formulas are what the
-dry run records) but the recsys, GNN and LM steps raise across ranks: they
-are ported for one rank only (ROADMAP items 13b, 13f, 13g). An LM train
+Across ranks a cell's ``fn`` is one rank's step: it takes the rank's views
+(``sharding.local_view`` of ``make_args``' global arguments by
+``arg_specs``) and returns the rank's views, as JAX's GSPMD-partitioned
+cell computes them. The recsys steps row-shard the tables over "model"
+(``models.recsys.ShardedReads``; dense gradients all_reduced over "dp");
+the GNN steps split node and edge rows over every axis (``models.gnn``'s
+``layout=``; gradients all_reduced over "world"). The LM steps raise across
+ranks: they are ported for one rank only (ROADMAP item 13g). An LM train
 cell at one rank carries ``one_rank_cut``: the same step on one microbatch,
 which the dry run's one-rank record runs (the global batch is 128
 microbatches there).
@@ -38,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.dist import collectives as coll
 from repro_torch.dist import sharding as shd
 from repro_torch.models import gnn as gnn_mod
 from repro_torch.models import recsys as rec_mod
@@ -142,8 +148,17 @@ def one_rank_only(fn: Callable, layout, what: str) -> Callable:
     return refused
 
 
-_SHARDED_RECSYS = ("the recsys {} step with its tables row-sharded over 'model' (ROADMAP "
-                   "item 13b, 'Open from it')")
+def all_reduce_grads_(grads: Dict[str, torch.Tensor], layout, name: str) -> None:
+    """Sum the dense gradients ``grads`` over group ``name`` in place, as one
+    flat f32 buffer (one collective): every rank of the group then holds the
+    same bits."""
+    names = sorted(grads)
+    flat = coll.all_reduce_(torch.cat([grads[k].reshape(-1) for k in names]), layout, name)
+    lo = 0
+    for k in names:
+        n = grads[k].numel()
+        grads[k].copy_(flat[lo:lo + n].view(grads[k].shape))
+        lo += n
 
 
 def _input_specs(inputs, bspec) -> tuple:
@@ -166,11 +181,16 @@ def build_recsys_cell(cfg, forward_fn, input_maker, flops_fn,
     bspec = shd.recsys_batch_spec(multi_pod)
     probe = input_maker(1, None, "meta") if input_maker is not None else ()
     n_inputs, input_specs = len(probe), _input_specs(probe, bspec)
+    # across ranks: the tables' reads of a row shard, the batch split over "dp"
+    sharded = layout is not None and layout.world_size > 1
+    reads = rec_mod.ShardedReads(layout) if sharded else rec_mod.LOCAL_READS
 
     if info["kind"] == "retrieval":
         N = info["n_candidates"]
 
         def retrieval(query, cand):
+            if sharded:
+                return rec_mod.retrieval_scores_sharded(query, cand, layout, top_k=100)
             return rec_mod.retrieval_scores(query, cand, top_k=100)
 
         def make_args(generator, device="cuda", params=None):
@@ -181,9 +201,7 @@ def build_recsys_cell(cfg, forward_fn, input_maker, flops_fn,
             return (torch.randn((B, emb_dim), generator=generator, device=dev),
                     torch.randn((N, emb_dim), generator=generator, device=dev))
 
-        return Cell(cfg.name, shape_name, "retrieval",
-                    one_rank_only(retrieval, layout, _SHARDED_RECSYS.format("retrieval")),
-                    make_args,
+        return Cell(cfg.name, shape_name, "retrieval", retrieval, make_args,
                     model_flops=2.0 * B * N * emb_dim,
                     arg_specs=((None, None), shd.table_rows_spec()),
                     arg_roles=("query", "candidates"))
@@ -196,30 +214,40 @@ def build_recsys_cell(cfg, forward_fn, input_maker, flops_fn,
 
     if info["kind"] == "serve":
         def serve(params, *inputs):
-            return forward_fn(cfg, params, *inputs)
+            """The logits of the rank's batch rows."""
+            return forward_fn(cfg, params, *inputs, reads=reads)
 
         def make_args(generator, device="cuda", params=None):
             dev = resolve_device(device)
             params = _params(cfg, generator, dev) if params is None else params
             return (params, *input_maker(B, generator, dev))
 
-        return Cell(cfg.name, shape_name, "serve",
-                    one_rank_only(serve, layout, _SHARDED_RECSYS.format("serve")), make_args,
+        return Cell(cfg.name, shape_name, "serve", serve, make_args,
                     model_flops=flops_fn(B, False), model_coll_bytes=lookup_bytes,
                     arg_specs=(pspecs, *input_specs),
                     arg_roles=("params",) + ("inputs",) * n_inputs)
 
     # train: the tables' SGD touches only the rows the batch reads (their
     # sparse gradients from the row-gradient kernel), in place; the dense
-    # parameters get AdamW, functionally, over a state of the dense ones only
+    # parameters get AdamW, functionally, over a state of the dense ones only.
+    # Across ranks the loss is the global batch's mean (each rank's mean ÷
+    # the "dp" size, summed over "dp"), a table shard's gradient already sums
+    # every data replica's items, and the dense gradients are summed over
+    # "dp": the ranks of one "model" group repeat one dense path on the same
+    # rows, so every rank applies the same bits.
     _, dense_shapes = _split_table_params(shapes)
 
     def train_step(params, opt_state, labels, *inputs):
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        loss = rec_mod.bce_loss(forward_fn(cfg, leaves, *inputs), labels)
+        loss = rec_mod.bce_loss(forward_fn(cfg, leaves, *inputs, reads=reads), labels)
+        if sharded:
+            n_dp = len(layout.group("dp")[1])
+            loss = coll.psum(loss * (1.0 / n_dp), layout, "dp")
         names = sorted(leaves)
         grads = dict(zip(names, torch.autograd.grad(loss, [leaves[k] for k in names])))
         tab_g, dense_g = _split_table_params(grads)
+        if sharded:
+            all_reduce_grads_(dense_g, layout, "dp")
         tab_p, dense_p = _split_table_params(params)
         for k in tab_p:
             rec_mod.sgd_rows_(tab_p[k], tab_g[k], TABLE_LR)
@@ -243,8 +271,7 @@ def build_recsys_cell(cfg, forward_fn, input_maker, flops_fn,
 
     dense_specs = {k: pspecs[k] for k in sorted(dense_shapes)}
     opt_specs = {"step": (), "m": dense_specs, "v": dense_specs}
-    return Cell(cfg.name, shape_name, "train",
-                one_rank_only(train_step, layout, _SHARDED_RECSYS.format("train")), make_args,
+    return Cell(cfg.name, shape_name, "train", train_step, make_args,
                 model_flops=flops_fn(B, True), donate=(0, 1),
                 # JAX's formula: lookup psum fwd + dense table-grad reduce over
                 # "data" + dense-param grad all-reduce
@@ -441,8 +468,6 @@ def make_lm_arch(cfg, skip_long: bool = True) -> ArchSpec:
 # ===========================================================================
 
 GNN_OPT = AdamW(lr=1e-3, weight_decay=0.0)
-_SHARDED_GNN = ("the GNN train step across ranks (data parallelism over nodes and edges; "
-                "ROADMAP item 13f)")
 
 
 def _gnn_params(cfg, generator, dev):
@@ -452,13 +477,17 @@ def _gnn_params(cfg, generator, dev):
     return gnn_mod.init_params(cfg, generator, dev)
 
 
-def _gnn_train_step(loss_fn):
-    """A train step of ``loss_fn(params, *inputs)``: its gradient, then AdamW."""
+def _gnn_train_step(loss_fn, layout=None):
+    """A train step of ``loss_fn(params, *inputs)``: its gradient, then AdamW.
+    Across ranks (``layout``) each rank's gradient is its rows' share: they
+    are summed over "world" first, so every rank applies the same bits."""
     def train_step(params, opt_state, *inputs):
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         loss = loss_fn(leaves, *inputs)
         names = sorted(leaves)
         grads = dict(zip(names, torch.autograd.grad(loss, [leaves[k] for k in names])))
+        if layout is not None:
+            all_reduce_grads_(grads, layout, "world")
         params, opt_state = GNN_OPT.update(grads, opt_state, params)
         return params, opt_state, loss.detach()
     return train_step
@@ -521,6 +550,7 @@ def _block_inputs(cfg, sizes, generator, dev):
 
 def build_gnn_cell(cfg, shape_name: str, shape: Dict[str, Any], layout=None) -> Cell:
     multi_pod = layout is not None and layout.pods > 1
+    lay = None if layout is None or layout.world_size == 1 else layout
     pspecs = shd.gnn_param_specs(gnn_mod.param_shapes(cfg))
     opt_specs = {"step": (), "m": pspecs, "v": pspecs}
     rows = shd.gnn_rows_spec(multi_pod)
@@ -542,17 +572,22 @@ def build_gnn_cell(cfg, shape_name: str, shape: Dict[str, Any], layout=None) -> 
 
         if graph_pool:
             # disjoint-union batching: graph_ids map nodes → graph for readout
-            train_step = _gnn_train_step(
-                lambda p, feats, src, dst, graph_ids, labels: gnn_mod.loss_graph_pool(
-                    cfg, p, feats, src, dst, graph_ids, n_graphs, labels))
             graph_spec = (shd.divisible_rows_spec(n_graphs, layout, multi_pod)
                           if layout is not None else (None,))
+
+            def pool_loss(p, feats, src, dst, graph_ids, labels):
+                if lay is not None:             # every rank's block of the labels
+                    labels = coll.all_assemble(labels, graph_spec, lay)
+                return gnn_mod.loss_graph_pool(cfg, p, feats, src, dst, graph_ids, n_graphs,
+                                               labels, lay)
+
+            train_step = _gnn_train_step(pool_loss, lay)
             in_specs = ((rows[0], None), rows, rows, rows, graph_spec)
             roles = ("feats", "edges", "edges", "graph_ids", "labels")
         else:
             train_step = _gnn_train_step(
                 lambda p, feats, src, dst, labels, mask: gnn_mod.loss_full(
-                    cfg, p, feats, src, dst, labels, mask))
+                    cfg, p, feats, src, dst, labels, mask, lay), lay)
             in_specs = ((rows[0], None), rows, rows, rows, rows)
             roles = ("feats", "edges", "edges", "labels", "mask")
 
@@ -564,7 +599,7 @@ def build_gnn_cell(cfg, shape_name: str, shape: Dict[str, Any], layout=None) -> 
         flops = 3 * (2 * N * (d_in * d_h * 2) + 2 * N * d_h * d_h * 2 * (cfg.n_layers - 1)
                      + 2 * N * d_h * cfg.n_classes)
         return Cell(cfg.name, shape_name, "train",
-                    one_rank_only(train_step, layout, _SHARDED_GNN), make_args,
+                    train_step, make_args,
                     model_flops=float(flops), donate=(0, 1),
                     # cross-shard message halo: ~every edge crosses shards at
                     # random placement (fwd + bwd gather/scatter)
@@ -579,7 +614,8 @@ def build_gnn_cell(cfg, shape_name: str, shape: Dict[str, Any], layout=None) -> 
         for f in fan:
             sizes.append(sizes[-1] * f)
         train_step = _gnn_train_step(
-            lambda p, feats, neigh, labels: gnn_mod.loss_sampled(cfg, p, feats, neigh, labels))
+            lambda p, feats, neigh, labels: gnn_mod.loss_sampled(cfg, p, feats, neigh, labels,
+                                                                 lay), lay)
 
         def make_args(generator, device="cuda", params=None):
             dev = resolve_device(device)
@@ -595,7 +631,7 @@ def build_gnn_cell(cfg, shape_name: str, shape: Dict[str, Any], layout=None) -> 
             + 2 * sizes[0] * d_h * cfg.n_classes)
         level = (rows[0], None)
         return Cell(cfg.name, shape_name, "train",
-                    one_rank_only(train_step, layout, _SHARDED_GNN), make_args,
+                    train_step, make_args,
                     model_flops=float(flops), donate=(0, 1),
                     model_coll_bytes=3.0 * tot * cfg.d_in * 4.0,
                     note="padded bipartite blocks (real sampler feeds these)",

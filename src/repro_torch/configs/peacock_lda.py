@@ -174,8 +174,9 @@ def _serve_cell(layout) -> Cell:
                 e((B, Ld), torch.int32))
 
     flops = 2.0 * B * (5 * 2) * Ld * Ld * 8.0
-    fn = one_rank_only(serve, layout, "serve_rt with P̂ row-sharded over the ring (the "
-                       "port serves a whole model on each replica, serving/fleet.py)")
+    fn = one_rank_only(serve, layout, "serve_rt with P̂ row-sharded over the ring (ROADMAP "
+                       "item 13i; the port serves a whole model on each replica, "
+                       "serving/fleet.py)")
     return Cell(
         arch="peacock-lda", shape="serve_rt", step_kind="lda_serve", fn=fn,
         make_args=make_args, model_flops=flops,

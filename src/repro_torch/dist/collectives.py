@@ -2,12 +2,24 @@
 ``repro.dist.collectives``, plus the ring's one-hop shift).
 
 Every function takes the rank's :class:`RankLayout` and the name of one of
-its groups (``"ring"``, ``"data"``, ``"model"``, ``"pod"``): JAX's
-``ppermute``/``psum``/``pmax`` over a mesh axis become a ring shift, an
-``all_reduce(SUM)`` and an ``all_reduce(MAX)`` over that group. A group of
-one rank makes each of them the identity. Under gloo a CUDA tensor goes
-through a pinned host buffer (in chunks of at most ``HOST_CHUNK`` elements),
-so gloo only ever sees host tensors; under NCCL tensors stay on the card.
+its groups (``"ring"``, ``"data"``, ``"model"``, ``"pod"``, ``"dp"``,
+``"world"``): JAX's ``ppermute``/``psum``/``pmax``/``all_gather``/
+``psum_scatter`` over a mesh axis become a ring shift, an
+``all_reduce(SUM)``, an ``all_reduce(MAX)``, an ``all_gather`` and a
+reduce-scatter over that group. A group of one rank makes each of them the
+identity. Under gloo a CUDA tensor goes through a pinned host buffer (in
+chunks of at most ``HOST_CHUNK`` elements), so gloo only ever sees host
+tensors; under NCCL tensors stay on the card. Under gloo a reduce-scatter is
+an ``all_reduce`` and the rank's slice (one path for every torch, whether
+its gloo has ``reduce_scatter`` or not).
+
+With gradients (the steps of the recsys and GNN cells across ranks):
+``psum`` is a sum whose result feeds compute that every rank of the group
+repeats, so its backward is the identity (every rank already holds the
+whole cotangent; summing it again would multiply the gradient by the group's
+size); ``all_gather_rows`` concatenates the group's row blocks and its backward
+is the reduce-scatter of the cotangent; ``reduce_scatter_rows`` is the
+reduce-scatter and its backward the ``all_gather``.
 
 ``compressed_psum``: the JAX package sums the int8 payload as int16, which
 neither gloo nor NCCL reduces. Here each rank all-gathers the int8 payload
@@ -16,7 +28,7 @@ bound, and one byte per element per rank on the wire (a quarter of f32).
 
 Each collective is reported to an active ``dist.analysis.count_cost`` under
 the name of its JAX primitive (``psum``, ``pmax``, ``all_gather``,
-``ppermute``) with its payload bytes, shape and dtype, groups of one rank included (JAX's
+``reduce_scatter``, ``ppermute``) with its payload bytes, shape and dtype, groups of one rank included (JAX's
 jaxpr holds a ``psum`` over an axis of size 1 too).
 """
 from __future__ import annotations
@@ -28,7 +40,7 @@ import torch.distributed as dist
 
 from repro_torch.core import prng
 from repro_torch.dist import analysis
-from repro_torch.dist.sharding import POD_AXIS, RankLayout
+from repro_torch.dist.sharding import POD_AXIS, RankLayout, block_index
 
 _Q_MAX = 127.0          # int8 symmetric range
 _M32 = 0xFFFF_FFFF
@@ -54,9 +66,13 @@ def _host(t: torch.Tensor) -> torch.Tensor:
 def all_reduce_(t: torch.Tensor, layout: RankLayout, name: str, op: str = "sum") -> torch.Tensor:
     """In-place ``all_reduce`` of ``t`` over group ``name`` (``op``: sum or
     max); returns ``t``."""
-    group, ranks = layout.group(name)
     analysis.charge_collective({"sum": "psum", "max": "pmax"}[op], analysis.tensor_bytes(t),
                                t.shape, t.dtype)
+    return _reduce_(t, layout, name, op)
+
+
+def _reduce_(t: torch.Tensor, layout: RankLayout, name: str, op: str) -> torch.Tensor:
+    group, ranks = layout.group(name)
     if len(ranks) == 1:
         return t
     rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
@@ -78,10 +94,127 @@ def all_gather(t: torch.Tensor, layout: RankLayout, name: str) -> torch.Tensor:
     analysis.charge_collective("all_gather", analysis.tensor_bytes(t), t.shape, t.dtype)
     if len(ranks) == 1:
         return t[None].clone()
-    src = _host(t) if _via_host(t, layout) else t.contiguous()
-    outs = [torch.empty_like(src) for _ in ranks]
+    host = _via_host(t, layout)
+    src = _host(t) if host else t.contiguous()
+    outs = [torch.empty(src.shape, dtype=src.dtype, pin_memory=host) if host
+            else torch.empty_like(src) for _ in ranks]
     dist.all_gather(outs, src, group=group)
-    return torch.stack(outs).to(t.device)
+    out = torch.empty((len(ranks),) + tuple(t.shape), dtype=t.dtype, device=t.device)
+    for i, o in enumerate(outs):
+        out[i].copy_(o)
+    return out
+
+
+def all_gather_v(t: torch.Tensor, layout: RankLayout, name: str) -> List[torch.Tensor]:
+    """Every rank's ``t`` in group order, where the ranks' dim 0 may differ
+    (trailing dims and dtype agree): the counts first, then the payloads
+    padded to the longest, each cut back to its count."""
+    counts = all_gather(torch.tensor([t.shape[0]], dtype=torch.int64, device=t.device),
+                        layout, name)[:, 0].tolist()
+    most = max(counts)
+    pad = t.new_zeros((most,) + tuple(t.shape[1:]))
+    pad[:t.shape[0]] = t
+    full = all_gather(pad, layout, name)
+    return [full[i, :n] for i, n in enumerate(counts)]
+
+
+def reduce_scatter(t: torch.Tensor, layout: RankLayout, name: str) -> torch.Tensor:
+    """This rank's block of the group's sum of ``t``: ``t`` [n·k, ...] →
+    [k, ...], the block at the rank's group index (JAX's ``psum_scatter``
+    with ``tiled=True``). NCCL: ``reduce_scatter_tensor``; gloo: an
+    ``all_reduce`` of a copy and the slice."""
+    group, ranks = layout.group(name)
+    n = len(ranks)
+    if t.shape[0] % n:
+        raise ValueError(f"{t.shape[0]} rows do not split into {n} blocks")
+    analysis.charge_collective("reduce_scatter", analysis.tensor_bytes(t), t.shape, t.dtype)
+    if n == 1:
+        return t.clone()
+    k = t.shape[0] // n
+    if layout.backend == "nccl":
+        out = torch.empty((k,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+        dist.reduce_scatter_tensor(out, t.contiguous(), group=group)
+        return out
+    me = ranks.index(layout.rank)
+    total = _reduce_(t.contiguous().clone(), layout, name, "sum")
+    return total[me * k:(me + 1) * k].clone()
+
+
+def all_assemble(t: torch.Tensor, spec, layout: RankLayout) -> torch.Tensor:
+    """The global tensor of which ``t`` is this rank's block under the
+    layout ``spec`` (``sharding.local_view``'s), on every rank: each rank's
+    block all_gathered over "world" and put in its place (the torch twin of
+    ``sharding.assemble``; blocks that several ranks hold are equal)."""
+    parts = all_gather(t.contiguous(), layout, "world")
+    blocks = [block_index(spec, layout, r) for r in range(layout.world_size)]
+    shape = [t.shape[d] * (blocks[0][d][0] if d < len(spec) else 1) for d in range(t.dim())]
+    out = t.new_empty(shape)
+    for r, blk in enumerate(blocks):
+        out[tuple(slice(i * t.shape[d], (i + 1) * t.shape[d])
+                  for d, (_, i) in enumerate(blk))] = parts[r]
+    return out
+
+
+# ------------------------------------------------- collectives with gradients ---
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, layout, name):
+        return all_reduce_(t.clone(), layout, name)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def psum(t: torch.Tensor, layout: RankLayout, name: str) -> torch.Tensor:
+    """The sum of ``t`` over group ``name`` where it feeds compute that every
+    rank of the group repeats (a row-sharded lookup, a loss): its gradient
+    passes through unchanged. ``t`` is consumed: without a gradient to carry
+    the sum is taken in its buffer."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _Psum.apply(t, layout, name)
+    return all_reduce_(t, layout, name)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, layout, name):
+        ctx.layout, ctx.name = layout, name
+        return all_gather(t, layout, name).flatten(0, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.layout, ctx.name), None, None
+
+
+class _ScatterRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, layout, name):
+        ctx.layout, ctx.name = layout, name
+        return reduce_scatter(t, layout, name)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.layout, ctx.name).flatten(0, 1), None, None
+
+
+def all_gather_rows(t: torch.Tensor, layout: RankLayout, name: str) -> torch.Tensor:
+    """The group's row blocks of ``t`` concatenated in group order ([n·k,
+    ...] from [k, ...] a rank); its gradient is the reduce-scatter of the
+    cotangent (the rank's block of the group's summed cotangents)."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _GatherRows.apply(t, layout, name)
+    return all_gather(t, layout, name).flatten(0, 1)
+
+
+def reduce_scatter_rows(t: torch.Tensor, layout: RankLayout, name: str) -> torch.Tensor:
+    """``reduce_scatter`` of ``t``; its gradient is the ``all_gather`` of the
+    cotangent (each rank's block, concatenated)."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _ScatterRows.apply(t, layout, name)
+    return reduce_scatter(t, layout, name)
 
 
 class Shift:

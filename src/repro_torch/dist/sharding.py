@@ -38,7 +38,8 @@ class RankLayout:
     it talks over. ``groups`` maps a group name (``"ring"``: the pod's
     flattened ring; ``"data"``: the pod's ranks of one model index;
     ``"model"``: the pod's ranks of one data index; ``"pod"``: the ranks of
-    one (data, model) coordinate across pods; ``"world"``) to
+    one (data, model) coordinate across pods; ``"dp"``: the (pod, data)
+    ranks of one model index, JAX's ``dp_axes(multi_pod)``; ``"world"``) to
     ``(process group, its global ranks in group order)``; it is empty for a
     layout built only to cut or assemble views."""
 
@@ -327,6 +328,11 @@ def _block(spec: Sequence, layout: RankLayout, rank: int, shape: Sequence[int]):
             raise ValueError(f"dim {d} of size {shape[d]} does not split into {n} blocks")
         out.append((n, idx))
     return out
+
+
+def block_index(spec: Sequence, layout: RankLayout, rank: int) -> List[Tuple[int, int]]:
+    """Per dim of ``spec``: (number of blocks, rank ``rank``'s block index)."""
+    return _block(spec, layout, rank, [0] * len(spec))
 
 
 def block_shape(shape: Sequence[int], spec: Sequence, layout: RankLayout,

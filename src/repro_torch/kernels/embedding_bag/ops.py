@@ -14,6 +14,15 @@ returns it; a dense [V, D] gradient is never formed. Where the table is an
 activation or a densely updated weight, ``embedding_bag(..., dense_grad=True)``
 and ``gather_rows`` return the same row sums as a dense gradient instead.
 
+``embedding_bag_shard`` and ``take_rows_shard`` read a row shard of a table
+(a rank's ``sharding.row_slice``): ids outside the shard read zeros (a bag
+item of weight 0; a ``take_rows`` row masked to 0) and are −1 to the
+gradient, which therefore holds only the shard's rows. Their backward can
+first concatenate the items of the ranks that split the batch (``gather``),
+so each data replica of a shard sums every item of the global batch in the
+global (b, f) order, in one pass of the row-gradient kernel: the same bits on
+every replica.
+
 ``segment_sum`` is the port's deterministic float scatter-add (JAX's
 ``segment_sum`` / ``.at[ids].add``): each segment's rows summed in f32 in
 ascending item order by the row-gradient kernel, then written once into the
@@ -167,6 +176,91 @@ def take_rows(table, ids):
     if torch.is_grad_enabled() and table.requires_grad:
         return _TakeRows.apply(table, ids.to(torch.int32).contiguous())
     return _gather(table, ids)
+
+
+def _shard_ids(ids, lo: int, n: int):
+    """(read, grad_ids, hit) of ids into the shard of rows [lo, lo + n):
+    ``read`` the local row an id reads (0 outside the shard, where ``hit``
+    is false), ``grad_ids`` its local row for the gradient or −1 (outside
+    the shard, or padding −1). A padding −1 reads row 0 of the table, as
+    ``take_rows`` clamps it: the shard that holds row 0 reads it."""
+    local = ids.clamp_min(0) - lo
+    hit = (local >= 0) & (local < n)
+    read = torch.where(hit, local, torch.zeros_like(local)).to(torch.int32)
+    grad_ids = torch.where(hit & (ids >= 0), local, torch.full_like(local, -1))
+    return read, grad_ids.to(torch.int32).contiguous(), hit
+
+
+class _ShardBag(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, read, hit_w, grad_ids, weights, gather):
+        ctx.save_for_backward(grad_ids, weights)
+        ctx.shape, ctx.dtype, ctx.gather = tuple(shard.shape), shard.dtype, gather
+        return _bag(shard, read, hit_w, "sum")
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        ids, weights = ctx.saved_tensors
+        grad_out = grad_out.contiguous()
+        if ctx.gather is not None:
+            grad_out, ids = ctx.gather(grad_out), ctx.gather(ids)
+            weights = None if weights is None else ctx.gather(weights)
+        rows, row_grad = embedding_bag_bwd(grad_out, ids, weights, "sum", ctx.shape[0])
+        return _sparse_grad(rows, row_grad, ctx.shape, ctx.dtype), None, None, None, None, None
+
+
+def embedding_bag_shard(shard, ids, lo: int, weights=None, gather=None):
+    """The sum bags of ``embedding_bag`` read from a row shard: ``shard``
+    [n, D] holds the table's rows [lo, lo + n); ids [B, F] int32 are the
+    table's rows (global). An item outside the shard is read from row 0 with
+    weight 0 (an exact zero row of the bag) and is −1 to the gradient, so
+    summing the bags of every shard gives ``embedding_bag``'s rows. The
+    gradient is the shard's sparse row gradient; ``gather``, if given,
+    concatenates a [B, ...] tensor's rows over the ranks that split the batch
+    (in their order), and the backward sums every rank's items in one pass."""
+    read, grad_ids, hit = _shard_ids(ids, lo, shard.shape[0])
+    hit_w = hit.to(torch.float32) if weights is None else \
+        torch.where(hit, weights, torch.zeros_like(weights))
+    if torch.is_grad_enabled() and shard.requires_grad:
+        return _ShardBag.apply(shard, read, hit_w.contiguous(), grad_ids, weights, gather)
+    return _bag(shard, read, hit_w.contiguous(), "sum")
+
+
+class _TakeShard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shard, read, hit, grad_ids, gather):
+        ctx.save_for_backward(grad_ids)
+        ctx.shape, ctx.dtype, ctx.gather = tuple(shard.shape), shard.dtype, gather
+        return _masked_gather(shard, read, hit)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (ids,) = ctx.saved_tensors
+        D = ctx.shape[1] if len(ctx.shape) == 2 else 1
+        grad_out = grad_out.contiguous()
+        if ctx.gather is not None:
+            grad_out, ids = ctx.gather(grad_out), ctx.gather(ids)
+        rows, row_grad = embedding_bag_bwd(grad_out.reshape(-1, D), ids.reshape(-1, 1), None,
+                                           "sum", ctx.shape[0])
+        return _sparse_grad(rows, row_grad, ctx.shape, ctx.dtype), None, None, None, None
+
+
+def _masked_gather(shard, read, hit):
+    rows = _gather(shard, read)
+    mask = hit.reshape(tuple(hit.shape) + (1,) * (rows.dim() - hit.dim()))
+    return torch.where(mask, rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+
+
+def take_rows_shard(shard, ids, lo: int, gather=None):
+    """``take_rows`` read from a row shard (``shard`` holds the table's rows
+    [lo, lo + n), [n, D] or [n]; ids int32 of any shape, global, in [−1, V)):
+    rows outside the shard read zeros and are −1 to the gradient (the shard's
+    sparse row gradient); ``gather`` as in ``embedding_bag_shard``, over the
+    ids' dim 0."""
+    read, grad_ids, hit = _shard_ids(ids.to(torch.int32), lo, shard.shape[0])
+    if torch.is_grad_enabled() and shard.requires_grad:
+        return _TakeShard.apply(shard, read, hit, grad_ids, gather)
+    return _masked_gather(shard, read, hit)
 
 
 def _row_sums(rows, seg, n: int):

@@ -19,7 +19,10 @@ compiler to ask, so each cell gets two records:
 * **the one-rank record** (``one_rank``), the counterpart of JAX's compile
   and ``memory_analysis``: the same cell built for one rank, its arguments
   drawn on the card and ``timed_steps(family, step_kind)`` steps run after
-  one warm-up step: ``step_ms`` (their median, CUDA events: a step of
+  one warm-up step (an LM prefill step, which takes seconds, is timed on the
+  warm-up step itself, which runs under ``count_cost``'s dispatch mode and
+  is the cell's first call: its record says ``timed_on_counted_step``):
+  ``step_ms`` (their median, CUDA events: a step of
   milliseconds alone can take a host stall), ``live_bytes_per_device``
   (``max_memory_allocated`` over the steps, after
   ``reset_peak_memory_stats``), ``fits_80gb_hbm``, the flops, bytes and
@@ -80,10 +83,14 @@ TIMED_STEPS = 3              # a one-rank step's time is their median
 
 
 def timed_steps(family: str, step_kind: str) -> int:
-    """The timed steps of a cell's one-rank record: one for an LM train or
-    prefill cell, whose step takes seconds, so that a host stall of
-    milliseconds does not move it; ``TIMED_STEPS`` for every other cell."""
-    return 1 if family == "lm" and step_kind in ("train", "prefill") else TIMED_STEPS
+    """The timed steps of a cell's one-rank record after its warm-up: one
+    for an LM train cell, whose step takes seconds, so that a host stall of
+    milliseconds does not move it; none for an LM prefill cell, whose
+    warm-up step (seconds, a few large ops, under ``count_cost``) is the
+    timed one; ``TIMED_STEPS`` for every other cell."""
+    if family == "lm" and step_kind in ("train", "prefill"):
+        return 0 if step_kind == "prefill" else 1
+    return TIMED_STEPS
 
 def mesh_layout(multi_pod: bool) -> shd.RankLayout:
     return shd.RankLayout(*MESHES[multi_pod])
@@ -221,16 +228,25 @@ class OneRank:
         sync = torch.cuda.synchronize if cuda else (lambda: None)
         kernels.reset_launch_counts()
         out: dict = {}
+        n = timed_steps(family, cell.step_kind)
+        if cuda:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            if n == 0:
+                torch.cuda.reset_peak_memory_stats()
+                a.record()
         if self.skip_cost:
             cell.fn(*args)
         else:
             cost, _ = analysis.count_cost(cell.fn, *args)
         sync()
         if cuda:
-            torch.cuda.reset_peak_memory_stats()
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             times = []
-            n = timed_steps(family, cell.step_kind)
+            if n == 0:                      # the warm-up step is the timed one
+                b.record()
+                b.synchronize()
+                times.append(float(a.elapsed_time(b)))
+            else:
+                torch.cuda.reset_peak_memory_stats()
             for _ in range(n):
                 a.record()
                 cell.fn(*args)
@@ -238,7 +254,8 @@ class OneRank:
                 b.synchronize()
                 times.append(float(a.elapsed_time(b)))
             live = int(torch.cuda.max_memory_allocated())
-            out.update(step_ms=sorted(times)[n // 2], timed_steps=n,
+            out.update(step_ms=sorted(times)[len(times) // 2], timed_steps=len(times),
+                       timed_on_counted_step=n == 0,
                        live_bytes_per_device=live, fits_80gb_hbm=bool(live < HBM_BYTES))
         else:
             cell.fn(*args)

@@ -59,7 +59,9 @@ def check_world(world_size: int, device: str, backend: str, ranks_per_device: in
 def _groups(pods: int, data: int, model: int) -> dict:
     """Every rank creates every group, in one order (torch.distributed's
     rule); groups of one rank are not created (their collectives are the
-    identity)."""
+    identity). ``"dp"`` is the data-parallel group of JAX's
+    ``dp_axes(multi_pod)``: the (pod, data) ranks of one model index, the
+    batch's split; with one pod it is the ``"data"`` group itself."""
     rank = lambda p, d, m: (p * data + d) * model + m
     world = pods * data * model
     spans = {"world": [list(range(world))],
@@ -70,15 +72,21 @@ def _groups(pods: int, data: int, model: int) -> dict:
              "model": [[rank(p, d, m) for m in range(model)]
                        for p in range(pods) for d in range(data)],
              "pod": [[rank(p, d, m) for p in range(pods)]
-                     for d in range(data) for m in range(model)]}
+                     for d in range(data) for m in range(model)],
+             "dp": [[rank(p, d, m) for p in range(pods) for d in range(data)]
+                    for m in range(model)]}
     me = dist.get_rank()
-    out = {}
+    out, data_groups = {}, {}
     for name, lists in spans.items():
         for ranks in lists:
             if name == "world":
                 group = dist.group.WORLD if world > 1 else None
+            elif name == "dp" and pods == 1:
+                group = data_groups[tuple(ranks)]
             else:
                 group = dist.new_group(ranks) if len(ranks) > 1 else None
+            if name == "data":
+                data_groups[tuple(ranks)] = group
             if me in ranks:
                 out[name] = (group, ranks)
     return out
@@ -110,7 +118,7 @@ def init_ranks(pods: int = 1, data: int = 1, model: int = 1, backend: str = "glo
                                 world_size=world_size,
                                 timeout=datetime.timedelta(seconds=timeout_s))
     groups = (_groups(pods, data, model) if world_size > 1
-              else {name: (None, [0]) for name in ("world", "ring", "data", "model", "pod")})
+              else {name: (None, [0]) for name in ("world", "ring", "data", "model", "pod", "dp")})
     return RankLayout(pods=pods, data=data, model=model, rank=rank, backend=backend,
                       device=str(dev), ranks_per_device=ranks_per_device, groups=groups)
 
@@ -128,8 +136,10 @@ def relayout(layout: RankLayout, pods: int, data: int, model: int) -> RankLayout
 
 
 def _child(rank: int, fn: Callable, kw: dict, init_method: str, out_dir: str,
-           args: tuple, kwargs: dict, threads: Optional[int]) -> None:
+           threads: Optional[int]) -> None:
     world = kw["pods"] * kw["data"] * kw["model"]
+    with open(os.path.join(out_dir, "args.pkl"), "rb") as f:
+        args, kwargs = pickle.load(f)
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
                       LOCAL_WORLD_SIZE=str(world))
     if threads:
@@ -152,7 +162,10 @@ def spawn(fn: Callable, *, pods: int = 1, data: int = 1, model: int = 1,
     its result picklable; return host data). A rank that raises fails the
     call and stops the others. The ranks meet through a ``file://`` store in
     a fresh temporary directory, so concurrent worlds never collide; a
-    collective that waits longer than ``timeout_s`` fails its rank.
+    collective that waits longer than ``timeout_s`` fails its rank. The
+    arguments reach the ranks through a file there: a pickle larger than a
+    pipe's buffer passed to ``mp.spawn`` holds the parent until each child
+    has imported torch, so the ranks would start one after another.
 
     On CUDA the kernels are built here, once, before the ranks start."""
     world = pods * data * model
@@ -167,8 +180,10 @@ def spawn(fn: Callable, *, pods: int = 1, data: int = 1, model: int = 1,
     try:
         kw = dict(pods=pods, data=data, model=model, backend=backend, device=device,
                   ranks_per_device=ranks_per_device, timeout_s=timeout_s)
-        mp.spawn(_child, args=(fn, kw, f"file://{tmp}/store", tmp, args, kwargs or {}, threads),
-                 nprocs=world, join=True)
+        with open(os.path.join(tmp, "args.pkl"), "wb") as f:
+            pickle.dump((args, kwargs or {}), f)
+        mp.spawn(_child, args=(fn, kw, f"file://{tmp}/store", tmp, threads), nprocs=world,
+                 join=True)
         out = []
         for r in range(world):
             with open(os.path.join(tmp, f"rank_{r}.pkl"), "rb") as f:

@@ -13,6 +13,18 @@ mean over each node's padded neighbor row, is the ``embedding_bag`` kernel
 (``combiner="mean"``, the valid mask as weights), with a dense gradient
 where the table is an activation.
 
+Across ranks (``layout=``, a ``RankLayout``; JAX's GSPMD split of the
+cell's rows, ``sharding.gnn_rows_spec``): each rank holds a block of the
+node rows and of the edges (global node ids) over every mesh axis, and the
+KB-scale weights whole. A layer all_gathers h over "world" (the halo: at
+random placement about every edge crosses ranks), sums its edge block's
+messages into the global rows (``gather_segment_sum``) and reduce-scatters
+the sums and the degrees to the owning ranks; the block aggregate of sampled
+training all_gathers the next level's rows. The collectives carry their
+gradients (``dist.collectives``); the losses sum over ranks with an
+identity backward, so each rank's parameter gradient is its share, summed
+over "world" by the cell.
+
 Peacock applicability: none at the core (no huge sharded parameter matrix).
 """
 from __future__ import annotations
@@ -21,9 +33,9 @@ import dataclasses
 from typing import Dict, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.dist import collectives as coll
 from repro_torch.kernels.embedding_bag import ops as bag_ops
 
 
@@ -67,38 +79,46 @@ def init_params(cfg: SAGEConfig, generator, device="cuda") -> Dict[str, torch.Te
     return out
 
 
-def _mean_aggregate(h, src, dst, n_nodes: int, edge_chunk: int):
+def _mean_aggregate(h, src, dst, n_nodes: int, edge_chunk: int, layout=None):
     """mean over the edges (s, d) of h[s] into rows d, the edge list in
-    chunks of ``edge_chunk`` summed into one accumulator (padding edges go to
-    the scratch row n_nodes). The degree is an integer count, exact in f32."""
-    E = src.shape[0]
-    chunk = min(edge_chunk, E)
-    pad = (-E) % chunk
-    if pad:
-        src = F.pad(src, (0, pad), value=0)
-        dst = F.pad(dst, (0, pad), value=n_nodes)           # scatter to scratch row
-    acc = bag_ops.gather_segment_sum(h, src, dst, n_nodes + 1, chunk)
-    deg = torch.bincount(dst.long(), minlength=n_nodes + 1).to(torch.float32)
-    return acc[:n_nodes] / torch.clamp(deg[:n_nodes], min=1.0)[:, None]
+    chunks of ``edge_chunk`` summed into one accumulator. The last chunk is
+    the shorter one: JAX pads it to the chunk width (``lax.scan`` takes one
+    shape) with edges into a scratch row, which change no other row, so the
+    port leaves them out (a rank's block of edges would pad up to a chunk
+    of edges into one row). The degree is an integer count, exact in f32.
+    With ``layout``: h is the rank's block of the n_nodes rows, src/dst its
+    edge block (global ids); h is all_gathered, and the sums and degrees of
+    the global rows reduce-scattered back to the rank's block."""
+    chunk = min(edge_chunk, src.shape[0])
+    if layout is not None:
+        h = coll.all_gather_rows(h, layout, "world")
+    acc = bag_ops.gather_segment_sum(h, src, dst, n_nodes, chunk)
+    deg = torch.bincount(dst.long(), minlength=n_nodes).to(torch.float32)
+    if layout is not None:
+        acc = coll.reduce_scatter_rows(acc, layout, "world")
+        deg = coll.reduce_scatter(deg, layout, "world")
+    return acc / torch.clamp(deg, min=1.0)[:, None]
 
 
 def _normalize(h):
     return h / torch.clamp(torch.linalg.vector_norm(h, dim=1, keepdim=True), min=1e-6)
 
 
-def forward_full(cfg: SAGEConfig, params, x, src, dst):
-    """Full-batch forward. x [N, d_in]; edges (src, dst) [E]."""
+def forward_full(cfg: SAGEConfig, params, x, src, dst, layout=None):
+    """Full-batch forward. x [N, d_in]; edges (src, dst) [E]. With
+    ``layout``: the rank's row block of x and edge block (global ids), and
+    the logits of its rows."""
     h = x
-    n = x.shape[0]
+    n = x.shape[0] * (1 if layout is None else layout.world_size)
     for l in range(cfg.n_layers):
-        agg = _mean_aggregate(h, src, dst, n, cfg.edge_chunk)
+        agg = _mean_aggregate(h, src, dst, n, cfg.edge_chunk, layout)
         h = h @ params[f"w_self_{l}"] + agg @ params[f"w_neigh_{l}"] + params[f"b_{l}"]
         h = _normalize(torch.relu(h))
     return h @ params["w_out"] + params["b_out"]
 
 
 def forward_sampled(cfg: SAGEConfig, params, feats: Sequence[torch.Tensor],
-                    neigh: Sequence[torch.Tensor]):
+                    neigh: Sequence[torch.Tensor], layout=None):
     """Sampled-minibatch forward over bipartite blocks.
 
     feats[l]  — [n_l, d_in] input features of layer-l nodes (l=0 are seeds;
@@ -108,6 +128,8 @@ def forward_sampled(cfg: SAGEConfig, params, feats: Sequence[torch.Tensor],
     JAX's (rows · valid).sum(1) / max(Σ valid, 1) is ``embedding_bag`` with
     the clamped ids, the valid mask as weights and ``combiner="mean"`` (whose
     max(Σ w, 1e-9) is the same divisor: Σ valid is 0 or at least 1).
+    With ``layout``: each level's rank block of rows (neigh indexing level
+    l+1's global rows); level l+1 is all_gathered before each aggregate.
     """
     L = cfg.n_layers
     h = list(feats)
@@ -117,7 +139,9 @@ def forward_sampled(cfg: SAGEConfig, params, feats: Sequence[torch.Tensor],
         for depth in range(l + 1):
             nb = neigh[depth]
             valid = (nb >= 0).to(torch.float32)
-            agg = bag_ops.embedding_bag(h[depth + 1], nb.clamp_min(0).to(torch.int32),
+            nxt = h[depth + 1] if layout is None else \
+                coll.all_gather_rows(h[depth + 1], layout, "world")
+            agg = bag_ops.embedding_bag(nxt, nb.clamp_min(0).to(torch.int32),
                                         valid, "mean", dense_grad=True)
             hh = h[depth] @ params[f"w_self_{L-1-l}"] + agg @ params[f"w_neigh_{L-1-l}"] \
                 + params[f"b_{L-1-l}"]
@@ -131,25 +155,42 @@ def _nll(logits, labels):
     return -torch.gather(ll, 1, labels.long()[:, None])[:, 0]
 
 
-def loss_full(cfg: SAGEConfig, params, x, src, dst, labels, mask):
-    nll = _nll(forward_full(cfg, params, x, src, dst), labels)
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+def loss_full(cfg: SAGEConfig, params, x, src, dst, labels, mask, layout=None):
+    """The masked mean NLL; with ``layout`` the rank's rows' sum and mask
+    count summed over "world" (the sum's backward the identity)."""
+    nll = _nll(forward_full(cfg, params, x, src, dst, layout), labels)
+    num, den = (nll * mask).sum(), mask.sum()
+    if layout is not None:
+        num = coll.psum(num, layout, "world")
+        den = coll.all_reduce_(den, layout, "world")
+    return num / torch.clamp(den, min=1.0)
 
 
 def loss_graph_pool(cfg: SAGEConfig, params, x, src, dst, graph_ids,
-                    n_graphs: int, labels):
+                    n_graphs: int, labels, layout=None):
     """Graph classification over a disjoint union of small graphs (the
     ``molecule`` shape): node logits mean-pooled per graph. A node whose
     graph id lies outside [0, n_graphs) (padding) is dropped, as JAX's
-    ``segment_sum`` drops it: it goes to a scratch segment."""
-    node_logits = forward_full(cfg, params, x, src, dst)
+    ``segment_sum`` drops it: it goes to a scratch segment. With
+    ``layout``: the rank's node rows; each graph's logit sums and node counts
+    are summed over "world" (a graph may straddle ranks), and ``labels`` are
+    all n_graphs on every rank."""
+    node_logits = forward_full(cfg, params, x, src, dst, layout)
     seg = torch.where((graph_ids >= 0) & (graph_ids < n_graphs), graph_ids,
                       torch.full_like(graph_ids, n_graphs))
-    summed = bag_ops.segment_sum(node_logits, seg, n_graphs + 1)[:n_graphs]
-    counts = torch.bincount(seg.long(), minlength=n_graphs + 1)[:n_graphs].to(torch.float32)
-    logits = summed / torch.clamp(counts, min=1.0)[:, None]
+    summed = bag_ops.segment_sum(node_logits, seg, n_graphs + 1)
+    counts = torch.bincount(seg.long(), minlength=n_graphs + 1).to(torch.float32)
+    if layout is not None:
+        summed = coll.psum(summed, layout, "world")
+        counts = coll.all_reduce_(counts, layout, "world")
+    logits = summed[:n_graphs] / torch.clamp(counts[:n_graphs], min=1.0)[:, None]
     return _nll(logits, labels).mean()
 
 
-def loss_sampled(cfg: SAGEConfig, params, feats, neigh, labels):
-    return _nll(forward_sampled(cfg, params, feats, neigh), labels).mean()
+def loss_sampled(cfg: SAGEConfig, params, feats, neigh, labels, layout=None):
+    """The mean NLL of the seeds; with ``layout`` the rank's seeds' mean ÷
+    the world size, summed over "world"."""
+    loss = _nll(forward_sampled(cfg, params, feats, neigh, layout), labels).mean()
+    if layout is not None:
+        loss = coll.psum(loss * (1.0 / layout.world_size), layout, "world")
+    return loss

@@ -9,9 +9,15 @@ Tables may be f32 or bf16 (the serving cells store them in bf16); dense
 parameters are f32. JAX promotes a bf16 embedding meeting an f32 activation
 to f32; here every such meeting casts explicitly.
 
-``lookup_sharded`` is the row-sharded lookup across ranks: each rank holds a
-contiguous row slice of the table, gathers the ids that land in it and one
-``all_reduce`` over the ``"model"`` group reassembles the rows.
+Across ranks (``ShardedReads``, the forwards' ``reads``): each rank holds a
+contiguous row slice of every table (``sharding.row_slice`` over
+``"model"``) and a block of the batch (over the ``"dp"`` group). A read
+(``lookup_sharded``, ``take_sharded``) is the masked read of the rank's
+slice (``bag_ops.embedding_bag_shard``, ``take_rows_shard``) and one sum
+over ``"model"`` whose backward is the identity (``collectives.psum``): the
+gradient of a slice holds only its rows, summed over every data replica's
+items in the global order. ``retrieval_scores_sharded`` merges the ranks'
+top-k of their candidate slices.
 
 Training (``repro_torch.configs.base.build_recsys_cell``): every table-like
 parameter (``table``, xdeepfm's ``linear_w``, din's ``item_table`` and
@@ -31,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.dist import collectives as coll
 from repro_torch.kernels.embedding_bag import ops as bag_ops
 
 F32 = torch.float32
@@ -90,30 +97,75 @@ def lookup(table: torch.Tensor, spec: EmbeddingSpec, ids: torch.Tensor) -> torch
     return bag_ops.embedding_bag(table, flat, None, "sum").reshape(B, F, -1)
 
 
+def _batch_gather(layout):
+    """Concatenation of a [B, ...] tensor's rows over the "dp" group (the
+    ranks that split the batch, in their order), or None where the batch is
+    whole on the rank (a group of one: nothing to gather)."""
+    if len(layout.group("dp")[1]) == 1:
+        return None
+    return lambda t: coll.all_gather_rows(t, layout, "dp")
+
+
+def _slice_start(table_shard, layout, axis: str = "model") -> int:
+    return coll.group_index(layout, axis) * table_shard.shape[0]
+
+
 def lookup_sharded(table_shard: torch.Tensor, spec: EmbeddingSpec, ids: torch.Tensor,
                    layout, axis: str = "model") -> torch.Tensor:
-    """Row-sharded lookup: mask + local gather + one ``all_reduce``.
+    """Row-sharded ``lookup``: the masked read of this rank's slice and one
+    sum over ``axis``.
 
     ``table_shard`` [rows/M, D] is this rank's contiguous row slice
     (``sharding.row_slice`` over ``axis`` of ``layout``, a
     :class:`repro_torch.dist.sharding.RankLayout`); ``ids`` [B, F] are
-    per-field local ids, the same on every rank of the group. Rows outside
-    the slice contribute zeros and the sum over ``axis`` reassembles the
-    exact rows, since each id lives on one rank: [B, F, D] in the table's
-    dtype, on every rank. A collective over ``axis``. The JAX package's
-    ``jnp.take`` is a plain gather outside any kernel, and so is this
-    ``index_select``. The sum runs in the table's dtype (gloo and NCCL
-    reduce bf16); one row plus zeros is exact in any dtype.
-    """
-    from repro_torch.dist import collectives as coll
+    per-field local ids, the same on every rank of the group. The
+    ``embedding_bag`` kernel reads the ids in the slice (the rest: weight 0,
+    an exact zero row) and the sum over ``axis`` reassembles the exact rows,
+    since each id lives on one rank: [B, F, D] in the table's dtype, on
+    every rank (a collective over ``axis``; the sum runs in the table's
+    dtype, as gloo and NCCL reduce bf16, and one row plus zeros is exact).
+    Differentiable in the slice: its sparse row gradient, the items of the
+    ranks of the "dp" group (which split the batch) summed in one pass; the
+    sum's backward is the identity."""
+    B, F = ids.shape
+    flat = _flat_ids(spec, ids).reshape(B * F, 1)
+    rows = bag_ops.embedding_bag_shard(table_shard, flat, _slice_start(table_shard, layout, axis),
+                                       gather=_batch_gather(layout))
+    return coll.psum(rows, layout, axis).view(B, F, -1)
 
-    rows_local = table_shard.shape[0]
-    lo = coll.group_index(layout, axis) * rows_local
-    local = _flat_ids(spec, ids).long() - lo
-    hit = (local >= 0) & (local < rows_local)
-    rows = table_shard.index_select(0, local.clamp(0, rows_local - 1).reshape(-1))
-    rows = torch.where(hit[..., None], rows.view(*ids.shape, -1), 0)
-    return coll.all_reduce_(rows, layout, axis)
+
+def take_sharded(table_shard: torch.Tensor, ids: torch.Tensor, layout) -> torch.Tensor:
+    """Row-sharded ``bag_ops.take_rows`` (ids of any shape, −1 padding reads
+    row 0): ``take_rows_shard`` of this rank's slice over "model" and one sum
+    over "model", as ``lookup_sharded``."""
+    rows = bag_ops.take_rows_shard(table_shard, ids, _slice_start(table_shard, layout),
+                                   gather=_batch_gather(layout))
+    return coll.psum(rows, layout, "model")
+
+
+class LocalReads:
+    """The table reads of the forwards where a rank holds whole tables:
+    ``lookup`` (an [B, F] id plane of an ``EmbeddingSpec``) and ``take``
+    (ids of any shape)."""
+    lookup = staticmethod(lookup)
+    take = staticmethod(bag_ops.take_rows)
+
+
+LOCAL_READS = LocalReads()
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedReads:
+    """The table reads of one rank whose tables are row-sharded over
+    "model" and whose batch is split over the "dp" group: the forwards'
+    ``reads`` across ranks."""
+    layout: object
+
+    def lookup(self, table_shard, spec: EmbeddingSpec, ids):
+        return lookup_sharded(table_shard, spec, ids, self.layout)
+
+    def take(self, table_shard, ids):
+        return take_sharded(table_shard, ids, self.layout)
 
 
 def multi_hot_lookup(table, spec: EmbeddingSpec, ids, weights=None):
@@ -160,8 +212,8 @@ class DLRMConfig:
         return shapes
 
 
-def dlrm_forward(cfg: DLRMConfig, params, dense, sparse_ids, table_lookup=lookup):
-    emb = table_lookup(params["table"], cfg.embedding, sparse_ids)      # [B, F, D]
+def dlrm_forward(cfg: DLRMConfig, params, dense, sparse_ids, reads=LOCAL_READS):
+    emb = reads.lookup(params["table"], cfg.embedding, sparse_ids)      # [B, F, D]
     bot = _mlp(params, "bot/", dense, len(cfg.bot_mlp) - 1, final_act=True)  # [B, D]
     z = torch.cat([bot[:, None, :], emb.to(bot.dtype)], dim=1)         # [B, F+1, D]
     inter = torch.bmm(z, z.transpose(1, 2))                             # [B, F+1, F+1]
@@ -196,13 +248,13 @@ class XDeepFMConfig:
         return shapes
 
 
-def xdeepfm_forward(cfg: XDeepFMConfig, params, sparse_ids, table_lookup=lookup):
+def xdeepfm_forward(cfg: XDeepFMConfig, params, sparse_ids, reads=LOCAL_READS):
     spec = cfg.embedding
     # every use of x0 meets an f32 weight, so JAX computes from its f32 values
-    x0 = table_lookup(params["table"], spec, sparse_ids).to(F32)        # [B, F, D]
+    x0 = reads.lookup(params["table"], spec, sparse_ids).to(F32)        # [B, F, D]
     # linear (first-order) term over raw feature ids
     flat = _flat_ids(spec, sparse_ids)
-    linear = bag_ops.take_rows(params["linear_w"], flat).sum(dim=1)
+    linear = reads.take(params["linear_w"], flat).sum(dim=1)
     # CIN
     xl = x0
     pools = []
@@ -245,14 +297,15 @@ class DINConfig:
         return shapes
 
 
-def din_forward(cfg: DINConfig, params, target_id, hist_ids, ctx_ids):
-    """target_id [B], hist_ids [B, S] (-1 pad), ctx_ids [B, n_context]."""
+def din_forward(cfg: DINConfig, params, target_id, hist_ids, ctx_ids, reads=LOCAL_READS):
+    """target_id [B], hist_ids [B, S] (-1 pad), ctx_ids [B, n_context];
+    ``reads.take``: the tables' read."""
     valid = hist_ids >= 0
     # the target and the history in one gather, so item_table has one
     # gradient; the padding (-1) reads row 0, as JAX's clamp, and is masked
     # below, so it adds nothing to row 0's gradient (take_rows skips it)
     items = torch.cat([target_id[:, None], hist_ids], dim=1)
-    rows = bag_ops.take_rows(params["item_table"], items)              # [B, 1 + S, D]
+    rows = reads.take(params["item_table"], items)                           # [B, 1 + S, D]
     e_t, e_h = rows[:, 0], rows[:, 1:]                                  # [B, D], [B, S, D]
     et_b = e_t[:, None, :].expand(e_h.shape)
     # the difference and product round in the table's dtype, as in JAX
@@ -263,7 +316,7 @@ def din_forward(cfg: DINConfig, params, target_id, hist_ids, ctx_ids):
     user = torch.einsum("bs,bsd->bd", a, e_h.to(F32))                   # DIN: no softmax
     ctx_off = torch.arange(cfg.n_context, dtype=torch.int32,
                            device=ctx_ids.device) * cfg.context_vocab
-    ctx = bag_ops.take_rows(params["ctx_table"], ctx_ids + ctx_off[None, :])
+    ctx = reads.take(params["ctx_table"], ctx_ids + ctx_off[None, :])
     x = torch.cat([user, e_t.to(F32), ctx.reshape(ctx_ids.shape[0], -1).to(F32)], dim=1)
     return _mlp(params, "mlp/", x, len(cfg.mlp) + 1)[:, 0]
 
@@ -292,9 +345,9 @@ class AutoIntConfig:
         return shapes
 
 
-def autoint_forward(cfg: AutoIntConfig, params, sparse_ids, table_lookup=lookup):
+def autoint_forward(cfg: AutoIntConfig, params, sparse_ids, reads=LOCAL_READS):
     # every use of x meets an f32 weight, so JAX computes from its f32 values
-    x = table_lookup(params["table"], cfg.embedding, sparse_ids).to(F32)  # [B, F, D]
+    x = reads.lookup(params["table"], cfg.embedding, sparse_ids).to(F32)  # [B, F, D]
     H = cfg.n_heads
     for layer in range(cfg.n_attn_layers):
         q = x @ params[f"wq_{layer}"]
@@ -344,6 +397,23 @@ def retrieval_scores(user_vec: torch.Tensor, cand_table: torch.Tensor,
     return best_s, best_i
 
 
+def retrieval_scores_sharded(user_vec: torch.Tensor, cand_shard: torch.Tensor, layout,
+                             top_k: int = 100):
+    """``retrieval_scores`` with the candidates row-sharded over "model"
+    (``cand_shard`` this rank's slice, ``sharding.row_slice``): the rank's
+    streamed top-k of its slice with global ids, an all_gather over "model"
+    (each rank's min(top_k, slice rows) entries) and one stable descending
+    merge in rank order, so ties go to the lower id as in one rank's top-k.
+    The same (scores, ids) on every rank; with fewer than ``top_k``
+    candidates in all, that many entries (one rank pads with −inf)."""
+    lo = _slice_start(cand_shard, layout)
+    s, i = retrieval_scores(user_vec, cand_shard, min(top_k, cand_shard.shape[0]))
+    all_s = torch.cat(coll.all_gather_v(s.T.contiguous(), layout, "model")).T
+    all_i = torch.cat(coll.all_gather_v((i + lo).T.contiguous(), layout, "model")).T
+    top_s, pos = torch.sort(all_s, dim=1, descending=True, stable=True)
+    return top_s[:, :top_k], all_i.gather(1, pos[:, :top_k])
+
+
 # ---------------------------------------------------------------------------
 # Shared loss / init / table update
 # ---------------------------------------------------------------------------
@@ -355,7 +425,8 @@ def sgd_rows_(param: torch.Tensor, grad: torch.Tensor, lr: float) -> None:
     typed lr is a value of the table's dtype). Equal to the dense update:
     an untouched row has g = 0 and p − lr·0 = p. ``grad``'s rows must be
     distinct (a coalesced tensor, as the row-gradient kernel returns), so
-    each row is written once."""
+    each row is written once. On a rank of a row-sharded table ``param`` is
+    the rank's slice and ``grad`` its rows (``ShardedReads``)."""
     if not (grad.is_sparse and grad.is_coalesced()):
         raise TypeError("sgd_rows_ takes the coalesced sparse gradient of the row-gradient path")
     rows = grad.indices()[0]
@@ -365,9 +436,13 @@ def sgd_rows_(param: torch.Tensor, grad: torch.Tensor, lr: float) -> None:
 
 
 def bce_loss(logits, labels):
+    """JAX's ``mean(max(l, 0) − l·y + log1p(exp(−|l|)))``, with JAX's
+    gradient where a logit is exactly 0 (a row whose last hidden layer is all
+    zero, at a zero bias): ``jnp.maximum(l, 0)`` passes nothing to l at the
+    tie, as ``relu`` does (``clamp_min`` would pass 1), so such a row's
+    gradient is −y on both sides."""
     return torch.mean(
-        torch.clamp_min(logits, 0) - logits * labels
-        + torch.log1p(torch.exp(-torch.abs(logits)))
+        torch.relu(logits) - logits * labels + torch.log1p(torch.exp(-torch.abs(logits)))
     )
 
 

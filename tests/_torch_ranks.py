@@ -268,3 +268,150 @@ def skipped_shift_rank(layout, sc, cfgs, seed):
 
     coll.shift = lambda layout, name, tensors: [t.clone() for t in tensors]
     return preflight.session_rank(layout, sc, cfgs, seed)
+
+
+# ------------------------------------------- recsys and GNN cells across ranks ---
+
+RECSYS_FORWARDS = {"dlrm-mlperf": "dlrm_forward", "xdeepfm": "xdeepfm_forward",
+                   "din": "din_forward", "autoint": "autoint_forward"}
+RECSYS_FLOPS = {"dlrm-mlperf": "_dlrm_flops", "xdeepfm": "_xdeepfm_flops",
+                "din": "_din_flops", "autoint": "_autoint_flops"}
+
+
+def recsys_inputs(arch, cfg, seed=0, n=64):
+    """Seeded numpy inputs of ``arch``'s forward at config ``cfg`` (DIN's
+    history −1-padded)."""
+    rng = np.random.default_rng(seed)
+    if arch == "din":
+        hist = rng.integers(0, cfg.n_items, (n, cfg.seq_len)).astype(np.int32)
+        hist[rng.random((n, cfg.seq_len)) < 0.3] = -1
+        return (rng.integers(0, cfg.n_items, n).astype(np.int32), hist,
+                rng.integers(0, cfg.context_vocab, (n, cfg.n_context)).astype(np.int32))
+    sizes = np.array(cfg.embedding.vocab_sizes)
+    ids = (rng.random((n, len(sizes))) * sizes).astype(np.int32)
+    if arch == "dlrm-mlperf":
+        return rng.normal(size=(n, cfg.n_dense)).astype(np.float32), ids
+    return (ids,)
+
+
+def small_cell(build, layout=None):
+    """The port's cell of ``build``: ("recsys", arch, shape, table dtype) at
+    ``small_recsys()[arch]`` or ("gnn", kind, shape dict) at ``small_gnn()``,
+    for ``layout`` (None: one rank)."""
+    import functools
+
+    from repro_torch.configs import base as tbase, gnn_archs as tga, recsys_archs as tra
+    from repro_torch.models import recsys as trec
+
+    if build[0] == "gnn":
+        return tbase.build_gnn_cell(tga.small_gnn(), build[1], build[2], layout)
+    arch, shape = build[1], build[2]
+    cfg = tra.small_recsys()[arch]
+    maker = {"dlrm-mlperf": functools.partial(tra._dlrm_inputs, cfg=cfg),
+             "din": functools.partial(tra._din_inputs, cfg=cfg)}.get(arch)
+    if maker is None:
+        maker = tra._sparse_inputs(cfg.embedding.vocab_sizes)
+    return tbase.build_recsys_cell(cfg, getattr(trec, RECSYS_FORWARDS[arch]), maker,
+                                   getattr(tra, RECSYS_FLOPS[arch]), shape, layout)
+
+
+def cell_args(build, args):
+    """The global numpy arguments ``args`` of the cell of ``build`` as CPU
+    tensors: parameters and AdamW state carried across by ``convert`` (a
+    recsys arch's tables in ``build[3]``), the rest as they are."""
+    from repro_torch import convert
+
+    def plain(x):
+        return [plain(v) for v in x] if isinstance(x, (list, tuple)) else \
+            torch.from_numpy(np.array(x))
+
+    args = list(args)
+    kind = small_cell(build).step_kind
+    if kind == "retrieval":
+        return [plain(a) for a in args[1:]]
+    if build[0] == "gnn":
+        params = convert.gnn_params_from_numpy(args[0], "cpu")
+    else:
+        params = convert.recsys_params_from_numpy(args[0], "cpu", getattr(torch, build[3]))
+    if kind != "train":
+        return [params] + [plain(a) for a in args[1:]]
+    return [params, convert.adamw_state_from_numpy(args[1], "cpu")] + [plain(a) for a in args[2:]]
+
+
+def to_numpy(tree):
+    """torch tensors (or a dict/list/tuple of them) → numpy; bf16 as f32."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_numpy(x) for x in tree]
+    t = tree.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def views(arg, spec, layout):
+    """This rank's block of the global ``arg`` under ``spec`` (dicts and
+    lists of them elementwise), as its own tensors."""
+    if isinstance(arg, dict):
+        return {k: views(arg[k], spec[k], layout) for k in arg}
+    if isinstance(arg, (list, tuple)):
+        return [views(a, s, layout) for a, s in zip(arg, spec)]
+    return shd.local_view(arg, spec, layout).clone()
+
+
+def run_cell(cell, args, steps):
+    """``steps`` calls of ``cell.fn`` on ``args`` (a train step carries
+    its params and state), the first under ``count_cost``: (the last
+    outputs, the losses, the first call's collectives and bytes)."""
+    from repro_torch.dist import analysis
+
+    args, losses, cost = list(args), [], None
+    for _ in range(steps):
+        if cost is None:
+            cost, out = analysis.count_cost(cell.fn, *args)
+        else:
+            out = cell.fn(*args)
+        if cell.step_kind == "train":
+            args[0], args[1] = out[0], out[1]
+            losses.append(float(out[2]))
+    return out, losses, (cost.collectives, cost.collective_bytes)
+
+
+def cells_across_ranks(layout, runs):
+    """Each run of ``runs`` (label → (mesh shape, build, global numpy args,
+    steps)) on this rank of the world relaid out to that mesh: the rank's
+    views of the global arguments (``arg_specs``) through ``cell.fn``;
+    returns label → (outputs as numpy, losses, collectives, bytes)."""
+    from repro_torch.launch import mesh
+
+    out = {}
+    for label, (shape, build, args, steps) in runs.items():
+        lay = layout if tuple(shape) == layout.shape else mesh.relayout(layout, *shape)
+        cell = small_cell(build, lay)
+        local = [views(a, s, lay) for a, s in zip(cell_args(build, args), cell.arg_specs)]
+        res, losses, (calls, nbytes) = run_cell(cell, local, steps)
+        out[label] = (to_numpy(res), losses, calls, nbytes)
+    return out
+
+
+
+def lookup_grad_body(layout, table, vocab_sizes, ids, upstream, meshes):
+    """The table gradient of ``recsys.lookup_sharded`` under each mesh of
+    ``meshes``: this rank's row slice (over "model") of ``table`` (f32), its
+    batch rows (over "dp") of ``ids`` [B, F] and of the upstream cotangent
+    [B, F, D]; returns mesh → (the slice's [lo, hi), its dense gradient)."""
+    from repro_torch.launch import mesh
+    from repro_torch.models import recsys
+
+    spec = recsys.EmbeddingSpec(vocab_sizes=tuple(vocab_sizes), dim=table.shape[1])
+    out = {}
+    for shape in meshes:
+        lay = layout if tuple(shape) == layout.shape else mesh.relayout(layout, *shape)
+        lo, hi = shd.row_slice(table.shape[0], lay, "model")
+        shard = torch.from_numpy(table[lo:hi].copy()).requires_grad_(True)
+        rows = shd.local_view(torch.from_numpy(ids), (shd.dp_axes(lay.pods > 1), None), lay)
+        up = shd.local_view(torch.from_numpy(upstream), (shd.dp_axes(lay.pods > 1), None, None),
+                            lay)
+        emb = recsys.lookup_sharded(shard, spec, rows, lay)
+        (grad,) = torch.autograd.grad(emb, [shard], up)
+        out[tuple(shape)] = (lo, hi, grad.to_dense().numpy())
+    return out

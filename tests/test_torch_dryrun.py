@@ -194,11 +194,11 @@ def _small_makers(arch, tcfg):
             tra._sparse_inputs(tcfg.embedding.vocab_sizes))
 
 
-def _small_cell(arch, shape):
+def _small_cell(arch, shape, layout=None):
     tcfg = tra.small_recsys()[arch]
     return tbase.build_recsys_cell(tcfg, getattr(trec, FORWARDS[arch]),
                                    _small_makers(arch, tcfg)[1], getattr(tra, FLOPS[arch]),
-                                   shape)
+                                   shape, layout)
 
 
 @pytest.mark.parametrize("shape", ["serve_p99", "train_batch"])
@@ -448,11 +448,25 @@ def test_one_rank_steps_of_small_gnn_and_lm_cells_on_the_cpu(monkeypatch):
 
 
 def test_cells_across_ranks_refuse_their_step():
+    """Across ranks the recsys and GNN steps run (here, with no world, they
+    stop at their first collective, as LDA's does); the LM steps refuse,
+    naming ROADMAP item 13g, and serve_rt refuses, naming 13i."""
+    from repro_torch.configs import gnn_archs as tga, lm_archs as tla
     lay = RankLayout(1, 16, 16)
-    cell = tra.specs()["autoint"].cell("serve_p99", lay)
-    with pytest.raises(NotImplementedError, match="13b"):
-        cell.fn()
-    with pytest.raises(NotImplementedError, match="serve_rt"):
+    small = RankLayout(1, 2, 2)
+    recsys = _small_cell("autoint", "serve_p99", small)
+    gnn = tbase.build_gnn_cell(tga.small_gnn(), "full_graph_sm",
+                               dict(n_nodes=40, n_edges=150, d_feat=16, n_classes=4,
+                                    kind="full"), small)
+    for cell in (recsys, gnn):
+        args = cell.make_args(torch.Generator().manual_seed(0), "cpu")
+        views = [_view(a, sp, small) for a, sp in zip(args, cell.arg_specs)]
+        with pytest.raises(RuntimeError, match="process groups"):
+            cell.fn(*views)
+    lm = tbase.make_lm_arch(tla.small_lm()).cell("train_4k", lay)
+    with pytest.raises(NotImplementedError, match="13g"):
+        lm.fn()
+    with pytest.raises(NotImplementedError, match="serve_rt.*13i"):
         tpl.spec().cell("serve_rt", lay).fn()
     lda = tpl.spec().cell("train_segment", lay)
     views = [shd.local_view(a, sp, lay) for a, sp in zip(lda.make_args(None, "meta"),
@@ -460,6 +474,12 @@ def test_cells_across_ranks_refuse_their_step():
     args = tuple(views[:7]) + (0.01, 0)
     with pytest.raises(RuntimeError, match="process groups"):       # no world here
         lda.fn(*args)
+
+
+def _view(arg, spec, layout):
+    if isinstance(arg, dict):
+        return {k: _view(arg[k], spec[k], layout) for k in arg}
+    return shd.local_view(arg, spec, layout)
 
 
 def _run_cli(*argv):

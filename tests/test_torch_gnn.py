@@ -420,7 +420,29 @@ def test_small_train_cell_step_equals_jax_cell_step(J, kind):
 
 
 def test_cells_across_ranks_refuse_their_step():
+    """Across ranks the GNN train steps run (``test_torch_gnn_ranks.py``
+    holds them against JAX): with no world here each stops at its first
+    collective instead of refusing. The LM steps still refuse, naming
+    ROADMAP item 13g."""
+    from repro_torch.configs import lm_archs as tla
     lay = tshd.RankLayout(1, 16, 16)
     for shape in tga.GNN_SHAPES:
-        with pytest.raises(NotImplementedError, match="13f"):
-            tga.spec().cell(shape, lay).fn()
+        assert tga.spec().cell(shape, lay).step_kind == "train"
+    small = tshd.RankLayout(1, 2, 2)
+    for kind, shape in (("full_graph_sm", _tiny_shapes()["full"]),
+                        ("molecule", _tiny_shapes()["pool"]),
+                        ("minibatch_lg", dict(batch_nodes=8, kind="sampled"))):
+        cell = tbase.build_gnn_cell(tga.small_gnn(), kind, shape, small)
+        args = cell.make_args(torch.Generator().manual_seed(0), "cpu")
+
+        def view(a, sp):
+            if isinstance(a, dict):
+                return {k: view(a[k], sp[k]) for k in a}
+            if isinstance(a, (list, tuple)):
+                return [view(x, s) for x, s in zip(a, sp)]
+            return tshd.local_view(a, sp, small)
+
+        with pytest.raises(RuntimeError, match="process groups"):
+            cell.fn(*(view(a, sp) for a, sp in zip(args, cell.arg_specs)))
+    with pytest.raises(NotImplementedError, match="13g"):
+        tbase.make_lm_arch(tla.small_lm()).cell("prefill_32k", lay).fn()

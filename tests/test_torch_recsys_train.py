@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_ranks as R
 from _torch_port import one_torch_thread as _one_torch_thread  # noqa: F401  (autouse)
 from repro_torch import convert
 from repro_torch.configs import base as tbase
@@ -286,17 +287,7 @@ def test_sgd_rows_equals_jax_dense_update(jax_side, dtype):
 # ------------------------------------------------------------ the cells
 def _inputs(arch, cfg, seed=0, n=B):
     """Seeded numpy inputs of ``arch``'s forward (DIN history −1-padded)."""
-    rng = np.random.default_rng(seed)
-    if arch == "din":
-        hist = rng.integers(0, cfg.n_items, (n, cfg.seq_len)).astype(np.int32)
-        hist[rng.random((n, cfg.seq_len)) < 0.3] = -1
-        return (rng.integers(0, cfg.n_items, n).astype(np.int32), hist,
-                rng.integers(0, cfg.context_vocab, (n, cfg.n_context)).astype(np.int32))
-    sizes = np.array(cfg.embedding.vocab_sizes)
-    ids = (rng.random((n, len(sizes))) * sizes).astype(np.int32)
-    if arch == "dlrm-mlperf":
-        return rng.normal(size=(n, cfg.n_dense)).astype(np.float32), ids
-    return (ids,)
+    return R.recsys_inputs(arch, cfg, seed, n)
 
 
 def _cells(js, arch, shape="train_batch"):
@@ -552,14 +543,46 @@ def test_cell_entry_points_need_cuda_unless_asked(monkeypatch):
 
 
 def test_layouts_of_more_ranks_are_refused():
+    """Across ranks a recsys cell's step now runs (rows of a table shard,
+    ``ShardedReads``); only the LM steps refuse, naming ROADMAP item 13g.
+    The sum over "model" of a sharded lookup has the identity as backward:
+    a table gradient through ``lookup_sharded`` at M = 2 (two data replicas)
+    and M = 4 equals the one-rank gradient of the same rows bit for bit (a
+    backward that summed again would multiply it by M)."""
+    from repro_torch.configs import base as tb, lm_archs as tla
     from repro_torch.dist.sharding import RankLayout
+    from repro_torch.launch import mesh
+
     spec = tra.specs()["dlrm-mlperf"]
     assert spec.cell("train_batch", RankLayout(1, 1, 1)).step_kind == "train"
-    # across ranks the cell is built (the dry run records it) but its step
-    # is refused, naming the open item
-    cell = spec.cell("train_batch", RankLayout(1, 2, 1))
-    with pytest.raises(NotImplementedError, match="13b"):
-        cell.fn()
+    cell = tbase.build_recsys_cell(tra.small_recsys()["autoint"], trec.autoint_forward,
+                                   tra._sparse_inputs((50,) * 8), tra._autoint_flops,
+                                   "train_batch", RankLayout(1, 2, 1))
+    args = cell.make_args(torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(RuntimeError, match="process groups"):   # it runs: no world here
+        cell.fn(*(R.views(a, s_, RankLayout(1, 2, 1)) for a, s_ in zip(args, cell.arg_specs)))
+    lm = tb.make_lm_arch(tla.small_lm(True)).cell("decode_32k", RankLayout(1, 2, 1))
+    with pytest.raises(NotImplementedError, match="13g"):
+        lm.fn()
+
+    rng = np.random.default_rng(0)
+    vocab, D, Bb = (40, 30, 50, 60), 8, 8
+    table = rng.normal(size=(256, D)).astype(np.float32)
+    ids = (rng.random((Bb, len(vocab))) * np.array(vocab)).astype(np.int32)
+    up = rng.normal(size=(Bb, len(vocab), D)).astype(np.float32)
+    res = mesh.spawn(R.lookup_grad_body, data=2, model=2, device="cpu",
+                     args=(table, vocab, ids, up, [(1, 2, 2), (1, 1, 4)]), threads=1,
+                     timeout_s=R.TIMEOUT_S)
+    t = torch.from_numpy(table).requires_grad_(True)
+    emb = trec.lookup(t, trec.EmbeddingSpec(vocab, D), torch.from_numpy(ids))
+    (want,) = torch.autograd.grad(emb, [t], torch.from_numpy(up))
+    want = want.to_dense().numpy()
+    for shape in ((1, 2, 2), (1, 1, 4)):
+        got = np.zeros_like(want)
+        for r in res:
+            lo, hi, g = r[shape]
+            got[lo:hi] = g
+        assert got.tobytes() == want.tobytes(), shape
 
 
 # ------------------------------------------------------------ on the card
