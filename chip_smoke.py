@@ -16,8 +16,9 @@ Right after the kernel phases, the launch gate ([preflight],
 binaryVersion) held to sm_90's limits with the launch plans of this run's
 largest shapes; then ``launch.train --preflight``, ``launch.serve
 --preflight`` and ``launch.dryrun --verify`` (exit 0) and the train gate on
-a session of 430 GB a rank (exit 1), each launcher's ``main`` called in
-this process.
+a session of 430 GB a rank (exit 1), each launcher's ``main`` called in a
+process of the smoke's own that starts with the kernel phases, at the
+lowest CPU priority (the gates run on the host).
 
 - the dense path: a 4,096-query segment shard through train (3 Gibbs
   epochs) → α re-estimation → RT-LDA export → 4 served batches of 1,024;
@@ -106,10 +107,18 @@ store, ``gibbs_argmax`` and ``mh_resample`` held on rank 0, the rotation and
 card against CPU; and ``lookup_sharded`` over dlrm-mlperf's 187,767,552 ×
 128 bf16 table row-sharded 4 ways (11.2 GiB a rank), the serve_p99 batch and
 one of 16,384, each rank's rows equal to its local gather, every id hit
-once. Then ``launch.train`` starts its own 4 ranks streamed in 3 segments
-([launch.train streamed ranks]): from a ``--corpus-dir``, killed at a
-segment boundary and resumed with rank 1's first segment read failing,
-equal to the uninterrupted run from memory.
+once; the recsys and GNN steps across ranks ([recsys-ranks], [gnn-ranks]);
+and the LM steps across ranks ([lm-ranks]): qwen3-0.6b at full width at
+(1, 2, 2), 2 train_4k steps in bf16 (FSDP over "data", tensor parallelism
+over "model") and one in f32, prefill_32k's last chunk and 4 decode_32k
+steps in bf16 on the sequence-sharded cache and a prefill and 2 decodes in
+f32, qwen2-moe and phi3.5-moe decode at (1, 1, 4), the f32 steps against
+rank 0's one-rank steps. The 4 ranks share the card: their collectives go
+through workspaces on the card (``dist.collectives``), held against the
+host path on the card ([coll-card]). Then ``launch.train`` starts its own 4
+ranks streamed in 3 segments ([launch.train streamed ranks]): from a
+``--corpus-dir``, killed at a segment boundary and resumed with rank 1's
+first segment read failing, equal to the uninterrupted run from memory.
 
 Then the recsys serving path at full width: dlrm-mlperf (the 187,767,552 ×
 128 bf16 embedding table of the MLPerf Criteo-1TB config, nothing cut) with
@@ -3599,7 +3608,9 @@ def dryrun_phase(dlrm_step_ms):
 # launches can reach) with the plans at the shapes this run launches; then the
 # three launchers' gates, each launcher's main called in this process (its
 # torch and its built kernels already loaded), one after the other
-PREFLIGHT = dict(budget_s=30,
+# the gates run in a process of their own (``start_preflight_gates``) while the
+# card runs the kernel phases; timeout_s bounds the wait for it
+PREFLIGHT = dict(budget_s=30, timeout_s=600,
                  gates={"launch.train --preflight": ("train", ["--preflight"], 0),
                         "launch.serve --preflight": ("serve", ["--preflight"], 0),
                         "launch.dryrun --verify": ("dryrun", ["--verify"], 0),
@@ -3664,7 +3675,8 @@ def preflight_gates():
     --preflight`` and ``launch.dryrun --verify`` (exit 0), and the train gate
     on a 430 GB-a-rank session (exit 1), each ``repro_torch.launch.<name>
     .main`` called here with its report captured; each gate's seconds and
-    their sum against the budget."""
+    their sum against the budget. ``start_preflight_gates`` runs it in a
+    process of its own beside the kernel phases."""
     import contextlib
     import importlib
     import io
@@ -3687,6 +3699,32 @@ def preflight_gates():
     spent = time.perf_counter() - t0
     log(f"[preflight] {len(PREFLIGHT['gates'])} gates in {spent:.1f} s (budget "
         f"{PREFLIGHT['budget_s']} s{'' if spent <= PREFLIGHT['budget_s'] else ', OVER'})")
+
+
+def start_preflight_gates():
+    """``preflight_gates`` in a process of its own at the lowest CPU
+    priority: its gates run on the host (gloo CPU ranks, the analyzers), so
+    they take the cores the kernel phases leave idle. Returns the process;
+    ``finish_preflight_gates`` prints its lines and raises if it failed."""
+    src = os.path.join(ROOT, "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    return subprocess.Popen([sys.executable, "-c", "import chip_smoke; chip_smoke.preflight_gates()"],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, preexec_fn=lambda: os.nice(19))
+
+
+def finish_preflight_gates(proc):
+    try:
+        out, _ = proc.communicate(timeout=PREFLIGHT["timeout_s"])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for line in out.splitlines():
+        log(line)
+    if proc.returncode:
+        raise AssertionError(f"[preflight] the gates' process exited {proc.returncode}")
 
 
 # ------------------------------------------------------------ examples phase
@@ -5460,19 +5498,68 @@ def is_table(name):
     return name.endswith("table") or name == "linear_w"
 
 
+def tree_paths(tree, pre=""):
+    """(path, leaf) of a nested dict in sorted key order ("layers/wq")."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_paths(tree[k], f"{pre}/{k}" if pre else k)]
+    return [(pre, tree)]
+
+
+def tree_clone(tree):
+    return {k: tree_clone(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.clone()
+
+
+def replica_group(spec):
+    """The group whose ranks hold the same block under ``spec`` (one pod):
+    "world" for a replicated leaf, "dp" for one split over "model" only,
+    "model" for one split over "data" only; None where no rank shares it."""
+    from repro_torch.dist.sharding import _axes
+    axes = {a for entry in spec for a in _axes(entry)} & {"data", "model"}
+    return {frozenset(): "world", frozenset({"model"}): "dp",
+            frozenset({"data"}): "model"}.get(frozenset(axes))
+
+
+def same_by_spec(layout, tree, specs, label):
+    """``same_on_ranks`` for every leaf of ``tree`` over the group that
+    replicates its block under ``specs`` (a tree of the same structure)."""
+    groups = {}
+    for (path, x), (_, spec) in zip(tree_paths(tree), tree_paths(specs)):
+        g = replica_group(spec)
+        if g is not None:
+            groups.setdefault(g, {})[path] = x
+    for g in ("world", "dp", "model"):
+        if g in groups:
+            same_on_ranks(layout, g, groups[g], f"{label} ({g} replicas)")
+
+
+def gather_to_rank0(t, spec, layout):
+    """On rank 0 the global tensor of which ``t`` is this rank's block under
+    ``spec`` (``collectives.all_assemble``: every rank assembles it and the
+    others drop it, so called leaf by leaf each rank holds one whole leaf at
+    most); None on the other ranks. A replicated leaf is rank 0's own."""
+    from repro_torch.dist import collectives as coll
+    from repro_torch.dist.sharding import _axes
+    if not any(_axes(entry) for entry in spec):
+        return t if layout.rank == 0 else None
+    whole = coll.all_assemble(t.detach().contiguous(), spec, layout)
+    return whole if layout.rank == 0 else None
+
+
 def cell_steps(layout, label, cell, args, steps, first=None):
     """``steps`` calls of a train cell's ``fn`` on this rank's ``args``
-    (params and state carried): the first under ``count_cost`` (the step's
-    collectives and bytes) with every kernel launch held against its plain
-    version, the rest timed (host clock to a synchronize) with the
-    collectives' clock; after each, the loss, the replicated parameters and
-    moments (over "world") and each table shard's replicas (over "dp") the
-    same bits. ``first``, a dict, gets copies of the params and state after
-    step 1. Returns (params, state), the losses and the numbers."""
+    (params and state carried): the first under ``count_collectives`` (the
+    step's collectives and bytes, no per-op count) with every kernel launch
+    held against its plain version, the rest timed (host clock to a
+    synchronize) with the collectives' clock (one step: that one is timed,
+    counted and held); after each, the loss and every replica of a
+    parameter or moment block the same bits (``same_by_spec``: a replicated
+    leaf over "world", a table shard or a vocab slice over "dp", an FSDP
+    block over "model"). ``first``, a dict, gets copies of the params and
+    state after step 1. Returns (params, state), the losses and the numbers."""
     from repro_torch.dist import analysis
     from repro_torch.kernels.embedding_bag import ops
-    if steps < 2:
-        raise ValueError("cell_steps times the steps after the held, counted one: give 2 or more")
+    if steps < 1:
+        raise ValueError("cell_steps runs 1 step or more")
     args, losses, times, coll_ms = list(args), [], [], []
     free_card()
     bag0, bwd0 = ops.launches, ops.bwd_launches
@@ -5481,29 +5568,27 @@ def cell_steps(layout, label, cell, args, steps, first=None):
         t0 = time.perf_counter()
         if i == 0:
             with held_bag() as bags, held_bwd() as bwds, CollectiveClock() as clock:
-                cost, out = analysis.count_cost(cell.fn, *args)
+                cost, out = analysis.count_collectives(cell.fn, *args)
         else:
             with CollectiveClock() as clock:
                 out = cell.fn(*args)
         torch.cuda.synchronize()
-        if i:
+        if i or steps == 1:
             times.append((time.perf_counter() - t0) * 1e3)
             coll_ms.append(clock.ms)
         args[0], args[1] = out[0], out[1]
         if i == 0 and first is not None:
-            first.update(params={k: v.clone() for k, v in out[0].items()},
-                         state={p: {k: v.clone() for k, v in out[1][p].items()}
-                                for p in ("m", "v")})
+            first.update(params=tree_clone(out[0]),
+                         state={p: tree_clone(out[1][p]) for p in ("m", "v")})
         losses.append(float(out[2]))
-        same_on_ranks(layout, "world", (out[2], {k: v for k, v in out[0].items()
-                                                 if not is_table(k)}, out[1]), label)
-        same_on_ranks(layout, "dp", {k: v for k, v in out[0].items() if is_table(k)},
-                      label + " table shards")
+        same_by_spec(layout, {"loss": out[2], "params": out[0], "state": out[1]},
+                     {"loss": (), "params": cell.arg_specs[0], "state": cell.arg_specs[1]},
+                     label)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{label}: losses {losses}")
     return args[:2], losses, dict(
         step_ms=float(np.median(times)), coll_ms=float(np.median(coll_ms)),
-        timed="step 2" if steps == 2 else f"steps 2-{steps}",
+        timed={1: "step 1, counted and held", 2: "step 2"}.get(steps, f"steps 2-{steps}"),
         coll_calls=cost.collectives, coll_bytes=cost.collective_bytes, peak=peak_gib(),
         bag=ops.launches - bag0, bwd=ops.bwd_launches - bwd0, held_bag=len(bags),
         held_bwd=len(bwds), losses=losses)
@@ -5612,14 +5697,26 @@ def held_against_one_rank(layout, label, cell, one, args, steps, rep):
     """Rank 0: ``one``'s (the one-rank cell's) ``steps`` steps from the
     global ``args``, against the ranks' (``rep``: params and state after
     step 1 and after the last; tables gathered over "model" by every rank
-    first): the losses, AdamW's m and v after step 1, each dense parameter
-    after the last, and each table's change after both, within ``RANKS``'
-    limits."""
+    first, every other sharded leaf, an LM's, assembled on rank 0 by
+    ``gather_to_rank0``): the losses, AdamW's m and v after step 1, each
+    dense parameter after the last, and each table's change after both,
+    within ``RANKS``' limits. ``args`` is used on rank 0 only."""
     from repro_torch.dist import collectives as coll
     params, first = rep.pop("params"), rep.pop("first")
     gather = lambda ps: {k: coll.all_gather(v.contiguous(), layout, "model").flatten(0, 1)
                          for k, v in ps.items() if is_table(k)}
     tables, tables1 = gather(params), gather(first["params"])
+    whole = lambda tree, specs: {
+        k: gather_to_rank0(x, spec, layout)
+        for (k, x), (_, spec) in zip(tree_paths(tree), tree_paths(specs)) if not is_table(k)}
+    t0 = time.perf_counter()
+    last = whole(params, cell.arg_specs[0])
+    moments = {part: whole(first["state"][part], cell.arg_specs[1][part]) for part in ("m", "v")}
+    rep["gather_s"] = time.perf_counter() - t0
+    del params
+    free_card()                       # every rank gives back its cache before rank 0's steps
+    sync_ranks(layout)
+    t0 = time.perf_counter()
     if layout.rank == 0:
         ref, losses = list(args), []
         before = {k: v.clone() for k, v in ref[0].items() if is_table(k)}
@@ -5645,9 +5742,9 @@ def held_against_one_rank(layout, label, cell, one, args, steps, rep):
             losses.append(float(loss))
             if i == 0:
                 for part in ("m", "v"):
-                    for k, want in ref[1][part].items():
+                    for k, want in tree_paths(ref[1][part]):
                         norm = torch.linalg.vector_norm
-                        off = float(norm(first["state"][part][k] - want))
+                        off = float(norm(moments[part][k] - want))
                         hold("moment", f"{part}/{k} after step 1",
                              off / max(float(norm(want)), 1e-30), RANKS["moment_rtol"])
                 hold_tables(tables1, "after step 1")
@@ -5655,16 +5752,17 @@ def held_against_one_rank(layout, label, cell, one, args, steps, rep):
         if not np.allclose(rl, losses, rtol=RANKS["loss_rtol"], atol=0):
             raise AssertionError(f"{label}: losses {rep['losses']} against one rank's {losses}")
         hold_tables(tables, f"after step {steps}")
-        for k, want in ref[0].items():
+        for k, want in tree_paths(ref[0]):
             if not is_table(k):
-                hold("dense", k, float((params[k] - want).abs().max()), RANKS["dense_tol"])
+                hold("dense", k, float((last[k] - want).abs().max()), RANKS["dense_tol"])
         rep.update(one_rank_losses=losses,
                    max_loss_rel=float(np.max(np.abs(rl - losses) / np.abs(losses))),
                    max_table=worst["table"], max_dense=worst["dense"],
                    max_moment=worst["moment"])
         del ref, before
-    del tables, tables1, first
+    del tables, tables1, first, last, moments
     sync_ranks(layout)
+    rep["one_rank_s"] = time.perf_counter() - t0
 
 
 def recsys_ranks_22(layout):
@@ -5721,14 +5819,511 @@ def gnn_ranks(layout):
     return out
 
 
+# [lm-ranks]: the LM steps across ranks in stream_world's 4 ranks.
+# qwen3-0.6b at full width at (1, 2, 2): train_4k on a global batch of 4, one
+# microbatch of 2 sequences a data replica, in the config's bf16 (2 steps:
+# step 1 counted and held, step 2 timed), then one step computing in f32
+# against rank 0's one-rank step in 2 microbatches of 2 (the same mean, all
+# labels valid); prefill_32k's last chunk and 4 decode_32k steps at B = 2 in
+# bf16, the decodes at positions in both cache slices (at 16,382-16,383 the
+# second slice holds no valid position); then the f32 check: a prefill chunk
+# across the two slices' boundary (its first half's rows find no valid
+# position in the second slice), a decode after it (both slices hold written
+# rows) and one at the last position, against one rank's steps, logits and
+# the cache rows around the boundary; qwen2-moe-a2.7b ("ffn") and phi3.5-moe
+# ("expert", 4 of its 16 experts a rank) at 2 layers at (1, 1, 4): decode in
+# f32 at capacity factor E/k at B = 4, at the end of the first rank's slice
+# (the other three slices past it) and of the last
+LM_RANKS = dict(seed=35, train_batch=4, train_steps=2, serve_batch=2,
+                decodes=(16_382, 16_383, 32_766, 32_767),
+                moe_batch=4, moe_layers=2,
+                moe_decodes=(8_191, 32_767))
+
+
+def lm_rank_params(cfg, layout, seed, dtype, keep_full=True):
+    """(the global parameters on rank 0 with ``keep_full``, else None; this
+    rank's views; the generator after the draw): every rank draws the same
+    tree from ``seed``, keeping only its views leaf by leaf (rank 0 the
+    whole tree too, with ``keep_full``)."""
+    import functools
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import transformer as tf
+    specs = shd.lm_param_specs(cfg)
+    spec_of = lambda path: functools.reduce(lambda t, k: t[k], path, specs)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if layout.rank == 0 and keep_full:
+        full = tf.init_params(cfg, g, "cuda", dtype)
+        return full, rank_views(full, specs, layout), g
+    return None, tf.init_params(cfg, g, "cuda", dtype,
+                                view=lambda p, x: shd.local_view(x, spec_of(p), layout).clone()), g
+
+
+def lm_ranks_train(layout):
+    """[lm-ranks] qwen3-0.6b train_4k at (1, 2, 2): the main path in the
+    config's bf16, ``LM_RANKS['train_steps']`` steps through ``cell_steps``
+    (step 1 counted and held, the last timed); then one step computing in
+    f32 from the same parameters and tokens through ``cell_steps`` and
+    ``held_against_one_rank``: ``RANKS``' limits are f32 ones, and in bf16 a
+    token's embedding gradient alone parts by ~0.8% between the two sums'
+    roundings (on the CPU, at small widths)."""
+    import dataclasses
+    from repro_torch.configs import base, lm_archs as la
+    from repro_torch.models import transformer as tf
+    B = LM_RANKS["train_batch"]
+    S = base.LM_SHAPES["train_4k"]["seq_len"]
+    state = lambda p: {"step": torch.zeros((), dtype=torch.int32, device="cuda"),
+                       "m": tf.tree_map(torch.zeros_like, p), "v": tf.tree_map(torch.zeros_like, p)}
+    out = {}
+    for dtype in (la.QWEN3_0_6B.dtype, torch.float32):
+        main = dtype == la.QWEN3_0_6B.dtype
+        cfg = dataclasses.replace(la.QWEN3_0_6B, dtype=dtype)
+        cell = base.build_lm_cell(cfg, "train_4k", layout, micro_per_device=2, batch=B)
+        free_card()
+        # every rank keeps its views only while the steps run; rank 0 draws the
+        # whole tree again from the seed for its one-rank step after them
+        _, mine, g = lm_rank_params(cfg, layout, LM_RANKS["seed"], torch.float32,
+                                    keep_full=False)
+        tokens = torch.randint(0, cfg.vocab_size, (2, B, S), generator=g, device="cuda",
+                               dtype=torch.int32)
+        bspec = cell.arg_specs[2]
+        local = [mine, state(mine), rank_views(tokens[0], bspec, layout),
+                 rank_views(tokens[1], bspec, layout)]
+        del mine
+        label = f"qwen3-0.6b train_4k in {str(dtype).replace('torch.', '')}"
+        first = None if main else {}
+        steps = LM_RANKS["train_steps"] if main else 1
+        (params, _), _, rep = cell_steps(layout, label, cell, local, steps, first)
+        del local
+        rep.update(batch=B, model_coll_bytes=cell.model_coll_bytes, note=cell.note)
+        if main:
+            out.update(rep)
+            del params, tokens
+            free_card()
+            continue
+        one = base.build_lm_cell(cfg, "train_4k", None, micro_per_device=2, batch=B)
+        rep.update(params=params, first=first, one_note=one.note)
+        del params, first
+        args = None
+        if layout.rank == 0:
+            full = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(LM_RANKS["seed"]),
+                                  "cuda", torch.float32)
+            args = [full, state(full), tokens[0], tokens[1]]
+            del full
+        held_against_one_rank(layout, "qwen3-0.6b train_4k at (1, 2, 2) in f32", cell, one, args,
+                              1, rep)
+        out["check"] = rep
+        del args, tokens
+        free_card()
+    return out
+
+
+def lm_serve_steps(layout, cells, params, cache, plan):
+    """The serving main path on this rank: each (cell, tokens [global], cache_len)
+    of ``plan`` through ``cell.fn`` on the rank's views, the cache carried;
+    the first call of each cell under ``count_collectives`` with every
+    row-gradient launch held; every call timed (host ms to a synchronize, with the
+    collectives' clock; a counted call is marked). Returns (each step's
+    logits, the timed steps, the counted steps' collectives, the held
+    launches)."""
+    from repro_torch.dist import analysis
+    logits_out, timed, counted, held = [], [], {}, 0
+    for name, toks, cl in plan:
+        cell = cells[name]
+        mine = rank_views(toks, cell.arg_specs[1], layout)
+        cl = torch.tensor(cl, dtype=torch.int32, device="cuda")
+        sync_ranks(layout)
+        t0 = time.perf_counter()
+        first = name not in counted
+        if first:
+            with held_bwd() as bwds, CollectiveClock() as clock:
+                cost, (_, logits, cache) = analysis.count_collectives(cell.fn, params, mine,
+                                                                      cache, cl)
+            counted[name] = (cost.collectives, cost.collective_bytes)
+            held += len(bwds)
+        else:
+            with CollectiveClock() as clock:
+                _, logits, cache = cell.fn(params, mine, cache, cl)
+        torch.cuda.synchronize()
+        timed.append(dict(step=name, ms=(time.perf_counter() - t0) * 1e3, coll_ms=clock.ms,
+                          counted=first))
+        logits_out.append(logits.clone())
+    return logits_out, timed, counted, held
+
+
+def lm_held_serving(layout, label, cfg, ones, full, cache_shape, plan, logits, tol, routes=None,
+                    rows=None):
+    """Rank 0: the one-rank cells ``ones`` through the same ``plan`` on the
+    global parameters and a cache of zeros, each step's logits against the
+    ranks' (assembled on rank 0), within ``tol`` for every row; a row may
+    part only from its first router flip on, where the one-rank router's
+    top-k gap is below ``LM['tie_eps']`` (an MoE, ``routes``). ``rows``
+    (first position, {"k", "v"} blocks of the ranks' cache window under
+    the cache's spec, from ``boundary_rows``): the window, assembled on
+    rank 0, against the one-rank cache's positions there, within ``tol``."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.models import moe
+    got = [gather_to_rank0(x, (shd.dp_axes(), "model"), layout) for x in logits]
+    if rows is not None:
+        at, blocks = rows
+        spec = shd.lm_cache_spec()
+        rows = {k: gather_to_rank0(v, spec, layout) for k, v in blocks.items()}
+        del blocks
+    out = None
+    if layout.rank == 0:
+        cache = {k: torch.zeros(cache_shape, dtype=cfg.dtype, device="cuda") for k in "kv"}
+        want = []
+        with routes_of(moe) as ref_routes:
+            for name, toks, cl in plan:
+                _, w, cache = ones[name].fn(full, toks, cache, cl)
+                want.append(w)
+        cache_diff = None
+        if rows is not None:
+            rtol, atol = tol
+            cache_diff = 0.0
+            for k, a in rows.items():
+                w = cache[k][:, :, at:at + a.shape[2]]
+                d = (a - w).abs()
+                cache_diff = max(cache_diff, float(d.max()))
+                if not bool((d <= atol + rtol * w.abs()).all()):
+                    raise AssertionError(f"{label}: the cache's {k} rows at [{at}, "
+                                         f"{at + a.shape[2]}) part from one rank's by "
+                                         f"{float(d.max()):.4g} (|Δ| ≤ {atol} + {rtol}·|value|)")
+            del rows
+        del cache
+        excused, flips = set(), {}
+        if routes is not None:
+            k = cfg.moe.top_k
+            for j, ((p1, e1), (_, e2)) in enumerate(zip(ref_routes, routes)):
+                for b in range(e1.shape[0]):
+                    if b in excused or torch.equal(torch.sort(e1[b]).values,
+                                                   torch.sort(e2[b]).values):
+                        continue
+                    p = torch.sort(p1[b], descending=True).values
+                    gap = float(p[k - 1] - p[k])
+                    if not gap < LM["tie_eps"]:
+                        raise AssertionError(f"{label}: a router flip at call {j}, row {b}, "
+                                             f"that is no near-tie (gap {gap:.3g})")
+                    excused.add(b)
+                    flips[b] = dict(call=j, gap=gap)
+        rtol, atol = tol
+        worst, agree, n_rows = 0.0, [], 0
+        for i, (a, w) in enumerate(zip(got, want)):
+            d = (a - w).abs()
+            ok = (d <= atol + rtol * w.abs()).all(-1)
+            for b in range(ok.shape[0]):
+                if b in excused and flips[b]["call"] // cfg.n_layers <= i:
+                    continue
+                n_rows += 1
+                worst = max(worst, float(d[b].max()))
+                if not bool(ok[b]):
+                    raise AssertionError(f"{label}: step {i} row {b}: logits part from the "
+                                         f"one-rank step's by {float(d[b].max()):.4g} "
+                                         f"(|Δ| ≤ {atol} + {rtol}·|logit|)")
+            agree.append(float((a.argmax(-1) == w.argmax(-1)).float().mean()))
+        out = dict(max_logit_diff=worst, argmax_agree=agree, rows_held=n_rows, flips=flips,
+                   max_cache_diff=cache_diff)
+        del want
+    del got
+    sync_ranks(layout)
+    return out
+
+
+def boundary_rows(cache, layout, w):
+    """The rank's rows of the cache window [S/M − w, S/M + w) around the
+    boundary of the first two "model" slices (model index 0: its last w
+    positions, 1: its first w), as this rank's blocks of the window
+    [L, B, 2w, KV, dh] under the cache's spec (M = 2)."""
+    S_loc = cache["k"].shape[2]
+    part = slice(S_loc - w, S_loc) if layout.model_index == 0 else slice(0, w)
+    return {k: cache[k][:, :, part].clone() for k in "kv"}
+
+
+def lm_ranks_serve(layout):
+    """[lm-ranks] qwen3-0.6b prefill_32k's last chunk and 4 decode_32k steps
+    at (1, 2, 2), B = 2, in bf16 (the main path: counted, held, timed);
+    then the check in f32 (as ``lm_serve`` checks an MoE: in bf16 the ranks'
+    sums round apart from one rank's, 0.11 on a logit at full depth on an
+    H100): a prefill chunk at cache_len S/2 − C/2, across the boundary of
+    the two slices (the rows of its first half find no valid position in
+    the second slice and enter the combine with weight 0), a decode at S/2
+    + C/2 (both slices hold written rows, so each slice's output is
+    rescaled) and one at the last position, against rank 0's one-rank
+    steps: every row's logits and the cache rows around the boundary
+    (the chunk's and the first decode's) within ``LM['tol']['float32']``."""
+    import dataclasses
+    from repro_torch.configs import base, lm_archs as la
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels.embedding_bag import ops
+    cfg, B = la.QWEN3_0_6B, LM_RANKS["serve_batch"]
+    S = base.LM_SHAPES["prefill_32k"]["seq_len"]
+    C = min(4096, S)                                   # the prefill cell's chunk
+    if layout.model != 2:
+        raise ValueError("the serving check's window spans two model slices")
+    S_loc, w = S // 2, C // 2 + 1
+    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.d_head)
+    out = dict(batch=B)
+    for dtype in (cfg.dtype, torch.float32):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        cells = {s_: base.build_lm_cell(c, s_, layout, batch=B)
+                 for s_ in ("prefill_32k", "decode_32k")}
+        main = dtype == cfg.dtype
+        free_card()
+        full, mine, g = lm_rank_params(c, layout, LM_RANKS["seed"] + 1, dtype, keep_full=not main)
+        ri = lambda *sh: torch.randint(0, c.vocab_size, sh, generator=g, device="cuda",
+                                       dtype=torch.int32)
+        if main:
+            plan = [("prefill_32k", ri(B, C), S - C)]
+            plan += [("decode_32k", ri(B, 1), cl) for cl in LM_RANKS["decodes"]]
+        else:
+            plan = [("prefill_32k", ri(B, C), S_loc - C // 2),
+                    ("decode_32k", ri(B, 1), S_loc + C // 2), ("decode_32k", ri(B, 1), S - 1)]
+        local = shd.block_shape(shape, cells["prefill_32k"].arg_specs[2]["k"], layout)
+        cache = {k: torch.zeros(local, dtype=dtype, device="cuda") for k in "kv"}
+        bag0, bwd0 = ops.launches, ops.bwd_launches
+        logits, timed, counted, held = lm_serve_steps(layout, cells, mine, cache, plan)
+        if not all(bool(torch.isfinite(x).all()) for x in logits):
+            raise AssertionError(f"qwen3-0.6b serving across ranks in {dtype}: non-finite logits")
+        if main:
+            out.update(timed=timed, counted=counted, held=held, bag=ops.launches - bag0,
+                       bwd=ops.bwd_launches - bwd0, peak=peak_gib(),
+                       model_coll_bytes={s_: x.model_coll_bytes for s_, x in cells.items()})
+        rows = None if main else (S_loc - w, boundary_rows(cache, layout, w))
+        del cache, mine
+        free_card()
+        if not main:
+            ones = {s_: base.build_lm_cell(c, s_, None, batch=B)
+                    for s_ in ("prefill_32k", "decode_32k")}
+            out["check"] = lm_held_serving(layout, "qwen3-0.6b serving at (1, 2, 2) in f32", c,
+                                           ones, full, shape, plan, logits, LM["tol"]["float32"],
+                                           rows=rows)
+            out["check_plan"] = [(name, cl) for name, _, cl in plan]
+        del full, logits, rows
+        free_card()
+    return out
+
+
+def lm_ranks_moe(layout, cfg, name):
+    """[lm-ranks] ``cfg`` at ``LM_RANKS['moe_layers']`` layers at (1, 1, 4):
+    decode_32k steps in f32 at capacity factor E/k (no pair drops) at B = 4
+    (``LM_RANKS['moe_decodes']``), against rank 0's one-rank steps."""
+    import dataclasses
+    from repro_torch.configs import base
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels.embedding_bag import ops
+    from repro_torch.models import moe
+    m = cfg.moe
+    cfg = dataclasses.replace(cfg, n_layers=LM_RANKS["moe_layers"], dtype=torch.float32,
+                              moe=dataclasses.replace(m, capacity_factor=m.n_experts / m.top_k))
+    B, S = LM_RANKS["moe_batch"], base.LM_SHAPES["decode_32k"]["seq_len"]
+    cells = {"decode_32k": base.build_lm_cell(cfg, "decode_32k", layout, batch=B)}
+    ones = {"decode_32k": base.build_lm_cell(cfg, "decode_32k", None, batch=B)}
+    free_card()
+    full, mine, g = lm_rank_params(cfg, layout, LM_RANKS["seed"] + 2, torch.float32)
+    plan = [("decode_32k", torch.randint(0, cfg.vocab_size, (B, 1), generator=g, device="cuda",
+                                         dtype=torch.int32), cl)
+            for cl in LM_RANKS["moe_decodes"]]
+    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.d_head)
+    local = shd.block_shape(shape, cells["decode_32k"].arg_specs[2]["k"], layout)
+    cache = {k: torch.zeros(local, dtype=cfg.dtype, device="cuda") for k in "kv"}
+    bag0, bwd0 = ops.launches, ops.bwd_launches
+    with routes_of(moe) as routes:
+        logits, timed, counted, held = lm_serve_steps(layout, cells, mine, cache, plan)
+    bwd = ops.bwd_launches - bwd0
+    peak = peak_gib()
+    del cache, mine
+    free_card()
+    rep = lm_held_serving(layout, f"{name} decode at (1, 1, 4)", cfg, ones, full, shape, plan,
+                          logits, LM["tol"]["float32"], routes)
+    del full, logits, routes
+    free_card()
+    return dict(timed=timed, counted=counted, held=held, bag=ops.launches - bag0, bwd=bwd,
+                peak=peak, check=rep, batch=B, n_params=cfg.n_params,
+                placement=(f"{m.n_experts // layout.model} of {m.n_experts} experts a rank"
+                           if m.moe_shard == "expert" else
+                           f"{m.d_ff_expert // layout.model} of each expert's {m.d_ff_expert} "
+                           "d_ff columns a rank"),
+                model_coll_bytes={"decode_32k": cells["decode_32k"].model_coll_bytes})
+
+
+def lm_ranks(layout):
+    """[lm-ranks]: qwen3-0.6b train and serving at (1, 2, 2), the two MoE
+    decodes at (1, 1, 4), on this rank of stream_world's 4."""
+    from repro_torch.configs import lm_archs as la
+    from repro_torch.launch import mesh
+    lay22, lay14 = mesh.relayout(layout, 1, 2, 2), mesh.relayout(layout, 1, 1, 4)
+    out, t = {}, {}
+    for key, fn in (("qwen3-0.6b train_4k", lambda: lm_ranks_train(lay22)),
+                    ("qwen3-0.6b serving", lambda: lm_ranks_serve(lay22)),
+                    ("qwen2-moe-a2.7b decode", lambda: lm_ranks_moe(lay14, la.QWEN2_MOE,
+                                                                    "qwen2-moe-a2.7b")),
+                    ("phi3.5-moe decode", lambda: lm_ranks_moe(lay14, la.PHI35_MOE,
+                                                               "phi3.5-moe-42b-a6.6b"))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        t[key] = time.perf_counter() - t0
+        rank0_log(layout, f"[lm-ranks] {key} done in {t[key]:.1f} s")
+    out["seconds"] = t
+    return out
+
+
+def lm_ranks_report(res, card, launches):
+    """Check and print [lm-ranks]; adds the row-gradient launches by path
+    (summed over the ranks) to ``launches["bwd"]``."""
+    W = len(res)
+    bwd = launches["bwd"]
+    secs = res[0]["lm"]["seconds"]
+    tr = [r["lm"]["qwen3-0.6b train_4k"] for r in res]
+    ck = [x["check"] for x in tr]
+    r0, c0 = tr[0], ck[0]
+    bwd["ranks_lm_qwen3_train"] = sum(x["bwd"] for x in tr)
+    if bwd["ranks_lm_qwen3_train"] == 0:
+        raise AssertionError("[lm-ranks] qwen3-0.6b train launched no row-gradient kernel")
+    n = len(r0["losses"])
+    log(f"[lm-ranks] qwen3-0.6b train_4k at (1, 2, 2) at full width (reduced: one microbatch "
+        f"of 2 sequences a data replica: global batch {r0['batch']} of 256; {r0['note']}) in "
+        f"bf16: {n} step{'s' if n > 1 else ''}, step {r0['step_ms']:.1f} ms ({r0['timed']}; "
+        f"ranks {[round(x['step_ms'], 1) for x in tr]}), losses "
+        f"{[round(x, 6) for x in r0['losses']]}; replicas the same bits; step 1 held: "
+        f"{sum(x['held_bwd'] for x in tr)} embedding_bag_bwd launches equal to their plain "
+        f"versions; launches {bwd['ranks_lm_qwen3_train']}; peak GiB a rank "
+        f"{[round(x['peak'], 2) for x in tr]}; {coll_text(r0, W)}; card {card}")
+    log(f"[lm-ranks] qwen3-0.6b train_4k at (1, 2, 2) computing in f32, from the same "
+        f"parameters and tokens: 1 step, step {c0['step_ms']:.1f} ms ({c0['timed']}; ranks "
+        f"{[round(x['step_ms'], 1) for x in ck]}), loss {round(c0['losses'][0], 6)}; against "
+        f"the one-rank step ({c0['one_note']}): losses rtol {RANKS['loss_rtol']:g} (max "
+        f"{c0['max_loss_rel']:.2g}), parameters |Δ| ≤ {RANKS['dense_tol']:g} (max "
+        f"{c0['max_dense']:.3g}), AdamW m and v after step 1 ‖Δ‖ / ‖value‖ ≤ "
+        f"{RANKS['moment_rtol']:g} (max {c0['max_moment']:.3g}); replicas the same bits; "
+        f"{sum(x['held_bwd'] for x in ck)} held embedding_bag_bwd launches equal to their "
+        f"plain versions; peak GiB a rank {[round(x['peak'], 2) for x in ck]}; "
+        f"{coll_text(c0, W)}; {secs['qwen3-0.6b train_4k']:.1f} s for both ("
+        f"{c0['gather_s']:.1f} s the blocks to rank 0, {c0['one_rank_s']:.1f} s the one-rank "
+        f"step and the holds); card {card}")
+    for key, tag, mesh_s in (("qwen3-0.6b serving", "ranks_lm_qwen3_serve", "(1, 2, 2)"),
+                             ("qwen2-moe-a2.7b decode", "ranks_lm_qwen2_moe_decode",
+                              "(1, 1, 4)"),
+                             ("phi3.5-moe decode", "ranks_lm_phi35_moe_decode", "(1, 1, 4)")):
+        reps = [r["lm"][key] for r in res]
+        r0 = reps[0]
+        bwd[tag] = sum(x["bwd"] for x in reps)
+        if "moe" in key and bwd[tag] == 0:
+            raise AssertionError(f"[lm-ranks] {key}: no row-gradient launch")
+        steps = {}
+        for x in r0["timed"]:
+            steps.setdefault(x["step"], []).append(x)
+        timing = "; ".join(
+            f"{s} {[round(x['ms'], 2) for x in xs]} ms a step, the first counted and held "
+            f"(collectives {[round(x['coll_ms'], 2) for x in xs]} ms; counted step: "
+            + ", ".join(f"{k} {int(v)}" for k, v in sorted(r0['counted'][s][0].items()))
+            + f" calls, {sum(r0['counted'][s][1].values()):,.0f} bytes a rank; JAX's formula "
+            f"{r0['model_coll_bytes'][s]:,.0f} over the ranks)" for s, xs in steps.items())
+        c = r0["check"]
+        cut = (f"at {LM_RANKS['moe_layers']} layers, f32, capacity factor E/k, B = "
+               f"{r0['batch']}, {r0['placement']}; reduced: depth, batch "
+               f"{r0['batch']} of 128" if "moe" in key else
+               f"in bf16 at B = {r0['batch']}; reduced: batch {r0['batch']} of 32 / 128")
+        plan = ("" if "check_plan" not in r0 else " (" + ", ".join(
+            f"{name} at cache_len {cl:,}" for name, cl in r0["check_plan"]) + ")")
+        log(f"[lm-ranks] {key} at {mesh_s} at full width {cut}: {timing}; checked in f32{plan} "
+            f"against the one-rank steps: every held row's logits within {LM['tol']['float32']} "
+            f"(max |Δ| {c['max_logit_diff']:.4g}, {c['rows_held']} rows), argmax agrees "
+            f"{[round(a, 4) for a in c['argmax_agree']]}"
+            + (f", the cache rows around the slices' boundary within the same (max |Δ| "
+               f"{c['max_cache_diff']:.4g})" if c.get("max_cache_diff") is not None else "")
+            + (f", router flips (near-ties, excused) {c['flips'] or 'none'}" if "moe" in key
+               else "")
+            + f"; {sum(x['held'] for x in reps)} held embedding_bag_bwd launches equal to their "
+            f"plain versions, launches {bwd[tag]}; peak GiB a rank "
+            f"{[round(x['peak'], 2) for x in reps]}; {secs[key]:.1f} s; card {card}")
+
+
+def card_collectives_rank(layout):
+    """[coll-card] On this rank of 4 that share the card: the collectives
+    through workspaces on the card against gloo through host memory (the
+    same groups, seen as ranks of a card each): int64 sums and maxes, f32
+    and bf16 maxes and every gather the same bits, f32 sums within 10⁻⁶
+    relative, bf16 sums within one bf16 rounding of the sum, and every sum
+    the same bits on every rank of its group, over "world" and (1, 2, 2)'s
+    "model" and "data" (over "world" also at a size across a workspace's
+    half); then the host ms of a 32 MiB f32 sum and a 6 MiB gather over
+    "world" each way."""
+    import dataclasses
+    from repro_torch.dist import collectives as coll
+    from repro_torch.launch import mesh
+    lay22 = mesh.relayout(layout, 1, 2, 2)
+    g = torch.Generator(device="cuda").manual_seed(RANKS["seed"] + 9 + layout.rank)
+    n_checks = 0
+    for lay, name in ((layout, "world"), (lay22, "model"), (lay22, "data")):
+        host = dataclasses.replace(lay, ranks_per_device=1)
+        for dtype in (torch.int64, torch.float32, torch.bfloat16):
+            for n in (1, 1031) + ((coll.CARD_CHUNK // 4 + 13,) if name == "world" else ()):
+                x = (torch.randint(-1000, 1000, (n,), generator=g, device="cuda") if
+                     dtype == torch.int64 else torch.randn(n, generator=g, device="cuda")).to(dtype)
+                for op in ("sum", "max"):
+                    got = coll.all_reduce_(x.clone(), lay, name, op)
+                    want = coll.all_reduce_(x.clone(), host, name, op)
+                    if op == "max" or dtype == torch.int64:
+                        ok = torch.equal(got, want)
+                    else:
+                        ref = coll.all_reduce_(x.double(), host, name)   # the sum in f64
+                        err = (got.double() - ref).abs()
+                        lim = (1e-6 * ref.abs().clamp_min(1.0) if dtype == torch.float32 else
+                               2.0 ** -8 * ref.abs() + 1e-6)
+                        ok = bool((err <= lim).all())
+                    if op == "sum":
+                        same_on_ranks(lay, name, {"x": got}, f"[coll-card] {name} {dtype} sum")
+                    if not ok:
+                        raise AssertionError(f"[coll-card] {op} of {n} {dtype} over {name!r}: the "
+                                             f"card's workspaces differ from the host path")
+                    n_checks += 1
+                if not torch.equal(coll.all_gather(x, lay, name), coll.all_gather(x, host, name)):
+                    raise AssertionError(f"[coll-card] all_gather of {n} {dtype} over {name!r}: "
+                                         f"the card's workspaces differ from the host path")
+                n_checks += 1
+    host = dataclasses.replace(layout, ranks_per_device=1)
+    x = torch.randn(1 << 23, generator=g, device="cuda")
+    w = torch.randn(1 << 19, 3, generator=g, device="cuda")
+    ms = {}
+    for which, lay, reps in (("card", layout, 20), ("host", host, 3)):
+        for kind, fn in (("sum", lambda L: coll.all_reduce_(x.clone(), L, "world")),
+                         ("gather", lambda L: coll.all_gather(w, L, "world"))):
+            sync_ranks(layout)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn(lay)
+            torch.cuda.synchronize()
+            ms[f"{which}_{kind}"] = (time.perf_counter() - t0) * 1e3 / reps
+    del x, w
+    free_card()
+    return dict(checks=n_checks, ms=ms)
+
+
+def card_coll_report(res, card):
+    """Print [coll-card] (``card_collectives_rank``'s numbers, rank 0's and
+    the slowest rank's)."""
+    c = [r["coll_card"] for r in res]
+    ms = {k: (c[0]["ms"][k], max(x["ms"][k] for x in c)) for k in c[0]["ms"]}
+    log(f"[coll-card] 4 ranks on one card, collectives through workspaces on the card held "
+        f"against gloo through host memory: {sum(x['checks'] for x in c)} checks passed (sums, "
+        f"maxes and gathers of int64, f32 and bf16 over 'world' and (1, 2, 2)'s 'model' and "
+        f"'data'; every sum the same bits on its group's ranks); a 32 MiB f32 sum over 4 ranks "
+        f"{ms['card_sum'][0]:.3f} ms on the card (slowest rank {ms['card_sum'][1]:.3f}) against "
+        f"{ms['host_sum'][0]:.3f} ({ms['host_sum'][1]:.3f}) through host memory; a 6 MiB "
+        f"gather {ms['card_gather'][0]:.3f} ({ms['card_gather'][1]:.3f}) against "
+        f"{ms['host_gather'][0]:.3f} ({ms['host_gather'][1]:.3f}); card {card}")
+
+
 def stream_world(layout, dirs, L, small):
-    """One world of 4 ranks on the card: [stream-ranks] 4×1 (dense, prefetch
+    """One world of 4 ranks on the card: [coll-card], [stream-ranks] 4×1 (dense, prefetch
     on/off, alias), word-sharded 2×2 against 2×1 (pod 0 of a 2 × 2×1 mesh),
     SMALL's streamed 2×2 ring card vs CPU, then [lookup_sharded] and
     [recsys-ranks] dlrm-mlperf at (1, 1, 4), [recsys-ranks] xdeepfm, din and
-    autoint and [gnn-ranks] graphsage-reddit at (1, 2, 2)."""
+    autoint and [gnn-ranks] graphsage-reddit at (1, 2, 2), [lm-ranks]."""
     from repro_torch.launch import mesh
     t, out = {}, {}
+    t0 = time.perf_counter()
+    out["coll_card"] = card_collectives_rank(layout)
+    t["coll_card"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["ring"] = stream_ring_rank(layout, dirs["4x1"], L)
     t["ring"] = time.perf_counter() - t0
@@ -5763,6 +6358,9 @@ def stream_world(layout, dirs, L, small):
     t0 = time.perf_counter()
     out["gnn_22"] = gnn_ranks(lay22)
     t["gnn_22"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["lm"] = lm_ranks(layout)
+    t["lm"] = time.perf_counter() - t0
     out["seconds"] = t
     return out
 
@@ -5912,7 +6510,9 @@ def stream_ranks_report(res, T, caps, L, card):
             f"{[round(x['peak'], 2) for x in lk]}; card {card}")
     launches["bag"] = dict(lookup_sharded=sum(x["launches"] for x in lk))
     launches["bwd"] = {}
+    card_coll_report(res, card)
     recsys_gnn_report(res, card, launches)
+    lm_ranks_report(res, card, launches)
     return launches
 
 
@@ -6113,13 +6713,19 @@ def main():
         log(f"[time] {label}: {now - since[0]:.1f} s")
         since[0] = now
 
-    kernel = kernel_phase()
-    alias_build, mh_small_err = alias_kernel_phase()
-    bag_small_err = bag_kernel_phase()
-    mark("kernel phases")
-    preflight_phase()
-    preflight_gates()
-    mark("preflight")
+    gates = start_preflight_gates()
+    try:
+        kernel = kernel_phase()
+        alias_build, mh_small_err = alias_kernel_phase()
+        bag_small_err = bag_kernel_phase()
+        mark("kernel phases")
+        preflight_phase()
+    except BaseException:
+        gates.kill()
+        gates.wait()
+        raise
+    finish_preflight_gates(gates)
+    mark("preflight (the gates beside the kernel phases)")
     corpus, truth = full_corpus(with_truth=True)
     launches, gibbs_epoch_stats = full_width_phase(corpus)
     alias_launches, mh, cell_build = alias_phase(corpus)

@@ -27,8 +27,13 @@ Across ranks a cell's ``fn`` is one rank's step: it takes the rank's views
 cell computes them. The recsys steps row-shard the tables over "model"
 (``models.recsys.ShardedReads``; dense gradients all_reduced over "dp");
 the GNN steps split node and edge rows over every axis (``models.gnn``'s
-``layout=``; gradients all_reduced over "world"). The LM steps raise across
-ranks: they are ported for one rank only (ROADMAP item 13g). An LM train
+``layout=``; gradients all_reduced over "world"); the LM steps are FSDP
+over "data" and tensor parallel over "model" (``models.transformer``'s
+``layout=``): the train step takes JAX's microbatches of the global batch
+(n_micro = B / (dp · micro_per_device)), the replicated leaves' gradients
+summed over "dp" and AdamW clipped by the global norm; the serving steps
+read a sequence-sharded KV cache. Only peacock-lda's ``serve_rt`` still
+raises across ranks (``one_rank_only``, ROADMAP item 13i). An LM train
 cell at one rank carries ``one_rank_cut``: the same step on one microbatch,
 which the dry run's one-rank record runs (the global batch is 128
 microbatches there).
@@ -291,10 +296,6 @@ LM_SHAPES = {
     "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
 }
 
-_SHARDED_LM = ("the LM {} step across ranks (FSDP over 'data', tensor parallelism over "
-               "'model'; ROADMAP item 13g)")
-
-
 def _dp_size(layout) -> int:
     return 1 if layout is None else layout.data * layout.pods
 
@@ -309,6 +310,43 @@ def lm_train_flops(cfg, batch: int, seq: int) -> float:
     """6·N_active·T + causal attention term (fwd+bwd = 3× fwd)."""
     tokens = batch * seq
     return 6.0 * cfg.n_active_params * tokens + _lm_attn_flops(cfg, seq, tokens, True)
+
+
+def _microbatches(tokens, labels, n_micro: int, layout):
+    """[n_micro, rows, S] tokens and labels of the step's microbatches: JAX's
+    ``reshape(n_micro, B // n_micro, S)`` of the global batch. Across ranks
+    the rank takes its "dp" block of each microbatch's rows; where there is
+    more than one microbatch those are not the rows it holds, so the batch
+    (tokens and labels stacked, int32) is first all-gathered over "dp"."""
+    S = tokens.shape[1]
+    n_dp = 1 if layout is None else layout.pods * layout.data
+    if n_dp == 1 or n_micro == 1:
+        return (tokens.reshape(n_micro, tokens.shape[0] // n_micro, S),
+                labels.reshape(n_micro, labels.shape[0] // n_micro, S))
+    both = coll.all_gather(torch.stack([tokens, labels]), layout, "dp")   # [n_dp, 2, B/dp, S]
+    both = both.permute(1, 0, 2, 3).reshape(2, n_micro, -1, S)
+    rows = both.shape[2] // n_dp
+    if rows * n_dp != both.shape[2]:
+        raise ValueError(f"a microbatch of {both.shape[2]} rows does not split over {n_dp} "
+                         "data-parallel ranks")
+    i = coll.group_index(layout, "dp")
+    return both[:, :, i * rows:(i + 1) * rows].unbind(0)
+
+
+def _sum_replicated_grads_(grads, specs, layout) -> None:
+    """Sum in place the LM gradients ``grads`` (the rank's blocks, leaves in
+    order, with their ``specs``) over the data-parallel ranks that replicate
+    them: over "dp" where the spec does not split "data", over "pod" where it
+    does (the FSDP gather's reduce-scatter summed "data" already); one flat
+    buffer a group."""
+    over = {"dp": {}, "pod": {}}
+    for i, (g, spec) in enumerate(zip(grads, specs)):
+        split = {a for entry in spec for a in shd._axes(entry)}
+        over["pod" if "data" in split else "dp"][str(i)] = g
+    for name, part in over.items():
+        n = layout.pods * (layout.data if name == "dp" else 1)
+        if part and n > 1:
+            all_reduce_grads_(part, layout, name)
 
 
 def _lm_params(cfg, generator, dev, dtype):
@@ -338,6 +376,9 @@ def build_lm_cell(cfg, shape_name: str, layout=None, micro_per_device: int = 2,
     param_specs = shd.lm_param_specs(cfg)
     batch_spec = shd.lm_batch_spec(multi_pod)
 
+    sharded = layout is not None and layout.world_size > 1
+    lay = layout if sharded else None        # the layout the model functions take
+
     if kind == "train":
         dp = _dp_size(layout)
         n_micro = max(1, B // (dp * micro_per_device))
@@ -347,19 +388,20 @@ def build_lm_cell(cfg, shape_name: str, layout=None, micro_per_device: int = 2,
             stable_steps=100_000, decay_steps=10_000))
 
         def train_step(params, opt_state, tokens, labels):
-            mb_tok = tokens.reshape(n_micro, tokens.shape[0] // n_micro, S)
-            mb_lab = labels.reshape(n_micro, labels.shape[0] // n_micro, S)
+            mb_tok, mb_lab = _microbatches(tokens, labels, n_micro, lay)
             grads, losses = None, []
             for i in range(n_micro):
                 leaves = tf_mod.tree_map(lambda p: p.detach().requires_grad_(True), params)
                 loss = tf_mod.lm_loss(cfg, tf_mod.tree_map(lambda p: p.to(cfg.dtype), leaves),
-                                      mb_tok[i], mb_lab[i])
+                                      mb_tok[i], mb_lab[i], layout=lay)
                 g = torch.autograd.grad(loss, tf_mod.leaves(leaves))
                 grads = list(g) if grads is None else [a.add_(b) for a, b in zip(grads, g)]
                 losses.append(loss.detach())
+            if sharded:
+                _sum_replicated_grads_(grads, tf_mod.leaves(param_specs), layout)
             # in place: no second copy of the gradients (JAX's sum, then / n_micro)
             grads = tf_mod.tree_unflatten(params, [x.div_(n_micro) for x in grads])
-            params, opt_state = opt.update(grads, opt_state, params)
+            params, opt_state = opt.update(grads, opt_state, params, lay, param_specs)
             return params, opt_state, torch.stack(losses).mean()
 
         def make_args(generator, device="cuda", params=None):
@@ -387,7 +429,7 @@ def build_lm_cell(cfg, shape_name: str, layout=None, micro_per_device: int = 2,
 
         return Cell(
             arch=cfg.name, shape=shape_name, step_kind="train",
-            fn=one_rank_only(train_step, layout, _SHARDED_LM.format("train")),
+            fn=train_step,
             make_args=make_args, model_flops=lm_train_flops(cfg, B, S), donate=(0, 1),
             # FSDP weight all-gathers (bf16, fwd+bwd per microbatch) + f32 grad
             # all-reduce + Megatron-TP activation all-reduces (2/layer, ~3x)
@@ -409,7 +451,7 @@ def build_lm_cell(cfg, shape_name: str, layout=None, micro_per_device: int = 2,
         C = min(4096, S) if kind == "prefill" else 1
 
         def serve_step(params, tokens, cache, cache_len):
-            return tf_mod.serve_step(cfg, params, tokens, cache, cache_len)
+            return tf_mod.serve_step(cfg, params, tokens, cache, cache_len, lay)
 
         def make_args(generator, device="cuda", params=None):
             """(params in cfg.dtype, tokens [B, C] int32, the cache {"k", "v"}
@@ -433,7 +475,7 @@ def build_lm_cell(cfg, shape_name: str, layout=None, micro_per_device: int = 2,
                          * (S / 2.0 if kind == "prefill" else S))
         return Cell(
             arch=cfg.name, shape=shape_name, step_kind=kind,
-            fn=one_rank_only(serve_step, layout, _SHARDED_LM.format(kind)),
+            fn=serve_step,
             make_args=make_args, model_flops=flops,
             # param all-gather over "data" (FSDP at serve) + per-layer TP
             # activation all-reduce + LSE combine over the seq-sharded cache

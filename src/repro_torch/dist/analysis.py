@@ -143,18 +143,30 @@ class _Counter(TorchDispatchMode):
         return out
 
 
-def count_cost(fn: Callable[..., Any], *args: Any, **kwargs: Any):
-    """Run ``fn(*args, **kwargs)`` once and count its cost. Returns
-    ``(Cost, fn's result)``: unlike JAX's abstract trace this executes, so
-    the arguments are real tensors (data-dependent ops need their values)."""
+def _counted(per_op: bool, fn: Callable[..., Any], *args: Any, **kwargs: Any):
     cost = Cost()
     _active.append(cost)
     try:
-        with _Counter(cost):
+        with (_Counter(cost) if per_op else contextlib.nullcontext()):
             out = fn(*args, **kwargs)
     finally:
         _active.pop()
     return cost, out
+
+
+def count_cost(fn: Callable[..., Any], *args: Any, **kwargs: Any):
+    """Run ``fn(*args, **kwargs)`` once and count its cost. Returns
+    ``(Cost, fn's result)``: unlike JAX's abstract trace this executes, so
+    the arguments are real tensors (data-dependent ops need their values)."""
+    return _counted(True, fn, *args, **kwargs)
+
+
+def count_collectives(fn: Callable[..., Any], *args: Any, **kwargs: Any):
+    """``count_cost`` without the per-op count: ``(Cost, fn's result)``
+    where the Cost holds the collectives (and the kernels' calls) of one run
+    of ``fn`` and its flops and op bytes stay 0, so the run is timed as it
+    is (the dispatch mode of ``count_cost`` sees every aten op)."""
+    return _counted(False, fn, *args, **kwargs)
 
 
 def in_kernel() -> bool:

@@ -13,13 +13,31 @@ tensors; under NCCL tensors stay on the card. Under gloo a reduce-scatter is
 an ``all_reduce`` and the rank's slice (one path for every torch, whether
 its gloo has ``reduce_scatter`` or not).
 
-With gradients (the steps of the recsys and GNN cells across ranks):
+Ranks that share one card (gloo with ``ranks_per_device`` > 1, NCCL's
+refusal): a CUDA tensor's sum, max and gather stay on the card. Each group
+has a workspace a rank on the card that every rank of the group maps (CUDA
+IPC, ``_CardGroup``): each rank copies its part into its own workspace, the
+group meets at a barrier in host memory, and each rank reads every rank's
+part, a sum taken in group order (bf16 and f16 in f32, rounded once), so
+every rank holds the same bits. The workspace has two halves used in turn:
+a rank writes a half again only after the group's next barrier, which a
+rank reaches only once its reads of that half are done.
+
+With gradients (the steps of the recsys, GNN and LM cells across ranks):
 ``psum`` is a sum whose result feeds compute that every rank of the group
 repeats, so its backward is the identity (every rank already holds the
 whole cotangent; summing it again would multiply the gradient by the group's
-size); ``all_gather_rows`` concatenates the group's row blocks and its backward
-is the reduce-scatter of the cotangent; ``reduce_scatter_rows`` is the
-reduce-scatter and its backward the ``all_gather``.
+size); ``grad_psum`` is its conjugate (Megatron's "f" to ``psum``'s "g"):
+the identity forward, where a replicated tensor enters compute that the
+group's ranks split (a column-parallel product, a vocab-parallel head), and
+the sum of the ranks' partial cotangents backward; ``all_gather_rows``
+concatenates the group's row blocks and its backward is the reduce-scatter
+of the cotangent (the gathered tensor feeds compute that differs from rank
+to rank, as an FSDP weight does across data replicas);
+``all_gather_replicated`` concatenates them for compute that every rank of
+the group repeats, and its backward is the rank's own block of the cotangent;
+``reduce_scatter_rows`` is the reduce-scatter and its backward the
+``all_gather``. ``pmax`` is a max without a gradient.
 
 ``compressed_psum``: the JAX package sums the int8 payload as int16, which
 neither gloo nor NCCL reduces. Here each rank all-gathers the int8 payload
@@ -33,7 +51,14 @@ jaxpr holds a ``psum`` over an axis of size 1 too).
 """
 from __future__ import annotations
 
-from typing import Any, List, Tuple
+import gc
+import mmap
+import os
+import socket
+import tempfile
+import time
+import warnings
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -46,6 +71,9 @@ _Q_MAX = 127.0          # int8 symmetric range
 _M32 = 0xFFFF_FFFF
 # elements per host round trip of a CUDA tensor under gloo (256 MiB of int32)
 HOST_CHUNK = 1 << 26
+# bytes of one half of a rank's workspace for ranks that share a card
+CARD_CHUNK = 1 << 25
+CARD_TIMEOUT_S = 1800.0     # the longest a rank waits for its group at an exchange
 
 
 def group_index(layout: RankLayout, name: str) -> int:
@@ -63,6 +91,132 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return h
 
 
+class _CardGroup:
+    """The workspaces of one group whose ranks share a card: this rank's
+    [2 · CARD_CHUNK] bytes and every rank's, mapped here (``parts``, in
+    group order); ``parts`` is None where the group's ranks are not all on
+    one card of one host. The ranks meet at a barrier of host memory: one
+    int64 a rank in a file that the group's first rank makes and every rank
+    maps, the count of exchanges each has written (a gloo barrier goes
+    through the sockets and gloo's threads). Built collectively,
+    at the group's first collective of a CUDA tensor."""
+
+    def __init__(self, group, ranks: List[int], me: int, device: torch.device):
+        from torch.multiprocessing.reductions import reduce_tensor
+        self.group, self.me, self.turn = group, me, 0
+        self.buf = _ipc_empty(2 * CARD_CHUNK, device)
+        where = (socket.gethostname(), str(torch.cuda.get_device_properties(device).uuid))
+        path = None
+        if me == 0:
+            fd, path = tempfile.mkstemp(prefix="repro_torch_card_")
+            os.ftruncate(fd, 8 * len(ranks))
+            os.close(fd)
+        # one share of the workspace for each other rank: each receiver gives its
+        # own back when it lets go (torch counts a CUDA IPC share's receivers)
+        shares = [None if i == me else reduce_tensor(self.buf) for i in range(len(ranks))]
+        objs: List[Any] = [None] * len(ranks)
+        dist.all_gather_object(objs, (where, shares, path), group=group)
+        self.parts: Optional[List[torch.Tensor]] = None
+        if all(w == where for w, _, _ in objs):
+            self.parts = [self.buf if i == me else theirs[me][0](*theirs[me][1])
+                          for i, (_, theirs, _) in enumerate(objs)]
+            with open(objs[0][2], "r+b") as f:
+                self._map = mmap.mmap(f.fileno(), 8 * len(ranks))
+            self.counts = torch.frombuffer(self._map, dtype=torch.int64)
+        dist.barrier(group=group)
+        if path is not None:
+            os.unlink(path)                 # the ranks' mappings outlive the name
+
+    def exchange(self, src: torch.Tensor) -> List[torch.Tensor]:
+        """Every rank's ``src`` (uint8, at most CARD_CHUNK bytes, the same
+        length on every rank), as views of the workspaces in group order;
+        valid until this group's next exchange but one."""
+        n = src.numel()
+        base = (self.turn % 2) * CARD_CHUNK
+        self.turn += 1
+        self.buf[base:base + n].copy_(src)
+        # the copy is done, and so are this rank's reads of the other half
+        torch.cuda.current_stream(self.buf.device).synchronize()
+        self.counts[self.me] = self.turn
+        t0 = time.monotonic()
+        while int(self.counts.min()) < self.turn:
+            if time.monotonic() - t0 > CARD_TIMEOUT_S:
+                raise RuntimeError(f"a rank of the group missed exchange {self.turn} for "
+                                   f"{CARD_TIMEOUT_S:.0f} s")
+            os.sched_yield()
+        return [p[base:base + n] for p in self.parts]
+
+
+def _ipc_empty(n: int, device: torch.device) -> torch.Tensor:
+    """n bytes on the card in a segment of their own that CUDA IPC can share:
+    with ``expandable_segments`` on, the caching allocator's segments are
+    not such, so it is turned off around this allocation."""
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF", "") + "," + \
+        os.environ.get("PYTORCH_ALLOC_CONF", "")
+    if "expandable_segments:True" not in conf:
+        return torch.empty(n, dtype=torch.uint8, device=device)
+    with warnings.catch_warnings():          # deprecated for a new name in later torch
+        warnings.simplefilter("ignore", FutureWarning)
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+        try:
+            return torch.empty(n, dtype=torch.uint8, device=device)
+        finally:
+            torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+
+
+_CARD: Dict[Tuple[int, ...], _CardGroup] = {}
+
+
+def _card(t: torch.Tensor, layout: RankLayout, name: str) -> Optional[_CardGroup]:
+    """The group's card workspaces where ``t`` is a CUDA tensor and the
+    group's ranks share its card (else None)."""
+    if not (t.is_cuda and layout.backend == "gloo" and layout.ranks_per_device > 1):
+        return None
+    group, ranks = layout.group(name)
+    key = tuple(ranks)
+    if key not in _CARD:
+        _CARD[key] = _CardGroup(group, ranks, ranks.index(layout.rank), t.device)
+    cg = _CARD[key]
+    return cg if cg.parts is not None else None
+
+
+def release_card_workspaces() -> None:
+    """Let go of the other ranks' workspaces, then of this rank's (every rank
+    of the world calls it before the world ends)."""
+    for cg in _CARD.values():
+        cg.parts = None
+    if _CARD:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.ipc_collect()
+        dist.barrier()
+    _CARD.clear()
+    if torch.cuda.is_initialized():
+        torch.cuda.ipc_collect()
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's bytes, flat (uint8)."""
+    return t.reshape(-1).view(torch.uint8)
+
+
+def _card_reduce_(t: torch.Tensor, cg: _CardGroup, op: str) -> torch.Tensor:
+    half = t.dtype in (torch.bfloat16, torch.float16)     # summed in f32, rounded once
+    flat = _bytes(t)
+    step = CARD_CHUNK - CARD_CHUNK % t.element_size()
+    for lo in range(0, flat.numel(), step):
+        part = flat[lo:lo + step]
+        vals = [v.view(t.dtype) for v in cg.exchange(part)]
+        acc = vals[0].to(torch.float32 if half else t.dtype, copy=True)
+        for v in vals[1:]:
+            if op == "sum":
+                acc.add_(v)
+            else:
+                torch.maximum(acc, v, out=acc)
+        part.view(t.dtype).copy_(acc)
+    return t
+
+
 def all_reduce_(t: torch.Tensor, layout: RankLayout, name: str, op: str = "sum") -> torch.Tensor:
     """In-place ``all_reduce`` of ``t`` over group ``name`` (``op``: sum or
     max); returns ``t``."""
@@ -75,6 +229,9 @@ def _reduce_(t: torch.Tensor, layout: RankLayout, name: str, op: str) -> torch.T
     group, ranks = layout.group(name)
     if len(ranks) == 1:
         return t
+    cg = _card(t, layout, name)
+    if cg is not None:
+        return _card_reduce_(t, cg, op)
     rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     if not _via_host(t, layout):
         dist.all_reduce(t, rop, group=group)
@@ -94,6 +251,15 @@ def all_gather(t: torch.Tensor, layout: RankLayout, name: str) -> torch.Tensor:
     analysis.charge_collective("all_gather", analysis.tensor_bytes(t), t.shape, t.dtype)
     if len(ranks) == 1:
         return t[None].clone()
+    cg = _card(t, layout, name)
+    if cg is not None:
+        out = torch.empty((len(ranks),) + tuple(t.shape), dtype=t.dtype, device=t.device)
+        src = _bytes(t.contiguous())
+        dst = _bytes(out).view(len(ranks), src.numel())
+        for lo in range(0, src.numel(), CARD_CHUNK):
+            for i, v in enumerate(cg.exchange(src[lo:lo + CARD_CHUNK])):
+                dst[i, lo:lo + v.numel()] = v
+        return out
     host = _via_host(t, layout)
     src = _host(t) if host else t.contiguous()
     outs = [torch.empty(src.shape, dtype=src.dtype, pin_memory=host) if host
@@ -198,6 +364,63 @@ class _ScatterRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return all_gather(g.contiguous(), ctx.layout, ctx.name).flatten(0, 1), None, None
+
+
+class _GradPsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, layout, name):
+        ctx.layout, ctx.name = layout, name
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), ctx.layout, ctx.name), None, None
+
+
+def grad_psum(t: torch.Tensor, layout: RankLayout, name: str) -> torch.Tensor:
+    """``t`` itself, where it enters compute that the ranks of group ``name``
+    split (each rank's heads, columns, experts or vocab slice): the gradient
+    that reaches ``t`` is the sum over the group of the ranks' partial
+    cotangents, so every rank holds the whole one (``psum``'s conjugate)."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _GradPsum.apply(t, layout, name)
+    return t
+
+
+def pmax(t: torch.Tensor, layout: RankLayout, name: str) -> torch.Tensor:
+    """The elementwise max of ``t`` over group ``name`` (a new tensor; no
+    gradient)."""
+    return all_reduce_(t.detach().contiguous().clone(), layout, name, "max")
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, layout, name):
+        ctx.index, ctx.k = group_index(layout, name), t.shape[0]
+        return all_gather(t, layout, name).flatten(0, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.index * ctx.k:(ctx.index + 1) * ctx.k], None, None
+
+
+def all_gather_replicated(t: torch.Tensor, layout: RankLayout, name: str) -> torch.Tensor:
+    """The group's row blocks of ``t`` concatenated in group order, for
+    compute that every rank of the group then repeats: its gradient is the
+    rank's own block of the cotangent (every rank holds the same whole one)."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _GatherReplicated.apply(t, layout, name)
+    return all_gather(t, layout, name).flatten(0, 1)
+
+
+def gather_dim(t: torch.Tensor, layout: RankLayout, name: str, dim: int,
+               replicated: bool = False) -> torch.Tensor:
+    """``all_gather_rows`` (or, ``replicated``, ``all_gather_replicated``)
+    of ``t``'s blocks along ``dim``."""
+    gather = all_gather_replicated if replicated else all_gather_rows
+    if dim == 0:
+        return gather(t, layout, name)
+    return gather(t.movedim(dim, 0), layout, name).movedim(0, dim)
 
 
 def all_gather_rows(t: torch.Tensor, layout: RankLayout, name: str) -> torch.Tensor:

@@ -228,9 +228,10 @@ def embedding_bag_shard(shard, ids, lo: int, weights=None, gather=None):
 
 class _TakeShard(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, shard, read, hit, grad_ids, gather):
+    def forward(ctx, shard, read, hit, grad_ids, gather, dense):
         ctx.save_for_backward(grad_ids)
         ctx.shape, ctx.dtype, ctx.gather = tuple(shard.shape), shard.dtype, gather
+        ctx.dense = dense
         return _masked_gather(shard, read, hit)
 
     @staticmethod
@@ -242,7 +243,8 @@ class _TakeShard(torch.autograd.Function):
             grad_out, ids = ctx.gather(grad_out), ctx.gather(ids)
         rows, row_grad = embedding_bag_bwd(grad_out.reshape(-1, D), ids.reshape(-1, 1), None,
                                            "sum", ctx.shape[0])
-        return _sparse_grad(rows, row_grad, ctx.shape, ctx.dtype), None, None, None, None
+        grad = (_dense_grad if ctx.dense else _sparse_grad)(rows, row_grad, ctx.shape, ctx.dtype)
+        return grad, None, None, None, None, None
 
 
 def _masked_gather(shard, read, hit):
@@ -251,15 +253,16 @@ def _masked_gather(shard, read, hit):
     return torch.where(mask, rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
 
 
-def take_rows_shard(shard, ids, lo: int, gather=None):
+def take_rows_shard(shard, ids, lo: int, gather=None, dense_grad: bool = False):
     """``take_rows`` read from a row shard (``shard`` holds the table's rows
     [lo, lo + n), [n, D] or [n]; ids int32 of any shape, global, in [−1, V)):
     rows outside the shard read zeros and are −1 to the gradient (the shard's
-    sparse row gradient); ``gather`` as in ``embedding_bag_shard``, over the
-    ids' dim 0."""
+    sparse row gradient, or with ``dense_grad`` a dense one, as a
+    vocab-parallel LM embedding's AdamW wants it); ``gather`` as in
+    ``embedding_bag_shard``, over the ids' dim 0."""
     read, grad_ids, hit = _shard_ids(ids.to(torch.int32), lo, shard.shape[0])
     if torch.is_grad_enabled() and shard.requires_grad:
-        return _TakeShard.apply(shard, read, hit, grad_ids, gather)
+        return _TakeShard.apply(shard, read, hit, grad_ids, gather, dense_grad)
     return _masked_gather(shard, read, hit)
 
 

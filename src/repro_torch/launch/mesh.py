@@ -149,6 +149,9 @@ def _child(rank: int, fn: Callable, kw: dict, init_method: str, out_dir: str,
     with open(os.path.join(out_dir, f"rank_{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     if world > 1:
+        from repro_torch.dist import collectives
+
+        collectives.release_card_workspaces()
         dist.barrier()
         dist.destroy_process_group()
 

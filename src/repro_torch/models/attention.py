@@ -15,11 +15,22 @@ holds more than ``SCORE_BYTES`` of f32 scores (each query row's softmax is
 the same whatever the slicing; a 4,096-token prefill chunk against a
 32,768-token cache would otherwise hold tens of GB of scores on one card),
 and each slice reads the cache only up to its last query's position.
+
+Across ranks the serving cache is sequence-sharded over "model"
+(``sharding.lm_cache_spec``): ``cached_attention_partial`` runs on the
+rank's slice of positions and returns its unnormalised output with its
+running max and denominator, and ``combine_over_model`` merges the slices
+exactly by log-sum-exp, flash-decoding's split-K (JAX gets it implicitly
+from GSPMD partitioning the masked softmax over the sharded cache). A query
+row with no valid position in a slice (the slice lies wholly past it) enters
+the combine with weight 0: max −inf, denominator 0, output 0.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.dist import collectives as coll
 
 NEG_INF = -1e30
 SCORE_BYTES = 1 << 30          # most f32 scores one slice of cached_attention holds
@@ -120,6 +131,33 @@ def _scores(qs, ks) -> torch.Tensor:
     return s.reshape(b, KV, G, n, hi)
 
 
+def _slices(B, C, H, S, cl, offset=0):
+    """The [B, H, C, S] scores of a chunk at ``cl`` against a cache (slice)
+    of S positions from ``offset``, in slices of at most ``SCORE_BYTES``:
+    (b, bb, r, n, hi) for batch rows [b, b + bb), query rows [r, r + n),
+    read up to the slice's position hi (past the slice's last query every
+    position is masked for every row of it); hi ≤ 0: the slice lies wholly
+    past the rows."""
+    per_row = H * max(1, min(S, cl + C - offset)) * 4     # f32 score bytes of a query row
+    rows = max(1, min(C, SCORE_BYTES // per_row))
+    bb = max(1, min(B, SCORE_BYTES // (per_row * C))) if rows == C else 1
+    for b in range(0, B, bb):
+        for r in range(0, C, rows):
+            n = min(rows, C - r)
+            yield b, bb, r, n, min(S, cl + r + n - offset)
+
+
+def _mask_(s, cl, r, n, offset, hi):
+    """``NEG_INF`` on the scores s [.., n, hi] of positions past each query
+    row (query r + i sits at cl + r + i; the slice's position j at offset +
+    j): only the columns from the slice's first query on can hold any."""
+    lo = max(0, min(hi, cl + r + 1 - offset))
+    if lo < hi:
+        qpos = cl + r + torch.arange(n, device=s.device)
+        kpos = offset + torch.arange(lo, hi, device=s.device)
+        s[..., lo:hi].masked_fill_(kpos[None, :] > qpos[:, None], NEG_INF)
+
+
 def cached_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
     """Chunk attention over a KV cache. q [B, C, H, Dh] (C = 1: decode; C =
     a chunk: chunked prefill), k_cache and v_cache [B, S, KV, Dh] with the C
@@ -129,9 +167,9 @@ def cached_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
     dtype, the softmax in f32, the output in q's dtype.
 
     A slice of query rows reads the cache only up to its last query's
-    position: the positions past it are masked for every row of the slice
-    (JAX's ``NEG_INF``, an exact 0 after the softmax), so leaving them out
-    changes no probability.
+    position (``_slices``): the positions past it are masked for every row
+    of the slice (JAX's ``NEG_INF``, an exact 0 after the softmax), so
+    leaving them out changes no probability.
     """
     B, C, H, Dh = q.shape
     _, S, KV, _ = k_cache.shape
@@ -139,23 +177,12 @@ def cached_attention(q, k_cache, v_cache, cache_len) -> torch.Tensor:
     cl = int(cache_len)
     qg = (q * Dh ** -0.5).to(k_cache.dtype).reshape(B, C, KV, G, Dh)
     out = torch.empty((B, C, H, Dh), dtype=q.dtype, device=q.device)
-    per_row = H * min(S, cl + C) * 4                  # f32 score bytes of one query row
-    rows = max(1, min(C, SCORE_BYTES // per_row))
-    bb = max(1, min(B, SCORE_BYTES // (per_row * C))) if rows == C else 1
-    for b in range(0, B, bb):
-        for r in range(0, C, rows):
-            n = min(rows, C - r)
-            hi = min(S, cl + r + n)                   # past the slice's last query: masked
-            qs = qg[b:b + bb, r:r + n]
-            s = _scores(qs, k_cache[b:b + bb, :hi])
-            lo = min(hi, cl + r + 1)                  # the first position a row masks
-            if lo < hi:
-                qpos = cl + r + torch.arange(n, device=q.device)
-                kpos = torch.arange(lo, hi, device=q.device)
-                s[..., lo:hi].masked_fill_(kpos[None, :] > qpos[:, None], NEG_INF)
-            p = torch.softmax(s, dim=-1).to(v_cache.dtype)
-            o = torch.einsum("bhgqk,bkhd->bqhgd", p, v_cache[b:b + bb, :hi])
-            out[b:b + bb, r:r + n] = o.reshape(o.shape[0], n, H, Dh).to(q.dtype)
+    for b, bb, r, n, hi in _slices(B, C, H, S, cl):
+        s = _scores(qg[b:b + bb, r:r + n], k_cache[b:b + bb, :hi])
+        _mask_(s, cl, r, n, 0, hi)
+        p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, v_cache[b:b + bb, :hi])
+        out[b:b + bb, r:r + n] = o.reshape(o.shape[0], n, H, Dh).to(q.dtype)
     return out
 
 
@@ -163,3 +190,67 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     """Single-token decode (C=1). ``cache_len`` counts positions INCLUDING the
     freshly-written token, matching the original decode contract."""
     return cached_attention(q, k_cache, v_cache, int(cache_len) - 1)
+
+
+def _pv(p, vs) -> torch.Tensor:
+    """p [b, KV, G, n, hi] (f32) against vs [b, hi, KV, Dh] → f32 [b, n, KV·G,
+    Dh]: p rounded to the cache's dtype (as ``cached_attention`` rounds its
+    probabilities), the products summed in f32."""
+    b, KV, G, n, hi = p.shape
+    Dh = vs.shape[-1]
+    p2 = p.to(vs.dtype).reshape(b * KV, G * n, hi)
+    v2 = vs.permute(0, 2, 1, 3).reshape(b * KV, hi, Dh)
+    if vs.dtype == torch.float32:
+        o = torch.bmm(p2, v2)
+    elif vs.device.type == "cpu":
+        o = torch.bmm(p2.float(), v2.float())
+    else:
+        o = torch.bmm(p2, v2, out_dtype=torch.float32)
+    return o.reshape(b, KV, G, n, Dh).permute(0, 3, 1, 2, 4).reshape(b, n, KV * G, Dh)
+
+
+def cached_attention_partial(q, k_slice, v_slice, cache_len, offset: int):
+    """``cached_attention`` on one slice of the cache: k_slice and v_slice
+    [B, S_loc, KV, Dh] hold the global positions [offset, offset + S_loc)
+    (the chunk's own positions already written where they fall in it);
+    query i attends the positions ≤ cache_len + i. Returns (o [B, C, H, Dh]
+    f32, the unnormalised Σ p·v, m [B, C, H] f32, the row's max score over
+    the slice, l [B, C, H] f32, Σ p) with p = exp(score − m) on the valid
+    positions; a row with none in the slice gives (0, −inf, 0). The scores
+    are taken in ``cached_attention``'s slices (``_slices``)."""
+    B, C, H, Dh = q.shape
+    _, S, KV, _ = k_slice.shape
+    G = H // KV
+    cl = int(cache_len)
+    dev = q.device
+    qg = (q * Dh ** -0.5).to(k_slice.dtype).reshape(B, C, KV, G, Dh)
+    o = torch.zeros((B, C, H, Dh), dtype=torch.float32, device=dev)
+    m = torch.full((B, C, H), float("-inf"), dtype=torch.float32, device=dev)
+    l = torch.zeros((B, C, H), dtype=torch.float32, device=dev)
+    for b, bb, r, n, hi in _slices(B, C, H, S, cl, offset):
+        if hi <= 0:                                    # the slice lies wholly past the rows
+            continue
+        s = _scores(qg[b:b + bb, r:r + n], k_slice[b:b + bb, :hi])
+        _mask_(s, cl, r, n, offset, hi)
+        mx = s.amax(dim=-1)                            # [b, KV, G, n]
+        valid = mx > NEG_INF / 2
+        # a row with no valid position: exp(NEG_INF − 0) = 0 on every score
+        p = torch.exp(s - torch.where(valid, mx, torch.zeros_like(mx))[..., None])
+        nb = s.shape[0]
+        flat = lambda t: t.permute(0, 3, 1, 2).reshape(nb, n, H)
+        o[b:b + bb, r:r + n] = _pv(p, v_slice[b:b + bb, :hi])
+        m[b:b + bb, r:r + n] = flat(torch.where(valid, mx, torch.full_like(mx, float("-inf"))))
+        l[b:b + bb, r:r + n] = flat(p.sum(dim=-1))
+    return o, m, l
+
+
+def combine_over_model(o, m, l, layout, dtype) -> torch.Tensor:
+    """The exact attention from every "model" rank's ``cached_attention_partial``
+    of its slice: M = pmax(m), then one psum of (o·e^(m−M), l·e^(m−M)) and
+    their quotient, in ``dtype``. A slice with no valid position for a row
+    (m = −inf) weighs 0; position 0 is valid for every row, so M is finite."""
+    mx = coll.pmax(m, layout, "model")
+    w = torch.exp(m - mx)
+    both = coll.all_reduce_(torch.cat([o * w[..., None], (l * w)[..., None]], dim=-1),
+                            layout, "model")
+    return (both[..., :-1] / both[..., -1:]).to(dtype)

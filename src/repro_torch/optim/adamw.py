@@ -5,6 +5,11 @@ f32 operations. The state is a plain ``AdamWState`` (or a dict with the
 same keys, kept in that form), not a ``torch.optim.Optimizer``, so JAX's
 state converts one to one (``repro_torch.convert.adamw_state_from_numpy``).
 ``update`` is functional: it returns new parameters and a new state.
+
+Across ranks (``update``'s ``layout`` and ``specs``: the leaves are the
+rank's blocks of sharded parameters, as ``sharding.local_view`` cuts them)
+the clipping norm is the global one: each leaf's Σx² is summed over the
+ranks that split it and counted once over the ranks that replicate it.
 """
 from __future__ import annotations
 
@@ -50,7 +55,9 @@ class AdamW:
                           m=_map(torch.zeros_like, params),
                           v=_map(torch.zeros_like, params))
 
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, layout=None, specs=None):
+        """``layout`` and ``specs`` (the leaves' layout specs, a tree of the
+        grads' structure): the rank's blocks, clipped by the global norm."""
         as_dict = isinstance(state, dict)
         if as_dict:
             state = AdamWState(state["step"], state["m"], state["v"])
@@ -59,7 +66,7 @@ class AdamW:
 
         scale = None
         if self.clip_norm is not None:
-            gnorm = global_norm(grads)
+            gnorm = global_norm(grads, layout, specs)
             scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
 
         b1, b2 = self.b1, self.b2
@@ -85,10 +92,26 @@ class AdamW:
         return new_params, new_state
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, layout=None, specs=None) -> torch.Tensor:
     """sqrt of the sum over the leaves (in ``jax.tree.leaves`` order) of Σ x²
-    in f32."""
+    in f32. Across ranks (``layout`` of more than one rank, ``specs`` the
+    leaves' layout specs) each leaf's Σ x² is the sum over the world of its
+    blocks, each block counted on one rank only (the first of its replicas:
+    index 0 on every axis its spec does not split), in one ``all_reduce``;
+    the leaves' totals are then summed in the same order."""
+    sums = [torch.sum(torch.square(leaf.to(torch.float32))) for leaf in _leaves(tree)]
+    if layout is not None and layout.world_size > 1:
+        from repro_torch.dist import collectives as coll
+        from repro_torch.dist.sharding import MESH_AXES, _axes
+
+        coords = dict(zip(MESH_AXES, layout.coords()))
+        owned = []
+        for s, spec in zip(sums, _leaves(specs)):
+            split = {a for entry in spec for a in _axes(entry)}
+            first = all(coords[a] == 0 for a in MESH_AXES if a not in split)
+            owned.append(s if first else torch.zeros_like(s))
+        sums = coll.all_reduce_(torch.stack(owned), layout, "world").unbind(0)
     total = 0
-    for leaf in _leaves(tree):
-        total = total + torch.sum(torch.square(leaf.to(torch.float32)))
+    for s in sums:
+        total = total + s
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))

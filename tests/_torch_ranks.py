@@ -17,6 +17,7 @@ import torch
 from repro_torch.dist import sharding as shd
 
 BETA = 0.01
+TESTS = os.path.dirname(os.path.abspath(__file__))
 # a rank that waits this long in a collective fails the test instead of hanging it
 TIMEOUT_S = 300
 
@@ -147,6 +148,23 @@ def collectives_body(layout, device):
     mx = coll.all_reduce_(x.to(torch.float32), layout, "ring", "max")
     g = coll.all_gather(x, layout, "ring")
     return [t.cpu().numpy() for t in (*got, s, mx, g)]
+
+
+def card_collectives_body(layout):
+    """Sums, maxes and gathers of int64 over "world" on ranks that share one
+    card, across a workspace's half: through the card's workspaces and
+    through host memory (the same ranks seen as a card each); returns both."""
+    import dataclasses
+    from repro_torch.dist import collectives as coll
+
+    x = torch.arange(coll.CARD_CHUNK // 8 + 5, dtype=torch.int64, device="cuda")
+    x = x * (layout.rank + 1) - 3 * layout.rank
+    out = []
+    for lay in (layout, dataclasses.replace(layout, ranks_per_device=1)):
+        out.append([coll.all_reduce_(x.clone(), lay, "world").cpu().numpy(),
+                    coll.all_reduce_(x.clone(), lay, "world", "max").cpu().numpy(),
+                    coll.all_gather(x[:7], lay, "world").cpu().numpy()])
+    return out
 
 
 def trainer_run(layout, cfg_kw, ckpt=None, kill=None, resume=False, schedule=None,
@@ -415,3 +433,142 @@ def lookup_grad_body(layout, table, vocab_sizes, ids, upstream, meshes):
         (grad,) = torch.autograd.grad(emb, [shard], up)
         out[tuple(shape)] = (lo, hi, grad.to_dense().numpy())
     return out
+
+
+# ------------------------------------------------------------ LM cells across ranks ---
+
+# tiny LM shapes, set into ``configs.base.LM_SHAPES`` of both packages: a train
+# step of 8 sequences of 64 (n_micro ≥ 2 at every mesh of the tests) and a
+# 64-position cache of 4 sequences, one prefill chunk of all 64 positions
+LM_TINY = {"train_t": dict(seq_len=64, global_batch=8, kind="train"),
+           "prefill_t": dict(seq_len=64, global_batch=4, kind="prefill"),
+           "decode_t": dict(seq_len=64, global_batch=4, kind="decode")}
+LM_VARIANTS = ("dense", "expert", "ffn", "gathered")
+
+
+def lm_variant(name, la):
+    """``la.small_lm`` (either package's ``configs.lm_archs``) as variant
+    ``name``: dense and tied; MoE with qk_norm and a shared expert, experts
+    over "model"; the same with each expert's d_ff over "model"; dense with 3
+    query heads and 1 KV head (attention gathered over "model" at M = 2)."""
+    import dataclasses
+
+    if name == "dense":
+        return la.small_lm()
+    if name == "gathered":
+        return dataclasses.replace(la.small_lm(), n_heads=3, n_kv_heads=1)
+    cfg = la.small_lm(True)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, moe_shard=name))
+
+
+def lm_cell(variant, shape, layout=None):
+    """The port's LM cell of ``variant`` at the tiny ``shape`` for ``layout``
+    (the shape is in ``LM_SHAPES`` only while the cell is built)."""
+    from repro_torch.configs import base as tbase, lm_archs as tla
+
+    had = shape in tbase.LM_SHAPES
+    tbase.LM_SHAPES.setdefault(shape, LM_TINY[shape])
+    try:
+        return tbase.make_lm_arch(lm_variant(variant, tla)).cell(shape, layout)
+    finally:
+        if not had:
+            del tbase.LM_SHAPES[shape]
+
+
+def lm_steps_on_views(layout, variant="dense"):
+    """Each tiny LM cell of ``variant`` built for ``layout`` and called on
+    the rank's views of its drawn arguments (rank 0's): without a world the
+    call stops at its first collective."""
+    import pytest
+
+    for shape in LM_TINY:
+        cell = lm_cell(variant, shape, layout)
+        args = cell.make_args(torch.Generator().manual_seed(0), "cpu")
+        with pytest.raises(RuntimeError, match="process groups"):
+            cell.fn(*views(list(args), list(cell.arg_specs), layout))
+
+
+def lm_cell_args(args, train):
+    """Global numpy LM arguments as CPU tensors: params (and AdamW's state) by
+    ``convert``, the rest as they are."""
+    from repro_torch import convert
+
+    params = convert.lm_params_from_numpy(args[0], "cpu")
+    if train:
+        return [params, convert.adamw_state_from_numpy(args[1], "cpu")] + \
+            [torch.from_numpy(np.array(a)) for a in args[2:]]
+    cache = {k: torch.from_numpy(np.array(v)) for k, v in args[1].items()}
+    return [params, cache]
+
+
+def lm_cells_across_ranks(layout, runs):
+    """Each run of ``runs`` (label → (mesh shape, variant, kind, global numpy
+    args, plan)) on this rank of the world relaid out to that mesh, on the
+    rank's views by the cell's ``arg_specs``. A train run (args: params,
+    state, tokens, labels; plan: steps) returns (outputs, losses,
+    collectives, bytes) as ``cells_across_ranks``; a serve run (args:
+    params, cache; plan: [(shape, tokens, cache_len)], the cache carried
+    from step to step) returns each step's (next tokens, logits, cache) and
+    the first step's collectives and bytes of each shape."""
+    from repro_torch.dist import analysis
+    from repro_torch.launch import mesh
+
+    out = {}
+    for label, (shape, variant, kind, args, plan) in runs.items():
+        lay = layout if tuple(shape) == layout.shape else mesh.relayout(layout, *shape)
+        if kind == "clip":
+            out[label] = clip_rank(lay, variant, args, plan)
+            continue
+        if kind == "train":
+            cell = lm_cell(variant, "train_t", lay)
+            local = [views(a, s, lay) for a, s in zip(lm_cell_args(args, True), cell.arg_specs)]
+            res, losses, (calls, nbytes) = run_cell(cell, local, plan)
+            out[label] = (to_numpy(res), losses, calls, nbytes)
+            continue
+        params, cache = lm_cell_args(args, False)
+        steps, costs = [], {}
+        for shape_name, tokens, cache_len in plan:
+            cell = lm_cell(variant, shape_name, lay)
+            if not steps:
+                params = views(params, cell.arg_specs[0], lay)
+                cache = views(cache, cell.arg_specs[2], lay)
+            toks = views(torch.from_numpy(tokens), cell.arg_specs[1], lay)
+            cl = torch.tensor(cache_len, dtype=torch.int32)
+            if shape_name not in costs:
+                cost, (nxt, logits, cache) = analysis.count_cost(cell.fn, params, toks, cache, cl)
+                costs[shape_name] = (cost.collectives, cost.collective_bytes)
+            else:
+                nxt, logits, cache = cell.fn(params, toks, cache, cl)
+            steps.append(to_numpy((nxt, logits, cache)))
+        out[label] = (steps, costs)
+    return out
+
+
+def clip_rank(layout, variant, args, clip_norm):
+    """AdamW (``clip_norm``) at step 0 on this rank's views of global numpy
+    (params, grads) of ``variant``: (the global norm, the new params' views)."""
+    from repro_torch import convert
+    from repro_torch.configs import lm_archs as tla
+    from repro_torch.dist import sharding as tshd
+    from repro_torch.optim import adamw
+
+    specs = tshd.lm_param_specs(lm_variant(variant, tla))
+    params, grads = (views(convert.lm_params_from_numpy(a, "cpu"), specs, layout) for a in args)
+    opt = adamw.AdamW(lr=1e-3, clip_norm=clip_norm)
+    norm = adamw.global_norm(grads, layout, specs)
+    new, _ = opt.update(grads, opt.init(params), params, layout, specs)
+    return float(norm), to_numpy(new)
+
+
+def tla_param_shapes(cfg):
+    """``models.transformer.param_shapes`` of the port's ``cfg``."""
+    from repro_torch.models import transformer
+
+    return transformer.param_shapes(cfg)
+
+
+def tla_tree(cfg, leaf):
+    """``leaf(shape)`` at every leaf of ``cfg``'s parameter tree."""
+    from repro_torch.models import transformer
+
+    return transformer.tree_map(leaf, transformer.param_shapes(cfg))

@@ -5,8 +5,9 @@ package's on 8 XLA host devices, bit for bit for two seeds, and unbiased
 over 24 seeds; ``elastic_aggregate`` over 4 pods with one dead against
 JAX's; the ring shift, all-reduce and all-gather; ``local_view``/``assemble``
 round trips for every layout; ``init_ranks``/``spawn`` refusing worlds the
-host cannot hold; and, on a machine with at least two cards, the same
-collectives over NCCL.
+host cannot hold; on a card, two ranks that share it summing and gathering
+through its workspaces as through host memory; and, on a machine with at
+least two cards, the same collectives over NCCL.
 """
 import numpy as np
 import pytest
@@ -104,6 +105,19 @@ def test_collectives_over_nccl_across_cards():
         pytest.skip(f"needs at least 2 CUDA cards, this host has {n}")
     _check_collectives(mesh.spawn(R.collectives_body, data=n, backend="nccl", device="cuda",
                                   args=("cuda",), timeout_s=R.TIMEOUT_S), n)
+
+
+@pytest.mark.kernels
+def test_ranks_sharing_one_card_sum_and_gather_through_its_workspaces():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for card, host in mesh.spawn(R.card_collectives_body, data=2, device="cuda",
+                                 ranks_per_device=2, timeout_s=R.TIMEOUT_S):
+        x = np.arange(len(card[0]), dtype=np.int64)
+        np.testing.assert_array_equal(card[0], 3 * x - 3)
+        np.testing.assert_array_equal(card[1], np.maximum(x, 2 * x - 3))
+        for a, b in zip(card, host):
+            np.testing.assert_array_equal(a, b)
 
 
 LAYOUTS = {

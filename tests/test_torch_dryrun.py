@@ -448,9 +448,9 @@ def test_one_rank_steps_of_small_gnn_and_lm_cells_on_the_cpu(monkeypatch):
 
 
 def test_cells_across_ranks_refuse_their_step():
-    """Across ranks the recsys and GNN steps run (here, with no world, they
-    stop at their first collective, as LDA's does); the LM steps refuse,
-    naming ROADMAP item 13g, and serve_rt refuses, naming 13i."""
+    """Across ranks the recsys, GNN and LM steps run (here, with no world,
+    they stop at their first collective, as LDA's does); serve_rt refuses,
+    naming ROADMAP item 13i."""
     from repro_torch.configs import gnn_archs as tga, lm_archs as tla
     lay = RankLayout(1, 16, 16)
     small = RankLayout(1, 2, 2)
@@ -463,9 +463,8 @@ def test_cells_across_ranks_refuse_their_step():
         views = [_view(a, sp, small) for a, sp in zip(args, cell.arg_specs)]
         with pytest.raises(RuntimeError, match="process groups"):
             cell.fn(*views)
-    lm = tbase.make_lm_arch(tla.small_lm()).cell("train_4k", lay)
-    with pytest.raises(NotImplementedError, match="13g"):
-        lm.fn()
+    assert tbase.make_lm_arch(tla.small_lm()).cell("train_4k", lay).step_kind == "train"
+    R.lm_steps_on_views(small)
     with pytest.raises(NotImplementedError, match="serve_rt.*13i"):
         tpl.spec().cell("serve_rt", lay).fn()
     lda = tpl.spec().cell("train_segment", lay)

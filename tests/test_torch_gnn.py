@@ -422,8 +422,8 @@ def test_small_train_cell_step_equals_jax_cell_step(J, kind):
 def test_cells_across_ranks_refuse_their_step():
     """Across ranks the GNN train steps run (``test_torch_gnn_ranks.py``
     holds them against JAX): with no world here each stops at its first
-    collective instead of refusing. The LM steps still refuse, naming
-    ROADMAP item 13g."""
+    collective instead of refusing. So do the LM steps (ROADMAP item 13g,
+    ``test_torch_lm_ranks.py``)."""
     from repro_torch.configs import lm_archs as tla
     lay = tshd.RankLayout(1, 16, 16)
     for shape in tga.GNN_SHAPES:
@@ -444,5 +444,6 @@ def test_cells_across_ranks_refuse_their_step():
 
         with pytest.raises(RuntimeError, match="process groups"):
             cell.fn(*(view(a, sp) for a, sp in zip(args, cell.arg_specs)))
-    with pytest.raises(NotImplementedError, match="13g"):
-        tbase.make_lm_arch(tla.small_lm()).cell("prefill_32k", lay).fn()
+    assert tbase.make_lm_arch(tla.small_lm()).cell("prefill_32k", lay).step_kind == "prefill"
+    import _torch_ranks as R
+    R.lm_steps_on_views(small)

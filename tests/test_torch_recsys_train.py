@@ -544,7 +544,8 @@ def test_cell_entry_points_need_cuda_unless_asked(monkeypatch):
 
 def test_layouts_of_more_ranks_are_refused():
     """Across ranks a recsys cell's step now runs (rows of a table shard,
-    ``ShardedReads``); only the LM steps refuse, naming ROADMAP item 13g.
+    ``ShardedReads``), and so does an LM cell's (ROADMAP item 13g): with no
+    world here each stops at its first collective.
     The sum over "model" of a sharded lookup has the identity as backward:
     a table gradient through ``lookup_sharded`` at M = 2 (two data replicas)
     and M = 4 equals the one-rank gradient of the same rows bit for bit (a
@@ -562,8 +563,8 @@ def test_layouts_of_more_ranks_are_refused():
     with pytest.raises(RuntimeError, match="process groups"):   # it runs: no world here
         cell.fn(*(R.views(a, s_, RankLayout(1, 2, 1)) for a, s_ in zip(args, cell.arg_specs)))
     lm = tb.make_lm_arch(tla.small_lm(True)).cell("decode_32k", RankLayout(1, 2, 1))
-    with pytest.raises(NotImplementedError, match="13g"):
-        lm.fn()
+    assert lm.step_kind == "decode"
+    R.lm_steps_on_views(RankLayout(1, 2, 1), "expert")
 
     rng = np.random.default_rng(0)
     vocab, D, Bb = (40, 30, 50, 60), 8, 8
