@@ -14,11 +14,16 @@ Right after the kernel phases, the launch gate ([preflight],
 ``repro_torch.analysis``): every kernel instantiation as built for this card
 (registers, static and dynamic shared bytes, spills, blocks an SM,
 binaryVersion) held to sm_90's limits with the launch plans of this run's
-largest shapes; then ``launch.train --preflight``, ``launch.serve
---preflight`` and ``launch.dryrun --verify`` (exit 0) and the train gate on
-a session of 430 GB a rank (exit 1), each launcher's ``main`` called in a
-process of the smoke's own that starts with the kernel phases, at the
-lowest CPU priority (the gates run on the host).
+largest shapes; then, in a process of the smoke's own beside the dry run at
+the lowest CPU priority (the gates run on the host), ``launch.train
+--preflight``, ``launch.serve --preflight`` and ``launch.dryrun --verify``
+(exit 0) and the train gate on a session of 430 GB a rank (exit 1), each
+launcher's ``main`` called there.
+
+The K = 100,000 ``alias_build`` check's plain sweep (its tables and inputs
+kept on the host after the kernel phases) runs on a thread beside the two
+``launch.train`` phases of SMALL's geometry, which leave the card nearly
+idle (each starts its independent worlds together).
 
 - the dense path: a 4,096-query segment shard through train (3 Gibbs
   epochs) → α re-estimation → RT-LDA export → 4 served batches of 1,024;
@@ -86,7 +91,7 @@ alias epochs after one table build, the invariants and a rising word LL,
 all_reduce timed with their bytes); the shard word-sharded 2×2 against the
 2×1 ring, bit for bit in both samplers ([word-sharded]); SMALL's corpus on a
 2×2 ring, card against CPU ([ring card vs cpu]); 2 pods × a 2×1 ring at V =
-16,384 for 6 epochs ([pods]: the exact and the compressed merge at the
+4,096 for 6 epochs ([pods]: the exact and the compressed merge at the
 first boundary, within the quantization bound; at the second pod 1 is dead,
 ``restart_pod`` brings it back from its own checkpoint and the elastic merge
 drops its delta). Then ``launch.train`` starting its own ranks
@@ -113,7 +118,10 @@ and the LM steps across ranks ([lm-ranks]): qwen3-0.6b at full width at
 over "model") and one in f32, prefill_32k's last chunk and 4 decode_32k
 steps in bf16 on the sequence-sharded cache and a prefill and 2 decodes in
 f32, qwen2-moe and phi3.5-moe decode at (1, 1, 4), the f32 steps against
-rank 0's one-rank steps. The 4 ranks share the card: their collectives go
+rank 0's one-rank steps; and peacock-lda's serve_rt ([lda-serve-ranks]) at
+(1, 1, 4) and (1, 2, 2), K = 100,000, B = 1,024 queries: P̂ and the R cache
+row-sharded over the ring, each rank's pkd columns bit for bit against rank
+0's one-rank step. The 4 ranks share the card: their collectives go
 through workspaces on the card (``dist.collectives``), held against the
 host path on the card ([coll-card]). Then ``launch.train`` starts its own 4
 ranks streamed in 3 segments ([launch.train streamed ranks]): from a
@@ -195,6 +203,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 import types
 
@@ -686,22 +695,25 @@ def alias_kernel_phase():
     log(f"[alias-kernel] alias_build R=1 K={K} (the α table, with _scale): {a_ms:.4f} ms")
 
     # one plain sweep holds both: the chunk plus the α row (R = 2,049), and a
-    # 2,049-row sample of the whole table (the first, the last, strided rows)
+    # 2,049-row sample of the whole table (the first, the last, strided rows).
+    # Its K = 100,000 steps of small launches take about a minute of host
+    # time whatever the rows, so the tables and their inputs wait on the host
+    # for ``full_k_sweep``, which runs beside a phase that leaves the card idle
     ca = torch.cat([chunk, alpha])
     ca_scale = ops._scale(ca)
     pk, ak = alias_build_cuda(ca, ca_scale)
     rows = torch.linspace(0, V - 1, R + 1, device="cuda").round().long()
-    plain_ms, err = check_tables(
-        torch.cat([pk, out[0][rows]]), torch.cat([ak, out[1][rows]]),
-        torch.cat([ca, table[rows]]), torch.cat([ca_scale, scale[rows]]),
-        f"R={R}+1 K={K} (a table chunk and the α row) and {R + 1} rows of the whole "
-        f"table")
-    errs.append(err)
+    sweep = dict(pk=torch.cat([pk, out[0][rows]]).cpu(), ak=torch.cat([ak, out[1][rows]]).cpu(),
+                 weights=torch.cat([ca, table[rows]]).cpu(),
+                 scale=torch.cat([ca_scale, scale[rows]]).cpu(),
+                 label=f"R={R}+1 K={K} (a table chunk and the α row) and {R + 1} rows of the "
+                       f"whole table")
     del table, out, chunk, c_out, ca, pk, ak
     torch.cuda.empty_cache()
     # ms and its bound at the main path's shape come from alias_phase (the
     # cell's own wq); plain_ms covers the 4,098 rows of the one plain sweep
-    build = dict(plain_ms=plain_ms, plain_shape=[2 * R + 2, K], max_abs_err=max(errs))
+    # (``full_k_sweep`` adds it and its error)
+    build = dict(plain_shape=[2 * R + 2, K], max_abs_err=max(errs))
 
     mh_errs = []
     # pair caps 5, 16, 8 and 20 take the 16- and 32-slot register kernels,
@@ -719,7 +731,40 @@ def alias_kernel_phase():
                                     f"seed={seed}")[1])
         del args
     torch.cuda.empty_cache()
-    return build, max(mh_errs)
+    return build, max(mh_errs), sweep
+
+
+def full_k_sweep(sweep):
+    """``alias_kernel_phase``'s K = 100,000 tables against the plain sweep,
+    on a stream of its own; returns ``check_tables``' (plain ms, error)."""
+    with torch.cuda.stream(torch.cuda.Stream()):
+        args = [sweep[k].cuda() for k in ("pk", "ak", "weights", "scale")]
+        out = check_tables(*args, sweep["label"])
+    del args
+    torch.cuda.empty_cache()
+    return out
+
+
+class Beside(threading.Thread):
+    """``fn(*args)`` on a thread beside the phase that the caller runs;
+    ``result()`` joins it and returns its value or raises its error."""
+
+    def __init__(self, fn, *args):
+        super().__init__(daemon=True)
+        self.fn, self.args, self.value, self.error = fn, args, None, None
+        self.start()
+
+    def run(self):
+        try:
+            self.value = self.fn(*self.args)
+        except BaseException as exc:  # noqa: BLE001 (re-raised by result)
+            self.error = exc
+
+    def result(self):
+        self.join()
+        if self.error is not None:
+            raise self.error
+        return self.value
 
 
 # --------------------------------------------------------------- alias phase
@@ -1239,7 +1284,8 @@ def ring_form(cfg):
 # 10⁵; Table 1's package sweep on FULL's shard at K = 10⁵
 QUALITY = dict(ks=(1024, 10_000, 100_000), epochs=25, block=8192, n_impr=8000, steps=400,
                pmi_k=1024, cpu_steps=3, guard_tiles=10, guard_ks=(10_000, 100_000),
-               guard_sweeps=25, clean_ks=(8,), sweep_most=(2_500, 5_000, 10_000),
+               guard_sweeps=25, clean_ks=(8,), clean_timeout_s=600,
+               sweep_most=(2_500, 5_000, 10_000),
                sweep_epochs=2)
 
 
@@ -1478,27 +1524,47 @@ def pipeline_sweep(corpus):
     return sweep
 
 
+def clean_rows(K, device):
+    """``run()``'s clean corpus through Fig. 7 and Fig. 8 at ``K`` on
+    ``device``: [(row name, value)]."""
+    from repro_torch.benchmarks import bench_quality as bq
+    from repro_torch.data import synthetic
+    corpus, truth = synthetic.lda_corpus(seed=0, n_docs=3000, n_topics=bq.TRUE_K,
+                                         vocab_size=bq.VOCAB, doc_len_mean=10)
+    return ([(f"fig7_map.K{k}", float(v)) for k, v in
+             bq.fig7_map(corpus, truth, ks=(K,), device=device)]
+            + [(f"fig8_auc.{n}", float(v)) for n, v in
+               bq.fig8_auc(corpus, truth, ks=(K,), device=device)])
+
+
 def quality_clean_check():
     """``run()``'s clean corpus (3,000 docs, 48 true topics, V = 800):
     Fig. 7 and Fig. 8 at each K of ``QUALITY["clean_ks"]`` (K = 8: the check
     on its path once, at the width ``run()`` starts from) on the card equal
-    the CPU port's within 1e-4 from one z0. Every card draw is held against
-    its plain version; a K row whose training drew on a near-tie may part,
-    and is reported."""
-    from repro_torch.benchmarks import bench_quality as bq
-    from repro_torch.data import synthetic
+    the CPU port's within 1e-4 from one z0 (the CPU rows drawn meanwhile in
+    a process of their own). Every card draw is held against its plain
+    version; a K row whose training drew on a near-tie may part, and is
+    reported."""
     from repro_torch.kernels.gibbs import ops
-    corpus, truth = synthetic.lda_corpus(seed=0, n_docs=3000, n_topics=bq.TRUE_K,
-                                         vocab_size=bq.VOCAB, doc_len_mean=10)
     t0 = time.perf_counter()
     for K in QUALITY["clean_ks"]:
-        run = lambda dev: ([(f"fig7_map.K{k}", v) for k, v in
-                            bq.fig7_map(corpus, truth, ks=(K,), device=dev)]
-                           + [(f"fig8_auc.{n}", v) for n, v in
-                              bq.fig8_auc(corpus, truth, ks=(K,), device=dev)])
-        with held(ops, "gibbs_argmax", gibbs_check("cuda", f"clean K={K}")) as seen:
-            card = run("cuda")
-        cpu = run("cpu")
+        # the CPU rows in a process of their own while the card's are drawn
+        proc = subprocess.Popen([sys.executable, "-c", f"import json, chip_smoke; "
+                                 f"print(json.dumps(chip_smoke.clean_rows({K}, 'cpu')))"],
+                                cwd=ROOT, env=dict(src_env(), CUDA_VISIBLE_DEVICES=""),
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            with held(ops, "gibbs_argmax", gibbs_check("cuda", f"clean K={K}")) as seen:
+                card = clean_rows(K, "cuda")
+            out, err = proc.communicate(timeout=QUALITY["clean_timeout_s"])
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if proc.returncode:
+            raise AssertionError(f"clean K={K}: the CPU rows' process exited {proc.returncode}:"
+                                 f"\n{err[-3000:]}")
+        cpu = [tuple(r) for r in json.loads(out.splitlines()[-1])]
         ties = sum(c["mismatches"] for c in seen)
         for (name, a), (name_c, b) in zip(card, cpu):
             unit(a, name)
@@ -3606,10 +3672,9 @@ def dryrun_phase(dlrm_step_ms):
 # the launch gate on this card, right after the kernel phases: the built
 # kernels' own registers, shared memory and spills (every instantiation their
 # launches can reach) with the plans at the shapes this run launches; then the
-# three launchers' gates, each launcher's main called in this process (its
-# torch and its built kernels already loaded), one after the other
-# the gates run in a process of their own (``start_preflight_gates``) while the
-# card runs the kernel phases; timeout_s bounds the wait for it
+# three launchers' gates, each launcher's main called in one process of their
+# own (``start_preflight_gates``), one after the other, while the card runs
+# the dry run; timeout_s bounds the wait for it
 PREFLIGHT = dict(budget_s=30, timeout_s=600,
                  gates={"launch.train --preflight": ("train", ["--preflight"], 0),
                         "launch.serve --preflight": ("serve", ["--preflight"], 0),
@@ -3676,7 +3741,7 @@ def preflight_gates():
     on a 430 GB-a-rank session (exit 1), each ``repro_torch.launch.<name>
     .main`` called here with its report captured; each gate's seconds and
     their sum against the budget. ``start_preflight_gates`` runs it in a
-    process of its own beside the kernel phases."""
+    process of its own beside the dry run."""
     import contextlib
     import importlib
     import io
@@ -3704,7 +3769,7 @@ def preflight_gates():
 def start_preflight_gates():
     """``preflight_gates`` in a process of its own at the lowest CPU
     priority: its gates run on the host (gloo CPU ranks, the analyzers), so
-    they take the cores the kernel phases leave idle. Returns the process;
+    they take the cores the dry run leaves idle. Returns the process;
     ``finish_preflight_gates`` prints its lines and raises if it failed."""
     src = os.path.join(ROOT, "src")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -3789,8 +3854,10 @@ def examples_phase():
 # RT-LDA serving through the port's engine and fleet at peacock-lda's width
 # (FULL's K and V): the model is launch.serve's own (quick_train: the dense
 # sampler, so gibbs_argmax, then build_model), the swap target the model of
-# Φ + 1, built in place so no second Φ exists
-SERVE = dict(buckets=(8, 16, 32, 64), batch=256, n_trials=2, train_iters=25, per_bucket=24,
+# Φ + 1, built in place so no second Φ exists; quick_train runs 5 of
+# launch.serve's 25 iterations (depth: six models are built, and the served
+# batch's time does not depend on how far Φ was trained)
+SERVE = dict(buckets=(8, 16, 32, 64), batch=256, n_trials=2, train_iters=5, per_bucket=24,
              over_long=6, swap_rows=16, profile_rows=(1, 256), profile_reps=5,
              duration=3, deadline_ms=50, burst=4096, cache_mb=64, zipf_pool=512, replicas=2)
 # launch.serve's open-loop runs: name → (offered queries/s, fleet flags); the
@@ -4311,14 +4378,15 @@ def serve_chaos_phase():
 # [ring]: FULL's shard on a 4×1 ring, 3 dense epochs in each ring form, 3 alias
 # epochs after one table build; [word-sharded]: 2×2 (P = 2) against 2×1, 2
 # epochs each sampler; [ring card vs cpu]: SMALL's corpus on a 2×2 ring; [pods]:
-# 2 pods × a 2×1 ring at V = 16,384 (reduced: two Φ replicas, their refs and
-# four ranks' planes must fit one card), 6 epochs, a merge every 3: exact and
-# compressed at the first boundary, elastic with pod 1 dead and restarted from
-# its own checkpoint at the second.
+# 2 pods × a 2×1 ring at V = 4,096 (reduced: two Φ replicas, their refs and
+# four ranks' planes must fit one card, and pod 1's checkpoint of its whole Φ
+# is written and read back within the run's time limit), 6 epochs, a merge
+# every 3: exact and compressed at the first boundary, elastic with pod 1 dead
+# and restarted from its own checkpoint at the second.
 RING = dict(data=4, epochs=3, alias_epochs=3, reps=10)
 WSHARD = dict(data=2, model=2, epochs=2)
 RING_SMALL = dict(data=2, model=2, epochs=4)
-PODS = dict(pods=2, data=2, vocab=16_384, epochs=6, agg_every=3)
+PODS = dict(pods=2, data=2, vocab=4_096, epochs=6, agg_every=3)
 LAUNCH_RANKS = dict(epochs=6, agg_every=2, kill_at=3, ckpt_every=3, sharded_ckpt_every=4)
 SEED0 = 11
 
@@ -4349,11 +4417,28 @@ def read_counts():
                 mh_resample=alias_ops.mh_launches)
 
 
+SHA_CHUNK = 64 << 20         # bytes of a tensor hashed as one piece by ``sha``
+
+
 def sha(t):
-    """SHA-256 of a tensor's bytes: equal digests are equal bits."""
+    """A tensor's digest: SHA-256 over the SHA-256 of each block of whole
+    rows (its last dimension) of about ``SHA_CHUNK`` bytes, in order; for
+    tensors of one row width, equal digests are equal bits, as with one
+    SHA-256 of the whole. The blocks come off the card one after another and
+    are hashed on 4 threads while the next one copies (hashlib lets go of
+    the GIL): a rank's Φ slice is gigabytes."""
     import hashlib
-    a = np.ascontiguousarray(t.detach().cpu().numpy())
-    return hashlib.sha256(a.view(np.uint8).reshape(-1)).hexdigest()
+    from concurrent.futures import ThreadPoolExecutor
+    t = t.detach()
+    if t.numel() == 0:
+        return hashlib.sha256(b"").hexdigest()
+    rows = t.reshape(1, -1) if t.dim() < 2 else t.reshape(-1, t.shape[-1])
+    step = max(1, SHA_CHUNK // max(1, rows[:1].numel() * rows.element_size()))
+    digest = lambda a: hashlib.sha256(a.view(np.uint8).reshape(-1)).digest()
+    with ThreadPoolExecutor(4) as pool:
+        parts = [pool.submit(digest, np.ascontiguousarray(rows[i:i + step].cpu().numpy()))
+                 for i in range(0, rows.shape[0], step)]
+        return hashlib.sha256(b"".join(f.result() for f in parts)).hexdigest()
 
 
 def ring_config(sc, K, V, M, sampler, P=1, doc_cap=0, **knobs):
@@ -4975,7 +5060,8 @@ def launch_ranks_phase():
     rank by rank and publish the same model; then a ``--sharded-model``
     (P = 2) run that checkpoints at epoch 4, and that checkpoint resumed at
     P = 1 (resharded): its model (Φ by word, Ψ, z by token) must equal the
-    P = 2 run's final one."""
+    P = 2 run's final one. The three chains (uninterrupted; killed, then
+    resumed; P = 2, then P = 1) are worlds of their own and start together."""
     import shutil
     from repro_torch.checkpoint import snapshots
     from repro_torch.launch import train
@@ -5008,9 +5094,19 @@ def launch_ranks_phase():
     counts = lambda results: _sum_counts(results, lambda r: r["launches"])
     pods = ("--pods", "2", "--data-shards", "2", "--ranks-per-device", "4")
     snap = {k: os.path.join(root, f"snap-{k}") for k in ("gold", "resumed")}
-    gold, _, t_gold = run("gold", *pods, "--publish-dir", snap["gold"])
-    _, code, t_kill = run("killed", *pods, "--kill-at", str(S["kill_at"]))
-    res, _, t_res = run("killed", *pods, "--resume", "--publish-dir", snap["resumed"])
+    every = S["sharded_ckpt_every"]
+    chains = [Beside(run, "gold", *pods, "--publish-dir", snap["gold"]),
+              Beside(lambda: (run("killed", *pods, "--kill-at", str(S["kill_at"])),
+                              run("killed", *pods, "--resume", "--publish-dir",
+                                  snap["resumed"]))),
+              Beside(lambda: (run("sharded", "--data-shards", "2", "--model-shards", "2",
+                                  "--sharded-model", "--ranks-per-device", "4", every=every),
+                              run("sharded", "--data-shards", "2", "--ranks-per-device", "2",
+                                  "--resume", every=every)))]
+    for c in chains:                    # every world ends before a failure is raised
+        c.join()
+    (gold, _, t_gold), ((_, code, t_kill), (res, _, t_res)), \
+        ((p2, _, t_p2), (p1, _, t_p1)) = [c.result() for c in chains]
     n = dict(uninterrupted=counts(gold), resumed=counts(res))
     want = dict(uninterrupted=4 * S["epochs"] * 2, resumed=4 * (S["epochs"] - S["kill_at"]) * 2)
     if code != 17 or any(n[k]["gibbs_argmax"] != want[k] for k in want):
@@ -5025,11 +5121,6 @@ def launch_ranks_phase():
         f"every rank's state and α equal the uninterrupted run's bit for bit, both published "
         f"v_{models['gold'][1]['version']:06d} models equal; launches {n}; seconds "
         f"uninterrupted {t_gold:.1f}, killed {t_kill:.1f}, resumed {t_res:.1f}")
-    every = S["sharded_ckpt_every"]
-    p2, _, t_p2 = run("sharded", "--data-shards", "2", "--model-shards", "2", "--sharded-model",
-                      "--ranks-per-device", "4", every=every)
-    p1, _, t_p1 = run("sharded", "--data-shards", "2", "--ranks-per-device", "2", "--resume",
-                      every=every)
     got = {P: launch_small_model(res, P) for P, res in ((2, p2), (1, p1))}
     for i, name in enumerate(("phi by word", "psi", "z by token")):
         if not np.array_equal(got[2][i], got[1][i]):
@@ -6237,6 +6328,143 @@ def lm_ranks_report(res, card, launches):
             f"{[round(x['peak'], 2) for x in reps]}; {secs[key]:.1f} s; card {card}")
 
 
+# [lda-serve-ranks]: peacock-lda's serve_rt across stream_world's 4 ranks at
+# K = 100,000 (not cut) and V = 32,768 (cut from 210,000, as every LDA cell:
+# rank 0's one-rank reference holds the whole 13.1 GB P̂), B = 1,024 queries
+# of 1-8 tokens, 2 trials × 5 hill steps, seed 17 (JAX's cell); P̂ and the R
+# cache row-sharded over the ring of 4 (a rank's quarter is the same at
+# (1, 1, 4) and at (1, 2, 2)), pkd's columns split over "model"
+LDA_SERVE = dict(seed=29, meshes=((1, 1, 4), (1, 2, 2)), steps=3)
+
+
+def timed_step(layout, fn, *args):
+    """(``fn(*args)``, host ms to a synchronize, its collectives' ms), the
+    ranks of ``layout`` meeting first (``layout`` None: one rank)."""
+    if layout is None:
+        torch.cuda.synchronize()
+    else:
+        sync_ranks(layout)
+    t0 = time.perf_counter()
+    with CollectiveClock() as clock:
+        out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, clock.ms
+
+
+def lda_serve_ranks(layout):
+    """[lda-serve-ranks] on this rank of stream_world's 4: the global
+    arguments drawn by ``serve_cell``'s ``make_args`` on one rank after
+    another (rank 0 first: its one-rank steps on them, timed, are the
+    reference; each rank keeps its quarter of P̂ and the R cache, 3.3 GB,
+    and lets go of the rest), then at each mesh of ``LDA_SERVE`` one step
+    counted (``count_collectives``) and ``LDA_SERVE["steps"]`` timed with
+    the collectives' clock; every rank's pkd columns, gathered over "world",
+    against the reference bit for bit on rank 0."""
+    from repro_torch.configs import peacock_lda as pl
+    from repro_torch.dist import analysis, collectives as coll, sharding as shd
+    from repro_torch.launch import mesh
+    V, K, n = FULL["vocab"], FULL["n_topics"], LDA_SERVE["steps"]
+    lays = [mesh.relayout(layout, *shape) for shape in LDA_SERVE["meshes"]]
+    if len({shd.flat_ring_index(lay) for lay in lays}) != 1:
+        raise AssertionError("[lda-serve-ranks] the meshes give this rank other ring blocks")
+    one = pl.serve_cell(V, K)
+    free_card()
+    sync_ranks(layout)
+    t0 = time.perf_counter()
+    ref, one_ms, local = None, [], None
+    for r in range(layout.world_size):
+        if layout.rank == r:
+            t1 = time.perf_counter()
+            g = torch.Generator(device="cuda").manual_seed(LDA_SERVE["seed"])
+            args = one.make_args(g, "cuda")
+            torch.cuda.synchronize()
+            own_draw_s = time.perf_counter() - t1
+            if r == 0:
+                for _ in range(n):
+                    pkd, ms, _ = timed_step(None, one.fn, *args)
+                    if ref is not None and not torch.equal(pkd, ref):
+                        raise AssertionError("[lda-serve-ranks] two one-rank steps differ")
+                    ref, one_ms = pkd, one_ms + [ms]
+            local = rank_views(args, one.arg_specs, lays[0])
+            del args
+            free_card()
+        sync_ranks(layout)
+    out = dict(draw_s=time.perf_counter() - t0, own_draw_s=own_draw_s, one_ms=one_ms,
+               meshes={})
+    if ref is not None:
+        sums = ref.double().sum(dim=1)
+        if tuple(ref.shape) != (1024, K) or not bool(torch.isfinite(ref).all()) or \
+                float((sums - 1).abs().max()) > 1e-4:
+            raise AssertionError(f"[lda-serve-ranks] the one-rank pkd: shape {tuple(ref.shape)}, "
+                                 f"row sums {float(sums.min())} … {float(sums.max())}")
+        out["queries"] = int((local[4] >= 0).sum())
+    for lay in lays:
+        cell = pl.serve_cell(V, K, lay)
+        free_card()
+        sync_ranks(layout)
+        cost, first = analysis.count_collectives(cell.fn, *local)
+        times, coll_ms = [], []
+        for _ in range(n):
+            pkd, ms, c_ms = timed_step(layout, cell.fn, *local)
+            times.append(ms)
+            coll_ms.append(c_ms)
+        peak = peak_gib()
+        if not torch.equal(pkd, first):
+            raise AssertionError(f"[lda-serve-ranks] {lay.shape}: rank {layout.rank}'s steps "
+                                 "differ")
+        parts = coll.all_gather(pkd, lay, "world")
+        if layout.rank == 0:
+            for r in range(layout.world_size):
+                lo, hi = shd.row_slice(K, lay.at(r), "model")
+                if not torch.equal(parts[r], ref[:, lo:hi]):
+                    err = float((parts[r] - ref[:, lo:hi]).abs().max())
+                    raise AssertionError(f"[lda-serve-ranks] {lay.shape}: rank {r}'s pkd columns "
+                                         f"[{lo}, {hi}) differ from the one-rank step's (max "
+                                         f"|Δ| {err:.3g})")
+        out["meshes"][lay.shape] = dict(
+            step_ms=float(np.median(times)), coll_ms=float(np.median(coll_ms)), times=times,
+            coll_calls=cost.collectives, coll_bytes=cost.collective_bytes,
+            model_coll_bytes=cell.model_coll_bytes, peak=peak, columns=tuple(pkd.shape))
+        del parts, pkd, first
+    del local, ref
+    free_card()
+    return out
+
+
+def lda_serve_report(res, card):
+    """Check and print [lda-serve-ranks]: each mesh's step, its collectives
+    against the port's formula (JAX's ``model_coll_bytes`` and the two
+    [B, Ld] reads of the R topics and of P̂ at them)."""
+    B, Ld = 1024, 8
+    rs = [r["lda_serve"] for r in res]
+    r0 = rs[0]
+    log(f"[lda-serve-ranks] peacock-lda serve_rt: K = {FULL['n_topics']:,}, V = "
+        f"{FULL['vocab']:,} (reduced: V, from 210,000), B = {B:,} queries ({r0['queries']:,} "
+        f"tokens of 1-{Ld} a query, −1 padded), 2 trials × 5 hill steps; the arguments drawn "
+        f"on each rank in turn, a quarter of P̂ kept ({max(r['draw_s'] for r in rs):.1f} s with "
+        f"rank 0's one-rank steps; a rank's draw {[round(r['own_draw_s'], 2) for r in rs]} s); "
+        f"one-rank step {float(np.median(r0['one_ms'])):.2f} ms "
+        f"(median of {len(r0['one_ms'])}: {[round(x, 2) for x in r0['one_ms']]}); card {card}")
+    for shape in LDA_SERVE["meshes"]:
+        ms = [r["meshes"][shape] for r in rs]
+        m0 = ms[0]
+        want = m0["model_coll_bytes"] + 8.0 * B * Ld
+        for i, m in enumerate(ms):
+            if m["coll_calls"] != {"psum": 12.0} or m["coll_bytes"] != {"psum": want}:
+                raise AssertionError(f"[lda-serve-ranks] {shape}: rank {i}'s collectives "
+                                     f"{m['coll_calls']} {m['coll_bytes']}, expected 12 sums of "
+                                     f"{want:,.0f} bytes")
+        log(f"[lda-serve-ranks] {shape}: P̂ and the R cache row-sharded over the ring of 4, "
+            f"pkd {m0['columns']} a rank: step {m0['step_ms']:.2f} ms (median of "
+            f"{len(m0['times'])}, rank 0; ranks {[round(m['step_ms'], 2) for m in ms]}), its "
+            f"collectives {m0['coll_ms']:.2f} ms ({m0['coll_ms'] / m0['step_ms']:.0%}; ranks "
+            f"{[round(m['coll_ms'], 2) for m in ms]}): 12 sums over 'ring', "
+            f"{want:,.0f} bytes a rank (JAX's model_coll_bytes {m0['model_coll_bytes']:,.0f} + "
+            f"the two [B, Ld] reads {8 * B * Ld:,}); every rank's pkd columns equal the one-rank "
+            f"step's bit for bit; peak GiB a rank {[round(m['peak'], 2) for m in ms]}; card "
+            f"{card}")
+
+
 def card_collectives_rank(layout):
     """[coll-card] On this rank of 4 that share the card: the collectives
     through workspaces on the card against gloo through host memory (the
@@ -6318,7 +6546,8 @@ def stream_world(layout, dirs, L, small):
     on/off, alias), word-sharded 2×2 against 2×1 (pod 0 of a 2 × 2×1 mesh),
     SMALL's streamed 2×2 ring card vs CPU, then [lookup_sharded] and
     [recsys-ranks] dlrm-mlperf at (1, 1, 4), [recsys-ranks] xdeepfm, din and
-    autoint and [gnn-ranks] graphsage-reddit at (1, 2, 2), [lm-ranks]."""
+    autoint and [gnn-ranks] graphsage-reddit at (1, 2, 2), [lm-ranks],
+    [lda-serve-ranks]."""
     from repro_torch.launch import mesh
     t, out = {}, {}
     t0 = time.perf_counter()
@@ -6361,6 +6590,10 @@ def stream_world(layout, dirs, L, small):
     t0 = time.perf_counter()
     out["lm"] = lm_ranks(layout)
     t["lm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["lda_serve"] = lda_serve_ranks(layout)
+    t["lda_serve"] = time.perf_counter() - t0
+    rank0_log(layout, f"[lda-serve-ranks] done in {t['lda_serve']:.1f} s")
     out["seconds"] = t
     return out
 
@@ -6513,6 +6746,7 @@ def stream_ranks_report(res, T, caps, L, card):
     card_coll_report(res, card)
     recsys_gnn_report(res, card, launches)
     lm_ranks_report(res, card, launches)
+    lda_serve_report(res, card)
     return launches
 
 
@@ -6614,7 +6848,7 @@ def stream_launch_ranks_phase():
     after segment 1 of epoch 2 (exit 17) and resumed with rank 1's first
     read of segment 0 failing (retried on rank 1). The resumed run must
     equal the uninterrupted one (every rank's views, α and the global z) bit
-    for bit."""
+    for bit. The uninterrupted world and the killed one start together."""
     import shutil
     from repro_torch.data import sources
     from repro_torch.launch import mesh, train
@@ -6657,13 +6891,21 @@ def stream_launch_ranks_phase():
         doc_len_mean=cfg.doc_len_mean, gen_seed=cfg.seed, n_segments=S["segments"],
         n_data_shards=4, n_vocab_shards=4, n_topics=cfg.n_topics, seed=cfg.shard_seed), d)
     secs = {}
-    gold, _, secs["uninterrupted"] = run("gold", *seg)
-    _, code_dir, secs["killed --corpus-dir"] = run("dir", "--corpus-dir", d, *kill)
-    t0 = time.perf_counter()
-    faulted = mesh.spawn(stream_launch_fault_main, data=2, model=2, device="cuda",
+
+    def killed_then_resumed():
+        _, code, secs["killed --corpus-dir"] = run("dir", "--corpus-dir", d, *kill)
+        t0 = time.perf_counter()
+        out = mesh.spawn(stream_launch_fault_main, data=2, model=2, device="cuda",
                          ranks_per_device=4, backend="gloo",
                          args=(argv("dir", "--corpus-dir", d, "--resume"),))
-    secs["resumed --corpus-dir, fault"] = time.perf_counter() - t0
+        secs["resumed --corpus-dir, fault"] = time.perf_counter() - t0
+        return code, out
+
+    # the uninterrupted world and the killed one start together
+    chains = [Beside(run, "gold", *seg), Beside(killed_then_resumed)]
+    for c in chains:                    # every world ends before a failure is raised
+        c.join()
+    (gold, _, secs["uninterrupted"]), (code_dir, faulted) = [c.result() for c in chains]
     n = dict(uninterrupted=counts(gold), resumed_corpus_dir_fault=counts(faulted))
     n_seg, per = S["segments"], 4 * 4                   # 4 ranks × 4 rounds a segment
     done = (S["kill_at"] - 1) * n_seg + S["kill_at_segment"]
@@ -6713,19 +6955,11 @@ def main():
         log(f"[time] {label}: {now - since[0]:.1f} s")
         since[0] = now
 
-    gates = start_preflight_gates()
-    try:
-        kernel = kernel_phase()
-        alias_build, mh_small_err = alias_kernel_phase()
-        bag_small_err = bag_kernel_phase()
-        mark("kernel phases")
-        preflight_phase()
-    except BaseException:
-        gates.kill()
-        gates.wait()
-        raise
-    finish_preflight_gates(gates)
-    mark("preflight (the gates beside the kernel phases)")
+    kernel = kernel_phase()
+    alias_build, mh_small_err, sweep = alias_kernel_phase()
+    bag_small_err = bag_kernel_phase()
+    mark("kernel phases (the full-K alias sweep waits)")
+    preflight_phase()
     corpus, truth = full_corpus(with_truth=True)
     launches, gibbs_epoch_stats = full_width_phase(corpus)
     alias_launches, mh, cell_build = alias_phase(corpus)
@@ -6753,15 +6987,25 @@ def main():
     torch.cuda.empty_cache()
     ranks = ranks_phase(corpus)
     mark("ranks (ring, word-sharded, card vs cpu, pods)")
-    ranks_small = launch_ranks_phase()
-    mark("launch.train multi-rank")
+    # launch.train's ranks (SMALL's geometry) leave the card nearly idle: the
+    # full-K alias sweep runs beside both phases on a thread of this process
+    beside = Beside(full_k_sweep, sweep)
+    try:
+        ranks_small = launch_ranks_phase()
+        mark("launch.train multi-rank (the full-K alias sweep beside it)")
+        stream_launch = stream_launch_ranks_phase()
+        mark("launch.train streamed ranks (the full-K alias sweep beside it)")
+    finally:
+        beside.join()
+    plain_ms, sweep_err = beside.result()
+    del sweep
+    alias_build.update(plain_ms=plain_ms, max_abs_err=max(alias_build["max_abs_err"], sweep_err))
+    mark("the full-K alias sweep (the wait after the launch.train phases)")
     gc.collect()
     torch.cuda.empty_cache()
     stream_ranks = stream_ranks_phase(corpus)
     mark("stream ranks (4x1, word-sharded, card vs cpu, lookup_sharded, recsys and GNN "
          "across ranks)")
-    stream_launch = stream_launch_ranks_phase()
-    mark("launch.train streamed ranks")
     # `launches` is each kernel's count on its first path (gibbs_epoch, the
     # alias cell), as in earlier runs; launches_by_path gives every path
     small = lambda sampler, k: {r: c[k] for r, c in small_launches[sampler].items()}
@@ -6811,8 +7055,18 @@ def main():
     mark("gnn")
     lm = lm_phase()
     mark("lm")
-    dry_launches, dry_by_family = dryrun_phase(train["dlrm-mlperf"]["step_ms"])
-    mark("dryrun")
+    # the gates run on the host (at the lowest priority) beside the dry run,
+    # whose work is on the card
+    gates = start_preflight_gates()
+    try:
+        dry_launches, dry_by_family = dryrun_phase(train["dlrm-mlperf"]["step_ms"])
+        mark("dryrun (the preflight gates beside it)")
+    except BaseException:
+        gates.kill()
+        gates.wait()
+        raise
+    finish_preflight_gates(gates)
+    mark("preflight gates (the wait after the dry run)")
     example_launches = examples_phase()
     mark("examples")
     recsys_small_phase()

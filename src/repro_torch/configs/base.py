@@ -32,8 +32,8 @@ over "data" and tensor parallel over "model" (``models.transformer``'s
 ``layout=``): the train step takes JAX's microbatches of the global batch
 (n_micro = B / (dp · micro_per_device)), the replicated leaves' gradients
 summed over "dp" and AdamW clipped by the global norm; the serving steps
-read a sequence-sharded KV cache. Only peacock-lda's ``serve_rt`` still
-raises across ranks (``one_rank_only``, ROADMAP item 13i). An LM train
+read a sequence-sharded KV cache; peacock-lda's ``serve_rt`` reads P̂
+row-sharded over the ring (``core/rtlda.py``'s ``layout=``). An LM train
 cell at one rank carries ``one_rank_cut``: the same step on one microbatch,
 which the dry run's one-rank record runs (the global batch is 128
 microbatches there).
@@ -137,20 +137,6 @@ def _params(cfg, generator, dev) -> Dict[str, torch.Tensor]:
         return {k: torch.empty(s, dtype=_param_dtype(k), device=dev)
                 for k, s in sorted(cfg.param_shapes().items())}
     return rec_mod.init_params(cfg, generator, dev, torch.bfloat16)
-
-
-def one_rank_only(fn: Callable, layout, what: str) -> Callable:
-    """``fn`` itself at one rank; across ranks a step that raises when called,
-    saying that ``what`` is not ported (the cell is still built: the dry run
-    records its specs and formulas)."""
-    if layout is None or layout.world_size == 1:
-        return fn
-
-    def refused(*args, **kwargs):
-        raise NotImplementedError(
-            f"{what} across {layout.world_size} ranks is not ported; build the cell "
-            "with a RankLayout of one rank or None")
-    return refused
 
 
 def all_reduce_grads_(grads: Dict[str, torch.Tensor], layout, name: str) -> None:

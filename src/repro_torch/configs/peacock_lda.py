@@ -12,11 +12,13 @@ Cells, each built for one rank of a ``RankLayout`` (``spec().cell``):
   train_segment_opt — the same with int8 Θ, column-scatter ¬ivd and Θ only
                       for the sampled docs;
   serve_rt          — RT-LDA batched query inference (Eq. 4) against the
-                      full K = 10⁵ model.
+                      full K = 10⁵ model: P̂ and the R cache row-sharded
+                      over each pod's ring, pkd's columns over "model".
 A layout with pods > 1 gives the pod-batched epoch (``core/hierarchy``).
-``train_cell`` builds a train cell from any ``RingConfig``, so the same step
-runs at a small ring while the production cell is recorded: at V = 210,000
-the Φ of a ring of one is 84 GB and fits no card.
+``train_cell`` builds a train cell from any ``RingConfig`` and
+``serve_cell`` a serving cell at any vocabulary and K, so the same steps run
+at a small ring or a cut V while the production cells are recorded: at
+V = 210,000 the Φ of a ring of one, and P̂, are 84 GB and fit no card.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import math
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ArchSpec, Cell, one_rank_only
+from repro_torch.configs.base import ArchSpec, Cell
 from repro_torch.core import distributed as dist
 from repro_torch.core import rtlda
 from repro_torch.dist import analysis
@@ -152,39 +154,67 @@ def _train_cell(layout, optimized: bool = False) -> Cell:
                       shape="train_segment_opt" if optimized else "train_segment")
 
 
-def _serve_cell(layout) -> Cell:
-    info = LDA_SHAPES["serve_rt"]
-    B, Ld = info["batch"], info["query_len"]
+def _serve_args(vocab: int, n_topics: int, batch: int, query_len: int, generator, device):
+    """Global arguments (pvk, alpha, r_topic, r_value, word_ids) of a
+    serving cell: V padded to a multiple of 512 (JAX's divisibility pad). On
+    ``meta``: empty stand-ins. Else a serving model built
+    (``rtlda.build_model``, β and α₀ of ``TRAIN_DEFAULTS``) from the counts
+    of a synthetic corpus of max(batch, vocab) documents of 1 … query_len
+    tokens, each document's tokens on one topic drawn uniformly, words
+    uniform over the vocabulary; the queries are its first ``batch``
+    documents, −1 padded to ``query_len``."""
+    dev = resolve_device(device)
+    vpad = shd.round_up(vocab, 512)
+    if dev.type == "meta":
+        e = lambda shape, dt=torch.float32: torch.empty(shape, dtype=dt, device=dev)
+        return (e((vpad, n_topics)), e((n_topics,)), e((vpad,), torch.int32), e((vpad,)),
+                e((batch, query_len), torch.int32))
+    n_docs = max(batch, vocab)
+    draw = lambda hi, shape: torch.randint(0, hi, shape, generator=generator, device=dev,
+                                           dtype=torch.int64)
+    lengths = draw(query_len, (n_docs,)) + 1
+    topics = draw(n_topics, (n_docs, 1)).expand(n_docs, query_len)
+    words = draw(vocab, (n_docs, query_len))
+    slot = torch.arange(query_len, device=dev)[None, :] < lengths[:, None]
+    phi = torch.zeros((vpad, n_topics), dtype=torch.int32, device=dev)
+    phi.index_put_((words[slot], topics[slot]), torch.ones((), dtype=torch.int32, device=dev),
+                   accumulate=True)
+    alpha = torch.full((n_topics,), TRAIN_DEFAULTS["alpha0"] / n_topics, device=dev)
+    model = rtlda.build_model(phi, torch.tensor(TRAIN_DEFAULTS["beta"]), alpha, dev)
+    del phi
+    queries = torch.where(slot, words, -1)[:batch].to(torch.int32)
+    return model.pvk, model.alpha, model.r_topic, model.r_value, queries
+
+
+def serve_cell(vocab: int, n_topics: int, layout=None, batch: int = 1024,
+               query_len: int = 8) -> Cell:
+    """The RT-LDA serving cell (JAX's ``_serve_cell``: seed 17, 2 trials × 5
+    hill steps) at ``vocab`` words and ``n_topics`` topics, for one rank of
+    ``layout`` (None: one rank). Its arguments are global, P̂ and the R cache
+    row-sharded over the ring by ``arg_specs``; the step returns the rank's
+    [batch, n_topics / model] columns of pkd (JAX's ``P(None, "model")``)."""
+    B, Ld = batch, query_len
 
     def serve(pvk, alpha, r_topic, r_value, word_ids):
         model = rtlda.RTLDAModel(pvk=pvk, alpha=alpha, r_topic=r_topic, r_value=r_value)
-        return rtlda.rtlda_infer_batch(model, word_ids, seed=17, n_iters=5, n_trials=2)
+        return rtlda.rtlda_infer_batch(model, word_ids, seed=17, n_iters=5, n_trials=2,
+                                       layout=layout)
 
-    # vocab rows padded so they divide the flattened ring (JAX's jit divisibility)
-    vpad = shd.round_up(VOCAB, 512)
-
-    def make_args(generator=None, device="cuda", params=None):
-        """Meta stand-ins only: P̂ alone is [210,432, 100,000] f32, 84 GB."""
-        dev = resolve_device(device)
-        if dev.type != "meta":
-            raise ValueError("serve_rt's arguments take 84 GB, more than one card: only "
-                             "meta stand-ins are made")
-        e = lambda shape, dt=torch.float32: torch.empty(shape, dtype=dt, device=dev)
-        return (e((vpad, K_TOPICS)), e((K_TOPICS,)), e((vpad,), torch.int32), e((vpad,)),
-                e((B, Ld), torch.int32))
-
-    flops = 2.0 * B * (5 * 2) * Ld * Ld * 8.0
-    fn = one_rank_only(serve, layout, "serve_rt with P̂ row-sharded over the ring (ROADMAP "
-                       "item 13i; the port serves a whole model on each replica, "
-                       "serving/fleet.py)")
     return Cell(
-        arch="peacock-lda", shape="serve_rt", step_kind="lda_serve", fn=fn,
-        make_args=make_args, model_flops=flops,
+        arch="peacock-lda", shape="serve_rt", step_kind="lda_serve", fn=serve,
+        make_args=lambda generator=None, device="cuda", params=None:
+            _serve_args(vocab, n_topics, B, Ld, generator, device),
+        model_flops=2.0 * B * (5 * 2) * Ld * Ld * 8.0,
         model_coll_bytes=5 * 2 * B * Ld * Ld * 4.0,
         note="Eq.4 candidate-set hill climb, 2 trials × 5 iters",
         # word_ids replicated is fine (8k ints); pvk row-sharded over the ring
         arg_specs=(shd.ring_spec(None), (), shd.ring_spec(), shd.ring_spec(), ()),
         arg_roles=("pvk", "alpha", "r_cache", "r_cache", "word_ids"))
+
+
+def _serve_cell(layout) -> Cell:
+    info = LDA_SHAPES["serve_rt"]
+    return serve_cell(VOCAB, K_TOPICS, layout, info["batch"], info["query_len"])
 
 
 def spec() -> ArchSpec:

@@ -10,6 +10,13 @@ The prior part's per-word argmax is precomputed into the 1-nonzero-per-word
 cache **R** (Eq. 3); the data part is nonzero only at the query's own topics,
 giving the two-term max of Eq. 4: O(len(d)) work per token instead of O(K).
 Trial r of a query restarts from a counter-based random init (seed ⊕ r·φ₃₂).
+
+Across ranks (``layout=``, JAX's GSPMD-partitioned ``serve_rt`` cell): P̂
+and the R cache are row-sharded over the pod's flattened ring and every
+point read of them is the rank's masked read summed over "ring"; each
+entry has one owner and the other ranks add +0.0, so the sums, and with
+them z and θ, are the one-rank step's bits. A rank returns its "model"
+block of pkd's columns (JAX's ``P(None, "model")``).
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import prng
 from repro_torch.core.lda import phi_hat
+from repro_torch.dist import collectives as coll, sharding as shd
 
 
 @dataclasses.dataclass
@@ -74,14 +82,39 @@ def _topic_counts(z, weight, n_topics: int) -> torch.Tensor:
     return out
 
 
+def _ring_read(table: torch.Tensor, rows, cols, layout) -> torch.Tensor:
+    """``table[rows, cols]`` (``table[rows]`` where ``cols`` is None) of a
+    table whose rows are row-sharded over the ring when ``layout`` is given:
+    the rank reads the rows of its block (indices moved into it, +0 where
+    another rank owns the row) and the ring sums the reads."""
+    if layout is None:
+        return table[rows] if cols is None else table[rows, cols]
+    n = table.shape[0]
+    local = rows - shd.flat_ring_index(layout) * n
+    own = (local >= 0) & (local < n)
+    local = torch.where(own, local, 0)
+    got = table[local] if cols is None else table[local, cols]
+    return coll.all_reduce_(torch.where(own, got, 0), layout, "ring")
+
+
 def rtlda_infer_batch(model: RTLDAModel, word_ids, seed: int, n_iters: int = 5,
-                      n_trials: int = 1) -> torch.Tensor:
+                      n_trials: int = 1, layout=None) -> torch.Tensor:
     """Infer P(k|d) for a batch of queries [B, Ld] (−1 padded). Returns [B, K] f32.
 
     Vectorized Eq. 4: for each token the candidate topics are the current
     assignments of the query's tokens plus the token's R entry, so the cost
     is O(B · Ld² · iters), independent of K apart from the final [B, K] rows.
+
+    ``layout``: a ``RankLayout`` of several ranks, whose ``model.pvk``,
+    ``r_topic`` and ``r_value`` are the rank's row blocks over the ring
+    (V / ring rows; ``alpha``, ``word_ids`` and ``seed`` replicated). The
+    three point reads (the R topic and P̂ at it once, P̂ at the candidates
+    every hill step) are summed over "ring": 2 + n_trials · n_iters
+    collectives. Returns the rank's [B, K / model] columns of the one-rank
+    result, normalised by the whole row's sum.
     """
+    if layout is not None and layout.world_size == 1:
+        layout = None
     B, Ld = word_ids.shape
     K = model.alpha.shape[0]
     dev = model.pvk.device
@@ -90,8 +123,8 @@ def rtlda_infer_batch(model: RTLDAModel, word_ids, seed: int, n_iters: int = 5,
     vmask = valid.to(torch.float32)
     w = torch.where(valid, word_ids, 0).long()
 
-    r_top = model.r_topic[w].long()                        # [B, Ld]
-    pvk_at_r = model.pvk[w, r_top]                         # [B, Ld]
+    r_top = _ring_read(model.r_topic, w, None, layout).long()          # [B, Ld]
+    pvk_at_r = _ring_read(model.pvk, w, r_top, layout)                 # [B, Ld]
     alpha_r = model.alpha[r_top]
     counters = torch.arange(B * Ld, dtype=torch.int64, device=dev).reshape(B, Ld)
 
@@ -112,7 +145,8 @@ def rtlda_infer_batch(model: RTLDAModel, word_ids, seed: int, n_iters: int = 5,
             # token's R entry — exactly the support of Eq. 4
             same = (z[:, None, :] == z[:, :, None]).to(torch.float32)   # [B, c, j]
             cnt = torch.einsum("bcj,bj->bc", same, vmask)               # Θ at z[b,c]
-            score_tok = model.pvk[w[:, :, None], z[:, None, :]]          # P̂(w_bi|z[b,c])
+            score_tok = _ring_read(model.pvk, w[:, :, None], z[:, None, :],
+                                   layout)                               # P̂(w_bi|z[b,c])
             cand = score_tok * (cnt[:, None, :] - same + model.alpha[z][:, None, :])
             cand = torch.where(valid[:, None, :], cand, -torch.inf)
             best_v = torch.amax(cand, dim=-1)
@@ -129,7 +163,11 @@ def rtlda_infer_batch(model: RTLDAModel, word_ids, seed: int, n_iters: int = 5,
         theta += _topic_counts(z, vmask, K)
 
     pkd = theta / n_trials + model.alpha[None, :]
-    return pkd / pkd.sum(dim=1, keepdim=True)
+    pkd = pkd / pkd.sum(dim=1, keepdim=True)
+    if layout is None:
+        return pkd
+    lo, hi = shd.row_slice(K, layout, "model")
+    return pkd[:, lo:hi].contiguous()
 
 
 def rtlda_infer_dense(model: RTLDAModel, word_ids, n_iters: int = 5) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Rank bodies and the JAX host-mesh runner shared by the port's multi-rank
 tests (``tests/test_torch_ring.py``, ``test_torch_shard_model.py``,
 ``test_torch_pods.py``, ``test_torch_trainer_multipod.py``,
-``test_torch_dryrun.py``, ``test_torch_preflight.py``).
+``test_torch_dryrun.py``, ``test_torch_preflight.py``, the ``*_ranks.py``
+files).
 
 The rank bodies run in processes started by ``repro_torch.launch.mesh.spawn``
 (gloo over CPU processes), so this module imports torch and the port only,
@@ -432,6 +433,29 @@ def lookup_grad_body(layout, table, vocab_sizes, ids, upstream, meshes):
         emb = recsys.lookup_sharded(shard, spec, rows, lay)
         (grad,) = torch.autograd.grad(emb, [shard], up)
         out[tuple(shape)] = (lo, hi, grad.to_dense().numpy())
+    return out
+
+
+# ------------------------------------------------ RT-LDA serving across ranks ---
+
+def rtlda_across_ranks(layout, runs):
+    """Each run of ``runs`` (label → (mesh shape, (vocab, K, B, Ld), global
+    numpy arguments)) on this rank of the world relaid out to that mesh: the
+    serving cell's step (``configs.peacock_lda.serve_cell``) on the rank's
+    views under ``count_cost``; returns label → (its pkd columns,
+    collectives, bytes)."""
+    from repro_torch.configs import peacock_lda
+    from repro_torch.dist import analysis
+    from repro_torch.launch import mesh
+
+    out = {}
+    for label, (shape, (vocab, K, B, Ld), args) in runs.items():
+        lay = layout if tuple(shape) == layout.shape else mesh.relayout(layout, *shape)
+        cell = peacock_lda.serve_cell(vocab, K, lay, B, Ld)
+        local = [views(torch.from_numpy(np.array(a)), s, lay)
+                 for a, s in zip(args, cell.arg_specs)]
+        cost, pkd = analysis.count_cost(cell.fn, *local)
+        out[label] = (pkd.numpy().copy(), cost.collectives, cost.collective_bytes)
     return out
 
 

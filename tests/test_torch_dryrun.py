@@ -448,9 +448,8 @@ def test_one_rank_steps_of_small_gnn_and_lm_cells_on_the_cpu(monkeypatch):
 
 
 def test_cells_across_ranks_refuse_their_step():
-    """Across ranks the recsys, GNN and LM steps run (here, with no world,
-    they stop at their first collective, as LDA's does); serve_rt refuses,
-    naming ROADMAP item 13i."""
+    """Across ranks the recsys, GNN, LM and LDA steps run: here, with no
+    world, each stops at its first collective."""
     from repro_torch.configs import gnn_archs as tga, lm_archs as tla
     lay = RankLayout(1, 16, 16)
     small = RankLayout(1, 2, 2)
@@ -465,8 +464,13 @@ def test_cells_across_ranks_refuse_their_step():
             cell.fn(*views)
     assert tbase.make_lm_arch(tla.small_lm()).cell("train_4k", lay).step_kind == "train"
     R.lm_steps_on_views(small)
-    with pytest.raises(NotImplementedError, match="serve_rt.*13i"):
-        tpl.spec().cell("serve_rt", lay).fn()
+    serve = tpl.spec().cell("serve_rt", lay)
+    serve_small = tpl.serve_cell(512, 64, lay, batch=4)
+    views = [shd.local_view(a, sp, lay) for a, sp in
+             zip(serve_small.make_args(torch.Generator().manual_seed(0), "cpu"),
+                 serve.arg_specs)]
+    with pytest.raises(RuntimeError, match="process groups"):       # no world here
+        serve.fn(*views)
     lda = tpl.spec().cell("train_segment", lay)
     views = [shd.local_view(a, sp, lay) for a, sp in zip(lda.make_args(None, "meta"),
                                                           lda.arg_specs)]
