@@ -14,8 +14,8 @@ Right after the kernel phases, the launch gate ([preflight],
 ``repro_torch.analysis``): every kernel instantiation as built for this card
 (registers, static and dynamic shared bytes, spills, blocks an SM,
 binaryVersion) held to sm_90's limits with the launch plans of this run's
-largest shapes; then, in a process of the smoke's own beside the dry run at
-the lowest CPU priority (the gates run on the host), ``launch.train
+largest shapes; then, in a process of the smoke's own beside the streamed
+world of 4 ranks at the lowest CPU priority (the gates run on the host), ``launch.train
 --preflight``, ``launch.serve --preflight`` and ``launch.dryrun --verify``
 (exit 0) and the train gate on a session of 430 GB a rank (exit 1), each
 launcher's ``main`` called there.
@@ -179,7 +179,19 @@ the cells whose one-rank arguments pass 80 GB (peacock-lda's three, the
 MoE archs' train_4k, every decode_32k, all prefill_32k but smollm-135m's)
 recorded, not run; long_500k skipped with JAX's reason; dlrm's step within
 0.5–2× of the train phase's; the shard table's P = 1 row not fitting 80 GB
-and its P = 2 row fitting. Then the six example twins ([examples],
+and its P = 2 row fitting. In the same run each 16×16 record but
+minicpm-2b's and qwen3-0.6b's train_4k, and peacock-lda's at 2×16×16 too,
+runs its rank step ([dryrun-mesh]): rank 0 of
+the production mesh on this card, the other ranks a mirror world, its views
+drawn at their block shapes (ms, live bytes and fit, counted cost,
+collective bytes by JAX primitive beside ``model_coll_bytes`` ÷ chips,
+launches); the 13h cells (phi3.5-moe's and qwen2-moe's train_4k, every
+decode_32k and prefill_32k) and peacock-lda's three at V = 210,000, K =
+100,000 at both meshes must be ok. One counted rank step of peacock-lda's
+train_segment, qwen2-moe's decode_32k, smollm-135m's train_4k and
+dlrm-mlperf's train_batch runs again with every kernel launch held against
+its plain version. Then the six
+example twins ([examples],
 ``examples/*_torch.py``, in parallel on the card): each must exit 0 after
 its own assertions and launch its path's kernels. A small loop holds the
 four small recsys configs on the card against the CPU.
@@ -3552,7 +3564,26 @@ def lm_phase():
 # batches, minicpm-2b's train_4k); the budget: 87.4–113.5 s in runs with
 # the GNN and LM cells (one timed step for an LM train or prefill cell,
 # three for the rest: 90.1 s), on an H100 80GB HBM3 at 700 W
-DRYRUN = dict(budget_s=120, timeout_s=600,
+LM_ARCHS = ("minicpm-2b", "smollm-135m", "qwen3-0.6b", "phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b")
+# the rank steps: every 16x16 record's but two dense LM train cells' (smollm's
+# shows that path; each took 5–10 s on an H100 80GB HBM3 at 700 W), and peacock-lda's at both
+# meshes (``launch.dryrun --rank-steps``); those that must be ok: the 13h cells at
+# 16x16 and peacock-lda's three at both meshes; one counted step of each
+# cell of ``rank_held`` runs again with every kernel launch held: the LDA
+# ring's gibbs_argmax, an MoE's dispatch and combine (qwen2-moe's decode: its
+# train step's overflow row is a run of ~169,000 items, whose plain version
+# took 598 s on that card), an LM's embedding gradient, a recsys step's bag and gradient
+DRYRUN = dict(budget_s=180, timeout_s=600,
+              rank_steps="16x16,peacock-lda,-minicpm-2b/train_4k,-qwen3-0.6b/train_4k",
+              rank_must_ok=[(a, "train_4k", "16x16")
+                            for a in ("phi3.5-moe-42b-a6.6b", "qwen2-moe-a2.7b")]
+              + [(a, s, "16x16") for a in LM_ARCHS for s in ("decode_32k", "prefill_32k")]
+              + [("peacock-lda", s, m) for s in ("train_segment", "train_segment_opt",
+                                                 "serve_rt") for m in ("16x16", "2x16x16")],
+              rank_held=(("peacock-lda", "train_segment", False),
+                         ("qwen2-moe-a2.7b", "decode_32k", False),
+                         ("smollm-135m", "train_4k", False),
+                         ("dlrm-mlperf", "train_batch", False)),
               must_ok=[("dlrm-mlperf", s) for s in ("train_batch", "serve_p99", "serve_bulk",
                                                     "retrieval_cand")]
               + [(a, "serve_p99") for a in ("xdeepfm", "din", "autoint")]
@@ -3569,17 +3600,22 @@ def src_env():
 
 
 def dryrun_phase(dlrm_step_ms):
-    """``python -m repro_torch.launch.dryrun --all --both-meshes --json``, then
-    ``--shard-table --json``, in subprocesses (the parent holds no table by
-    now). Holds the records to their contract, prints each one-rank step's
-    ms, live GiB, roofline share and bottleneck, and returns the
-    ``embedding_bag`` and ``embedding_bag_bwd`` launches of those steps."""
+    """``python -m repro_torch.launch.dryrun --all --both-meshes --json
+    --rank-steps ...``, then ``--shard-table --json``, in subprocesses (the
+    parent holds no table by now). Holds the records to their contract,
+    prints each one-rank step's ms, live GiB, roofline share and bottleneck
+    and each rank step's (``rank_lines``), holds the kernel launches of one
+    counted rank step of each ``DRYRUN["rank_held"]`` cell
+    (``held_rank_steps``), and returns the ``embedding_bag`` and
+    ``embedding_bag_bwd`` launches of the one-rank steps, by family, and the
+    rank steps' launches and holds."""
     from repro_torch.configs import all_specs
 
     specs = all_specs()
     t0 = time.perf_counter()
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun"]
-    proc = subprocess.run(cmd + ["--all", "--both-meshes", "--json"], capture_output=True,
+    proc = subprocess.run(cmd + ["--all", "--both-meshes", "--json", "--rank-steps",
+                                 DRYRUN["rank_steps"]], capture_output=True,
                           text=True, timeout=DRYRUN["timeout_s"], env=src_env(), cwd=ROOT)
     if proc.returncode:
         raise AssertionError(f"launch.dryrun --all failed (rc={proc.returncode}):\n"
@@ -3665,7 +3701,139 @@ def dryrun_phase(dlrm_step_ms):
         if not by_family.get(fam, {}).get("embedding_bag_bwd"):
             raise AssertionError(f"the {fam} cells' one-rank steps launched no row-gradient "
                                  f"kernel: {by_family}")
-    return launches, by_family
+    rank = rank_lines(recs, specs)
+    rank["held"] = held_rank_steps({(r["arch"], r["shape"], r["mesh"]): r["rank_step"]
+                                    for r in recs if "rank_step" in r})
+    log(f"[dryrun] with the rank steps and their holds: {time.perf_counter() - t0:.1f} s")
+    return launches, by_family, rank
+
+
+def rank_lines(recs, specs):
+    """Each mesh record's rank step held to its contract and printed
+    (``[dryrun-mesh]``): ok, or out of memory where it need not be ok, or
+    not run where ``--rank-steps`` leaves it out; the ``rank_must_ok`` cells
+    ok, peacock-lda's at V = 210,000 and K = 100,000 (its Φ block ⌈V / 256⌉
+    × K int32, the ring's 256 rounds one ``gibbs_argmax`` launch each).
+    Returns the rank steps' launches by kernel and by family, and the
+    seconds they took."""
+    from repro_torch.configs import peacock_lda as pl
+    from repro_torch.launch import dryrun
+
+    if (pl.VOCAB, pl.K_TOPICS) != (210_000, 100_000):
+        raise AssertionError(f"peacock-lda is at V = {pl.VOCAB}, K = {pl.K_TOPICS}")
+    launches, by_family, spent, seen = {}, {}, 0.0, set()
+    for r in recs:
+        key = (r["arch"], r["shape"], r["mesh"])
+        rs = r.get("rank_step")
+        if rs is None:
+            continue
+        selected = dryrun.rank_selected(DRYRUN["rank_steps"], r["arch"], r["shape"], r["mesh"])
+        oom = rs["status"] == "fail" and "OutOfMemoryError" in rs.get("error", "")
+        if not selected:
+            if rs["status"] != "not_run":
+                raise AssertionError(f"{key}: a rank step left out ran: {rs}")
+            continue
+        if rs["status"] != "ok" and (key in DRYRUN["rank_must_ok"] or not oom):
+            raise AssertionError(f"{key}: rank step {rs['status']}: {rs.get('error')}\n"
+                                 f"{rs.get('traceback', '')}")
+        spent += rs["wall_s"]
+        if oom:
+            log(f"[dryrun-mesh] {'/'.join(key)}: rank 0 runs out of memory: "
+                f"{rs['error'][:160]} ({rs['wall_s']:.2f} s)")
+            continue
+        seen.add(key)
+        fam = by_family.setdefault(specs[r["arch"]].family, {})
+        for k, n in rs["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+            fam[k] = fam.get(k, 0) + n
+        coll = rs["collectives_folded"]
+        if not coll or rs["collective_bytes"] <= 0:
+            raise AssertionError(f"{key}: the rank step issued no collective: {rs}")
+        if rs["live_bytes_per_device"] < r["bytes_per_device"]["arguments"]:
+            raise AssertionError(f"{key}: live bytes {rs['live_bytes_per_device']} below the "
+                                 f"rank's arguments' {r['bytes_per_device']['arguments']}")
+        if r["arch"] == "peacock-lda":
+            rows = -(-pl.VOCAB // 256) if r["shape"] != "serve_rt" else \
+                -(-pl.VOCAB // 512) * 512 // 256
+            role = "pvk" if r["shape"] == "serve_rt" else "phi"
+            if r["bytes_per_device"]["by_role"][role] != rows * pl.K_TOPICS * 4:
+                raise AssertionError(f"{key}: the rank's {role} is not {rows} x K int32/f32")
+            if r["shape"] != "serve_rt" and rs["cost"]["kernels"]["gibbs_argmax"]["calls"] != 256:
+                raise AssertionError(f"{key}: {rs['cost']['kernels']} (256 rounds, one package "
+                                     f"each)")
+        kern = ", ".join(f"{k} {v['calls']:.0f}x" for k, v in rs["cost"]["kernels"].items())
+        log(f"[dryrun-mesh] {'/'.join(key)}"
+            + (f" ({rs['reduced']})" if rs.get("reduced") else "")
+            + f": status ok, rank 0's step {rs['step_ms']:.4f} ms"
+            + (" (timed on its counted step)" if rs["timed_on_counted_step"] else "")
+            + f", live {rs['live_bytes_per_device'] / 2**30:.2f} GiB (arguments "
+            f"{r['bytes_per_device']['arguments'] / 2**30:.2f} GiB), fits 80 GB: "
+            f"{rs['fits_80gb_hbm']}; collectives "
+            + ", ".join(f"{k} {v['calls']:.0f}x {v['bytes'] / 1e6:.3f} MB"
+                        for k, v in coll.items())
+            + f" = {rs['collective_bytes'] / 1e6:.3f} MB a rank beside model_coll_bytes / "
+            f"chips {r['model_coll_bytes'] / r['chips'] / 1e6:.3f} MB (roofline term: max of "
+            f"model_coll_bytes {r['model_coll_bytes'] / 1e9:.3f} GB and x chips "
+            f"{r['collective_bytes_traced'] / 1e9:.3f} GB); counted {rs['cost']['flops'] / 1e9:.3f}"
+            f" GFLOP, {rs['cost']['moved_bytes'] / 1e9:.3f} GB moved ({kern or 'no kernel'}); "
+            f"launches {dict((k, n) for k, n in rs['launches'].items() if n)}; "
+            f"{rs['wall_s']:.2f} s on {rs['card']}")
+    missing = set(DRYRUN["rank_must_ok"]) - seen
+    if missing:
+        raise AssertionError(f"rank steps not run: {sorted(missing)}")
+    log(f"[dryrun-mesh] {len(seen)} rank steps ok in {spent:.1f} s; launches {launches}, by "
+        f"family {by_family}")
+    return dict(launches=launches, by_family=by_family, s=spent)
+
+
+def held_rank_steps(rank_recs):
+    """One counted rank step of each ``DRYRUN["rank_held"]`` cell again, from
+    the dry run's draws (the mirror world, ``rank_args`` at seed 0), under
+    ``count_collectives`` with every kernel launch held against its plain
+    version (``gibbs_check``, ``held_bag``, ``held_bwd``): its launches times
+    the record's steps must be the record's. Returns each cell's launches."""
+    from repro_torch import kernels
+    from repro_torch.configs import all_specs
+    from repro_torch.dist import analysis
+    from repro_torch.kernels.gibbs import ops as gibbs_ops
+    from repro_torch.launch import dryrun, mesh
+
+    specs, out = all_specs(), {}
+    for arch, shape, mp in DRYRUN["rank_held"]:
+        t0 = time.perf_counter()
+        label = f"{arch}/{shape}/{dryrun.mesh_name(mp)}"
+        rec = rank_recs[(arch, shape, dryrun.mesh_name(mp))]
+        layout = mesh.mirror_ranks(*dryrun.MESHES[mp], device="cuda")
+        cell = specs[arch].cell(shape, layout)
+        if cell.rank_cut is not None:
+            cell = cell.rank_cut()
+        args = cell.rank_args(torch.Generator(device="cuda").manual_seed(0), "cuda", layout)
+        kernels.reset_launch_counts()
+        with held(gibbs_ops, "gibbs_argmax", gibbs_check("cuda", label)) as gibbs, \
+                held_bag() as bags, held_bwd() as bwds:
+            analysis.count_collectives(cell.fn, *args)
+        torch.cuda.synchronize()
+        got = kernels.launch_counts()
+        del args
+        free_card()
+        held_n = {"gibbs_argmax": len(gibbs), "embedding_bag": len(bags),
+                  "embedding_bag_bwd": len(bwds)}
+        steps = 1 if rec["timed_on_counted_step"] else 1 + rec["timed_steps"]
+        for k, n in held_n.items():
+            if n != got[k] or n * steps != rec["launches"][k]:
+                raise AssertionError(f"{label}: {n} held launches of {k}, {got[k]} in the step, "
+                                     f"{rec['launches'][k]} in the record's {steps} steps")
+        if not any(held_n.values()):
+            raise AssertionError(f"{label}: the rank step launched no kernel")
+        out[label] = held_n
+        log(f"[dryrun-mesh] {label}: one counted rank step again, every kernel launch held "
+            f"against its plain version: "
+            + ", ".join(f"{k} {n}" for k, n in held_n.items() if n)
+            + (f" (gibbs_argmax at T = {gibbs[0]['T']}, near-tie mismatches "
+               f"{sum(c['mismatches'] for c in gibbs)})" if gibbs else "")
+            + (f"; {held_line(bwds)}" if bwds else "")
+            + f"; {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # ------------------------------------------------------------ preflight phase
@@ -3674,7 +3842,7 @@ def dryrun_phase(dlrm_step_ms):
 # launches can reach) with the plans at the shapes this run launches; then the
 # three launchers' gates, each launcher's main called in one process of their
 # own (``start_preflight_gates``), one after the other, while the card runs
-# the dry run; timeout_s bounds the wait for it
+# the streamed world of 4 ranks; timeout_s bounds the wait for it
 PREFLIGHT = dict(budget_s=30, timeout_s=600,
                  gates={"launch.train --preflight": ("train", ["--preflight"], 0),
                         "launch.serve --preflight": ("serve", ["--preflight"], 0),
@@ -3741,7 +3909,7 @@ def preflight_gates():
     on a 430 GB-a-rank session (exit 1), each ``repro_torch.launch.<name>
     .main`` called here with its report captured; each gate's seconds and
     their sum against the budget. ``start_preflight_gates`` runs it in a
-    process of its own beside the dry run."""
+    process of its own beside the streamed world of 4 ranks."""
     import contextlib
     import importlib
     import io
@@ -3769,7 +3937,7 @@ def preflight_gates():
 def start_preflight_gates():
     """``preflight_gates`` in a process of its own at the lowest CPU
     priority: its gates run on the host (gloo CPU ranks, the analyzers), so
-    they take the cores the dry run leaves idle. Returns the process;
+    they take the cores the streamed world's ranks leave idle. Returns the process;
     ``finish_preflight_gates`` prints its lines and raises if it failed."""
     src = os.path.join(ROOT, "src")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -4170,9 +4338,13 @@ def serve_open_loop_phase(capacity):
     miss from then on. That fleet is caught as it is built and must end the
     run shedding, its p99 estimate above the level at which it stops
     (ROADMAP §3: under deadlined traffic its p99 rides the deadline, so it
-    sheds for good). A fleet fails no request and retries none; the
-    shedding one ends with every breaker closed, while the overloaded one
-    may end with breakers that its deadline blowouts tripped (printed)."""
+    sheds for good). A fleet fails no request and retries none. A breaker
+    of either fleet may end the run open or half open, as JAX's breakers do
+    (``tests/test_torch_fleet.py::test_shedding_fleet_breakers_trip_on_blowouts``):
+    a response slower than blowout_factor × its deadline is a failure,
+    shedding or not; so each breaker of the shedding fleet that did not end
+    closed must have tripped, with no request failed, in a run whose slowest
+    response passed that limit (printed)."""
     import repro_torch.serving as serving
     from repro_torch.kernels.gibbs import ops
     from repro_torch.launch import serve
@@ -4231,11 +4403,20 @@ def serve_open_loop_phase(capacity):
                                  f"({rec['pkd_sum_err_max']}) or an id is outside [0, V)")
         if shed and (rec["failed"] or rec["retries"]):
             raise AssertionError(f"{name}: failed {rec['failed']}, retries {rec['retries']}")
-        # the shedding fleet's breakers end closed; without shedding, above
-        # the capacity, a replica's deadline blowouts (3 × the deadline) trip
-        # its breaker by design
+        # a breaker trips only on failures, and with none failed only on
+        # deadline blowouts (blowout_factor × the deadline), shedding or not
         if shed == "--shed" and any(s != "closed" for s in rec["breakers"]):
-            raise AssertionError(f"{name}: breakers {rec['breakers']} at the end")
+            blowout = fleets[0].breakers[0].blowout_factor * rec["deadline_ms"]
+            tripped = all(n >= 1 for s, n in zip(rec["breakers"], rec["breaker_trips"])
+                          if s != "closed")
+            if not (tripped and rec["max_ms"] > blowout):
+                raise AssertionError(f"{name}: breakers {rec['breakers']} (trips "
+                                     f"{rec['breaker_trips']}) at the end, the slowest "
+                                     f"response {rec['max_ms']:.1f} ms against the "
+                                     f"{blowout:.0f} ms blowout")
+            log(f"[serve-open-loop] {name}: breakers {rec['breakers']} at the end (trips "
+                f"{rec['breaker_trips']}): the slowest response {rec['max_ms']:.1f} ms passed "
+                f"the {blowout:.0f} ms blowout, as JAX's breakers trip")
         after = rec["versions_after_swap"]
         if set(after) - {"1"}:
             raise AssertionError(f"{name}: a response after the swap is not at version 1 "
@@ -7003,9 +7184,20 @@ def main():
     mark("the full-K alias sweep (the wait after the launch.train phases)")
     gc.collect()
     torch.cuda.empty_cache()
-    stream_ranks = stream_ranks_phase(corpus)
-    mark("stream ranks (4x1, word-sharded, card vs cpu, lookup_sharded, recsys and GNN "
-         "across ranks)")
+    # the gates run on the host (at the lowest priority) beside the streamed
+    # world, whose 4 ranks wait on the card and each other; beside the dry
+    # run they slowed its host-bound LM rank steps
+    gates = start_preflight_gates()
+    try:
+        stream_ranks = stream_ranks_phase(corpus)
+        mark("stream ranks (4x1, word-sharded, card vs cpu, lookup_sharded, recsys and GNN "
+             "across ranks; the preflight gates beside it)")
+    except BaseException:
+        gates.kill()
+        gates.wait()
+        raise
+    finish_preflight_gates(gates)
+    mark("preflight gates (the wait after the stream ranks)")
     # `launches` is each kernel's count on its first path (gibbs_epoch, the
     # alias cell), as in earlier runs; launches_by_path gives every path
     small = lambda sampler, k: {r: c[k] for r, c in small_launches[sampler].items()}
@@ -7055,18 +7247,8 @@ def main():
     mark("gnn")
     lm = lm_phase()
     mark("lm")
-    # the gates run on the host (at the lowest priority) beside the dry run,
-    # whose work is on the card
-    gates = start_preflight_gates()
-    try:
-        dry_launches, dry_by_family = dryrun_phase(train["dlrm-mlperf"]["step_ms"])
-        mark("dryrun (the preflight gates beside it)")
-    except BaseException:
-        gates.kill()
-        gates.wait()
-        raise
-    finish_preflight_gates(gates)
-    mark("preflight gates (the wait after the dry run)")
+    dry_launches, dry_by_family, dry_rank = dryrun_phase(train["dlrm-mlperf"]["step_ms"])
+    mark("dryrun")
     example_launches = examples_phase()
     mark("examples")
     recsys_small_phase()
@@ -7079,7 +7261,8 @@ def main():
     serve_chaos_phase()
     mark("serving")
     gibbs_paths.update(launch_serve=serve_launches, serve_engine_build=serve_build,
-                       serve_publish_train=serve_publish)
+                       serve_publish_train=serve_publish,
+                       dryrun_rank_step=dry_rank["launches"].get("gibbs_argmax", 0))
     for name, counts in example_launches.items():
         for k, paths in [("gibbs_argmax", gibbs_paths), ("alias_build", alias_paths["alias_build"]),
                          ("mh_resample", alias_paths["mh_resample"])]:
@@ -7110,6 +7293,9 @@ def main():
                                    dryrun_one_rank=dry_launches["embedding_bag"],
                                    **{f"dryrun_one_rank_{f}": n["embedding_bag"]
                                       for f, n in dry_by_family.items()},
+                                   dryrun_rank_step=dry_rank["launches"]["embedding_bag"],
+                                   **{f"dryrun_rank_step_{f}": n.get("embedding_bag", 0)
+                                      for f, n in dry_rank["by_family"].items()},
                                    **{f"gnn_{c}": r["bag"] for c, r in gnn.items()},
                                    **{p: n["embedding_bag"] for p, n in quality.items()},
                                    **stream_ranks["bag"]),
@@ -7128,6 +7314,9 @@ def main():
                                "dryrun_one_rank": dry_launches["embedding_bag_bwd"],
                                **{f"dryrun_one_rank_{f}": n["embedding_bag_bwd"]
                                   for f, n in dry_by_family.items()},
+                               "dryrun_rank_step": dry_rank["launches"]["embedding_bag_bwd"],
+                               **{f"dryrun_rank_step_{f}": n.get("embedding_bag_bwd", 0)
+                                  for f, n in dry_rank["by_family"].items()},
                                **{f"example_{name}": counts["embedding_bag_bwd"]
                                   for name, counts in example_launches.items()
                                   if counts.get("embedding_bag_bwd")}},
@@ -7135,7 +7324,9 @@ def main():
              at_lm_launches={f"{c}: {k}": r[k] for c, r in lm.items()
                              for k in ("wide", "run") if k in r},
              held_on_path={**{f"gnn_{c}": r["held"] for c, r in gnn.items()},
-                           **{f"lm_{c}": r["held"] for c, r in lm.items()}},
+                           **{f"lm_{c}": r["held"] for c, r in lm.items()},
+                           **{f"dryrun_rank_step {c}": n["embedding_bag_bwd"]
+                              for c, n in dry_rank["held"].items()}},
              **bwd)]}))
     log(f"card: {card_line()}")
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

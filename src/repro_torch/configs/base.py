@@ -37,6 +37,16 @@ row-sharded over the ring (``core/rtlda.py``'s ``layout=``). An LM train
 cell at one rank carries ``one_rank_cut``: the same step on one microbatch,
 which the dry run's one-rank record runs (the global batch is 128
 microbatches there).
+
+``rank_args(generator, device, layout)`` draws one rank's views directly at
+their block shapes (``sharding.block_shape``), for a rank of a mirror world
+(``launch.mesh.mirror_ranks``: every rank holding this rank's values), where
+the global arguments cannot be drawn at all (phi3.5-moe's f32 parameters are
+168 GB): the law of ``make_args`` at each block, every id, word row and edge
+in range, and the counts and caches consistent with the mirror world (see
+each builder). A cell whose rank step has a loop too long for the dry run
+carries ``rank_cut``: the same step on fewer trips of the loop, its
+collectives folded back to the whole step (``dist.analysis.fold``).
 """
 from __future__ import annotations
 
@@ -48,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.dist import analysis
 from repro_torch.dist import collectives as coll
 from repro_torch.dist import sharding as shd
 from repro_torch.models import gnn as gnn_mod
@@ -84,6 +95,13 @@ class Cell:
                                    # the cell a one-rank run takes instead
                                    # (an LM train step on one microbatch)
     reduced: str = ""              # what that cut cell leaves out
+    rank_args: Optional[Callable[..., Tuple[Any, ...]]] = None
+                                   # (generator, device, layout) → one rank's
+                                   # views drawn at their block shapes, for a
+                                   # rank of a mirror world
+    rank_cut: Optional[Callable[[], "Cell"]] = None
+                                   # the cell a dry run's rank step takes
+                                   # instead (fewer trips of the step's loop)
 
 
 @dataclasses.dataclass
@@ -139,6 +157,36 @@ def _params(cfg, generator, dev) -> Dict[str, torch.Tensor]:
     return rec_mod.init_params(cfg, generator, dev, torch.bfloat16)
 
 
+def _draw(shape, generator, dev, scale: float, dtype=torch.float32) -> torch.Tensor:
+    """N(0, scale²) of ``shape`` in ``dtype``, drawn in f32 a slice of at
+    most 2²⁸ elements at a time along dim 0 (no f32 copy of a large block is
+    ever whole)."""
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    step = max(1, (1 << 28) // max(1, int(np.prod(shape[1:]))))
+    for lo in range(0, shape[0], step):
+        part = out[lo:lo + step]
+        part.copy_(torch.randn(part.shape, generator=generator, device=dev) * scale)
+    return out
+
+
+def _recsys_rank_params(cfg, pspecs, layout, generator, dev) -> Dict[str, torch.Tensor]:
+    """A rank's blocks of ``cfg``'s parameters by ``init_params``' law at the
+    global shapes: biases 0, tables N(0, 1/dim) in bf16, other weights
+    N(0, 2/fan_in) in f32."""
+    out = {}
+    for name, s in sorted(cfg.param_shapes().items()):
+        b = shd.block_shape(s, pspecs[name], layout)
+        if name.split("/")[-1].startswith("b"):
+            out[name] = torch.zeros(b, dtype=torch.float32, device=dev)
+        elif len(s) == 2 and name.endswith("table"):
+            out[name] = _draw(b, generator, dev, 1.0 / np.sqrt(s[1]), torch.bfloat16)
+        else:
+            out[name] = _draw(b, generator, dev, (2.0 / max(s[0] if len(s) >= 2 else 1, 1)) ** 0.5)
+    return out
+
+
 def all_reduce_grads_(grads: Dict[str, torch.Tensor], layout, name: str) -> None:
     """Sum the dense gradients ``grads`` over group ``name`` in place, as one
     flat f32 buffer (one collective): every rank of the group then holds the
@@ -150,6 +198,19 @@ def all_reduce_grads_(grads: Dict[str, torch.Tensor], layout, name: str) -> None
         n = grads[k].numel()
         grads[k].copy_(flat[lo:lo + n].view(grads[k].shape))
         lo += n
+
+
+def _adamw_zeros(params, dev) -> Dict[str, Any]:
+    """AdamW's state at step 0 over ``params`` (a dict, nested or not), as
+    JAX's ``{"step", "m", "v"}``."""
+    return {"step": torch.zeros((), dtype=torch.int32, device=dev),
+            "m": tf_mod.tree_map(torch.zeros_like, params),
+            "v": tf_mod.tree_map(torch.zeros_like, params)}
+
+
+def _rank_batch(B: int, bspec, layout) -> int:
+    """The rows of a [B, ...] batch that one rank of ``layout`` holds."""
+    return shd.block_shape((B,), (bspec[0],), layout)[0]
 
 
 def _input_specs(inputs, bspec) -> tuple:
@@ -192,10 +253,17 @@ def build_recsys_cell(cfg, forward_fn, input_maker, flops_fn,
             return (torch.randn((B, emb_dim), generator=generator, device=dev),
                     torch.randn((N, emb_dim), generator=generator, device=dev))
 
+        def rank_args(generator, device, lay):
+            """The query (replicated) and the rank's candidate rows."""
+            dev = resolve_device(device)
+            rows = shd.block_shape((N, emb_dim), shd.table_rows_spec(), lay)
+            return (torch.randn((B, emb_dim), generator=generator, device=dev),
+                    torch.randn(rows, generator=generator, device=dev))
+
         return Cell(cfg.name, shape_name, "retrieval", retrieval, make_args,
                     model_flops=2.0 * B * N * emb_dim,
                     arg_specs=((None, None), shd.table_rows_spec()),
-                    arg_roles=("query", "candidates"))
+                    arg_roles=("query", "candidates"), rank_args=rank_args)
 
     table_bytes = 4.0 * sum(
         float(np.prod(s)) for k, s in shapes.items()
@@ -213,10 +281,17 @@ def build_recsys_cell(cfg, forward_fn, input_maker, flops_fn,
             params = _params(cfg, generator, dev) if params is None else params
             return (params, *input_maker(B, generator, dev))
 
+        def rank_args(generator, device, lay):
+            """The rank's parameter blocks and its "dp" rows of the batch (ids
+            over each field's whole vocabulary)."""
+            dev = resolve_device(device)
+            params = _recsys_rank_params(cfg, pspecs, lay, generator, dev)
+            return (params, *input_maker(_rank_batch(B, bspec, lay), generator, dev))
+
         return Cell(cfg.name, shape_name, "serve", serve, make_args,
                     model_flops=flops_fn(B, False), model_coll_bytes=lookup_bytes,
                     arg_specs=(pspecs, *input_specs),
-                    arg_roles=("params",) + ("inputs",) * n_inputs)
+                    arg_roles=("params",) + ("inputs",) * n_inputs, rank_args=rank_args)
 
     # train: the tables' SGD touches only the rows the batch reads (their
     # sparse gradients from the row-gradient kernel), in place; the dense
@@ -252,13 +327,21 @@ def build_recsys_cell(cfg, forward_fn, input_maker, flops_fn,
         are (their tables are then updated in place by the step)."""
         dev = resolve_device(device)
         params = _params(cfg, generator, dev) if params is None else params
-        dense = {k: params[k] for k in sorted(dense_shapes)}
-        zeros = lambda: {k: torch.zeros_like(v) for k, v in dense.items()}
-        opt_state = {"step": torch.zeros((), dtype=torch.int32, device=dev),
-                     "m": zeros(), "v": zeros()}
+        opt_state = _adamw_zeros({k: params[k] for k in sorted(dense_shapes)}, dev)
         labels = torch.empty((B,), device=dev) if dev.type == "meta" else \
             torch.randint(0, 2, (B,), generator=generator, device=dev).to(torch.float32)
         return (params, opt_state, labels, *input_maker(B, generator, dev))
+
+    def rank_args(generator, device, lay):
+        """The rank's parameter blocks, AdamW's state at step 0 over the dense
+        ones, and its "dp" rows of the labels and the batch."""
+        dev = resolve_device(device)
+        params = _recsys_rank_params(cfg, pspecs, lay, generator, dev)
+        opt_state = _adamw_zeros({k: params[k] for k in sorted(dense_shapes)}, dev)
+        rows = _rank_batch(B, bspec, lay)
+        labels = torch.randint(0, 2, (rows,), generator=generator,
+                               device=dev).to(torch.float32)
+        return (params, opt_state, labels, *input_maker(rows, generator, dev))
 
     dense_specs = {k: pspecs[k] for k in sorted(dense_shapes)}
     opt_specs = {"step": (), "m": dense_specs, "v": dense_specs}
@@ -268,7 +351,8 @@ def build_recsys_cell(cfg, forward_fn, input_maker, flops_fn,
                 # "data" + dense-param grad all-reduce
                 model_coll_bytes=2 * lookup_bytes + table_bytes,
                 arg_specs=(pspecs, opt_specs, (bspec[0],), *input_specs),
-                arg_roles=("params", "opt_state", "labels") + ("inputs",) * n_inputs)
+                arg_roles=("params", "opt_state", "labels") + ("inputs",) * n_inputs,
+                rank_args=rank_args)
 
 
 # ===========================================================================
@@ -344,6 +428,19 @@ def _lm_params(cfg, generator, dev, dtype):
     return tf_mod.init_params(cfg, generator, dev, dtype)
 
 
+def _lm_rank_params(cfg, specs, layout, generator, dev, dtype):
+    """A rank's blocks of ``cfg``'s parameter tree (``specs``: its layouts)
+    by ``init_params``' law at the global shapes: norm scales 1, every other
+    leaf N(0, 0.02²), in ``dtype``."""
+    shapes = tf_mod.param_shapes(cfg)
+    out = []
+    for s, spec in zip(tf_mod.leaves(shapes), tf_mod.leaves(specs)):
+        b = shd.block_shape(s, spec, layout)
+        out.append(torch.ones(b, dtype=dtype, device=dev) if tf_mod._is_norm(cfg, s)
+                   else _draw(b, generator, dev, 0.02, dtype))
+    return tf_mod.tree_unflatten(shapes, out)
+
+
 def _tokens(cfg, shape, generator, dev):
     if dev.type == "meta":
         return torch.empty(shape, dtype=torch.int32, device=dev)
@@ -351,10 +448,20 @@ def _tokens(cfg, shape, generator, dev):
                          dtype=torch.int32)
 
 
+# microbatches a dry run's rank step of an LM train cell runs (``rank_cut``)
+RANK_MICRO = 1
+
+
 def build_lm_cell(cfg, shape_name: str, layout=None, micro_per_device: int = 2,
                   batch: Optional[int] = None) -> Cell:
     """``batch`` (default: the shape's global batch) sets the batch of a cut
-    cell (``one_rank_cut``)."""
+    cell (``one_rank_cut``). A train cell across ranks of more than
+    ``RANK_MICRO`` microbatches carries ``rank_cut``: its step on the first
+    ``RANK_MICRO`` of them, the batch gathered whole, the loop's collectives
+    folded by n_micro / RANK_MICRO, the gradients the mean of the
+    microbatches run, AdamW's update written into the donated parameters
+    and state (phi3.5-moe's experts split over "model" only: 30.5 GB of them
+    a rank, which a second copy takes past the card's 80 GB)."""
     info = LM_SHAPES[shape_name]
     S, B = info["seq_len"], info["global_batch"] if batch is None else batch
     kind = info["kind"]
@@ -373,22 +480,30 @@ def build_lm_cell(cfg, shape_name: str, layout=None, micro_per_device: int = 2,
             schedules.wsd, peak_lr=1e-3, warmup_steps=2000,
             stable_steps=100_000, decay_steps=10_000))
 
-        def train_step(params, opt_state, tokens, labels):
-            mb_tok, mb_lab = _microbatches(tokens, labels, n_micro, lay)
-            grads, losses = None, []
-            for i in range(n_micro):
-                leaves = tf_mod.tree_map(lambda p: p.detach().requires_grad_(True), params)
-                loss = tf_mod.lm_loss(cfg, tf_mod.tree_map(lambda p: p.to(cfg.dtype), leaves),
-                                      mb_tok[i], mb_lab[i], layout=lay)
-                g = torch.autograd.grad(loss, tf_mod.leaves(leaves))
-                grads = list(g) if grads is None else [a.add_(b) for a, b in zip(grads, g)]
-                losses.append(loss.detach())
-            if sharded:
-                _sum_replicated_grads_(grads, tf_mod.leaves(param_specs), layout)
-            # in place: no second copy of the gradients (JAX's sum, then / n_micro)
-            grads = tf_mod.tree_unflatten(params, [x.div_(n_micro) for x in grads])
-            params, opt_state = opt.update(grads, opt_state, params, lay, param_specs)
-            return params, opt_state, torch.stack(losses).mean()
+        def step_of(runs, inplace=False):
+            """The train step on the first ``runs`` of the n_micro
+            microbatches; ``inplace``: AdamW writes the new parameters and
+            moments into the donated ones."""
+            def train_step(params, opt_state, tokens, labels):
+                mb_tok, mb_lab = _microbatches(tokens, labels, n_micro, lay)
+                grads, losses = None, []
+                with analysis.fold(n_micro / runs):
+                    for i in range(runs):
+                        leaves = tf_mod.tree_map(lambda p: p.detach().requires_grad_(True), params)
+                        loss = tf_mod.lm_loss(cfg, tf_mod.tree_map(lambda p: p.to(cfg.dtype),
+                                                                   leaves),
+                                              mb_tok[i], mb_lab[i], layout=lay)
+                        g = torch.autograd.grad(loss, tf_mod.leaves(leaves))
+                        grads = list(g) if grads is None else [a.add_(b) for a, b in zip(grads, g)]
+                        losses.append(loss.detach())
+                if sharded:
+                    _sum_replicated_grads_(grads, tf_mod.leaves(param_specs), layout)
+                # in place: no second copy of the gradients (JAX's sum, then / n_micro)
+                grads = tf_mod.tree_unflatten(params, [x.div_(runs) for x in grads])
+                params, opt_state = opt.update(grads, opt_state, params, lay, param_specs,
+                                               inplace=inplace)
+                return params, opt_state, torch.stack(losses).mean()
+            return train_step
 
         def make_args(generator, device="cuda", params=None):
             """(params f32, AdamW state {"step", "m", "v"} at step 0, tokens
@@ -399,23 +514,37 @@ def build_lm_cell(cfg, shape_name: str, layout=None, micro_per_device: int = 2,
                 params = _lm_params(cfg, generator, dev, torch.float32)
             else:
                 params = tf_mod.tree_map(lambda p: p.to(torch.float32), params)
-            zeros = lambda: tf_mod.tree_map(torch.zeros_like, params)
-            opt_state = {"step": torch.zeros((), dtype=torch.int32, device=dev),
-                         "m": zeros(), "v": zeros()}
-            return (params, opt_state, _tokens(cfg, (B, S), generator, dev),
+            return (params, _adamw_zeros(params, dev), _tokens(cfg, (B, S), generator, dev),
                     _tokens(cfg, (B, S), generator, dev))
 
-        cut = None
+        def rank_args(generator, device, lay):
+            """The rank's f32 parameter blocks, AdamW's state at step 0 and
+            its "dp" rows of tokens and labels in [0, vocab_size)."""
+            dev = resolve_device(device)
+            params = _lm_rank_params(cfg, param_specs, lay, generator, dev, torch.float32)
+            rows = shd.block_shape((B, S), batch_spec, lay)
+            return (params, _adamw_zeros(params, dev), _tokens(cfg, rows, generator, dev),
+                    _tokens(cfg, rows, generator, dev))
+
+        cut = rank_cut = None
         if batch is None and _dp_size(layout) == 1 and n_micro > 1:
             def cut():
                 c = build_lm_cell(cfg, shape_name, None, micro_per_device, micro_per_device)
                 c.reduced = (f"one microbatch ({micro_per_device} x {S} tokens) of the "
                              f"global batch's {n_micro} (B = {B})")
                 return c
+        if sharded and n_micro > RANK_MICRO:
+            def rank_cut():
+                return dataclasses.replace(
+                    cell, fn=step_of(RANK_MICRO, inplace=True), rank_cut=None,
+                    reduced=(f"{RANK_MICRO} of the global batch's {n_micro} microbatches "
+                             f"({B // n_micro} x {S} tokens each, B = {B}); the loop's "
+                             f"collectives folded by {n_micro / RANK_MICRO:g}; AdamW in "
+                             f"place (the cell donates its parameters and state)"))
 
-        return Cell(
+        cell = Cell(
             arch=cfg.name, shape=shape_name, step_kind="train",
-            fn=train_step,
+            fn=step_of(n_micro),
             make_args=make_args, model_flops=lm_train_flops(cfg, B, S), donate=(0, 1),
             # FSDP weight all-gathers (bf16, fwd+bwd per microbatch) + f32 grad
             # all-reduce + Megatron-TP activation all-reduces (2/layer, ~3x)
@@ -426,8 +555,9 @@ def build_lm_cell(cfg, shape_name: str, layout=None, micro_per_device: int = 2,
             arg_specs=(param_specs, {"step": (), "m": param_specs, "v": param_specs},
                        batch_spec, batch_spec),
             arg_roles=("params", "opt_state", "tokens", "labels"),
-            one_rank_cut=cut,
+            one_rank_cut=cut, rank_args=rank_args, rank_cut=rank_cut,
         )
+        return cell
 
     if kind in ("prefill", "decode"):
         # Unified serving step over a (sequence-sharded) KV cache: C=4096
@@ -455,6 +585,20 @@ def build_lm_cell(cfg, shape_name: str, layout=None, micro_per_device: int = 2,
                     torch.tensor(S - C, dtype=torch.int32, device=dev))
 
         cache_spec = shd.lm_cache_spec(multi_pod)
+
+        def rank_args(generator, device, lay):
+            """The rank's parameter blocks in cfg.dtype, its "dp" rows of the
+            chunk's tokens, its block of the zero cache and cache_len."""
+            dev = resolve_device(device)
+            params = _lm_rank_params(cfg, param_specs, lay, generator, dev, cfg.dtype)
+            shape = shd.block_shape((cfg.n_layers, B, S, cfg.n_kv_heads, cfg.d_head),
+                                    cache_spec, lay)
+            cache = {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                     "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+            return (params, _tokens(cfg, shd.block_shape((B, C), batch_spec, lay), generator,
+                                    dev),
+                    cache, torch.tensor(S - C, dtype=torch.int32, device=dev))
+
         # per step: 2·N_active per token + QK/PV against the cached sequence
         flops = B * C * (2.0 * cfg.n_active_params
                          + 4.0 * cfg.n_layers * cfg.n_heads * cfg.d_head
@@ -472,7 +616,7 @@ def build_lm_cell(cfg, shape_name: str, layout=None, micro_per_device: int = 2,
             donate=(2,),
             note=f"C={C}" + (f" ({S//C} chunk steps/prompt)" if kind == "prefill" else ""),
             arg_specs=(param_specs, batch_spec, {"k": cache_spec, "v": cache_spec}, ()),
-            arg_roles=("params", "tokens", "cache", "cache_len"),
+            arg_roles=("params", "tokens", "cache", "cache_len"), rank_args=rank_args,
         )
 
     raise ValueError(shape_name)
@@ -554,6 +698,64 @@ def _graph_inputs(shape, N: int, E: int, d_in: int, n_classes: int, generator, d
     return feats, src, dst, ri(n_classes, N).to(torch.int32), mask
 
 
+def _rank_range(n: int, spec, layout) -> Tuple[int, int]:
+    """[lo, hi) of the rows of an [n, ...] array that one rank of ``layout``
+    holds under the row ``spec``."""
+    blocks, i = shd.block_index(spec, layout, layout.rank)[0]
+    per = n // blocks
+    return i * per, (i + 1) * per
+
+
+def _graph_rank_inputs(shape, N: int, E: int, d_in: int, n_classes: int, generator, dev,
+                       graph_pool: bool, rows, graph_spec, layout):
+    """One rank's blocks of ``_graph_inputs``' arrays under the row spec
+    ``rows`` (labels of a pooled batch: ``graph_spec``), each element drawn
+    by that function's law at its global index: the rank's node rows, its
+    edges between real nodes (within the edge's graph for ``molecule``) or
+    padding edges at the last padded node, all ids global and in [0, N)."""
+    n_graphs = shape.get("batch", 1)
+    per, per_e = shape["n_nodes"], shape["n_edges"]
+    n_real, e_real = per * n_graphs, per_e * n_graphs
+    n_lo, n_hi = _rank_range(N, rows, layout)
+    e_lo, e_hi = _rank_range(E, rows, layout)
+    node = torch.arange(n_lo, n_hi, device=dev)
+    edge = torch.arange(e_lo, e_hi, device=dev)
+    real = edge < e_real
+    ri = lambda hi, n: torch.randint(0, hi, (n,), generator=generator, device=dev)
+    feats = torch.randn((n_hi - n_lo, d_in), generator=generator, device=dev)
+    base = (edge // per_e) * per if graph_pool else 0
+    lo = per if graph_pool else n_real
+    ends = [torch.where(real, base + ri(lo, edge.numel()), N - 1).to(torch.int32)
+            for _ in range(2)]
+    if graph_pool:
+        gid = torch.where(node < n_real, node // per, n_graphs).to(torch.int32)
+        g_lo, g_hi = _rank_range(n_graphs, graph_spec, layout)
+        return feats, ends[0], ends[1], gid, ri(n_classes, g_hi - g_lo).to(torch.int32)
+    mask = (node < n_real).to(torch.float32)
+    return feats, ends[0], ends[1], ri(n_classes, node.numel()).to(torch.int32), mask
+
+
+def _block_rank_inputs(cfg, sizes, generator, dev, rows, layout):
+    """One rank's blocks of ``_block_inputs``' arrays under the row spec
+    ``rows``: features per level, each of its level-l nodes' fanout row the
+    global indices of its own slots in level l+1 (i · fanout + j) with about
+    one in ten −1, and labels."""
+    fan = cfg.fanouts
+    feats, neigh = [], []
+    for n in sizes:
+        lo, hi = _rank_range(n, rows, layout)
+        feats.append(torch.randn((hi - lo, cfg.d_in), generator=generator, device=dev))
+    for i, f in enumerate(fan):
+        lo, hi = _rank_range(sizes[i], rows, layout)
+        nb = torch.arange(lo * f, hi * f, device=dev, dtype=torch.int32).reshape(hi - lo, f)
+        drop = torch.rand((hi - lo, f), generator=generator, device=dev) < 0.1
+        neigh.append(torch.where(drop, torch.full_like(nb, -1), nb))
+    lo, hi = _rank_range(sizes[0], rows, layout)
+    labels = torch.randint(0, cfg.n_classes, (hi - lo,), generator=generator, device=dev,
+                           dtype=torch.int32)
+    return feats, neigh, labels
+
+
 def _block_inputs(cfg, sizes, generator, dev):
     """Drawn inputs of ``minibatch_lg``: features N(0, 1) per level, each
     level-l node's fanout row the indices of its own slots in level l+1
@@ -585,10 +787,10 @@ def build_gnn_cell(cfg, shape_name: str, shape: Dict[str, Any], layout=None) -> 
     d_in, d_h = cfg.d_in, cfg.d_hidden
 
     def state(generator, dev, params):
+        """The parameters (replicated: a rank holds them whole) and AdamW's
+        state at step 0."""
         params = _gnn_params(cfg, generator, dev) if params is None else params
-        zeros = lambda: {k: torch.zeros_like(v) for k, v in params.items()}
-        return params, {"step": torch.zeros((), dtype=torch.int32, device=dev),
-                        "m": zeros(), "v": zeros()}
+        return params, _adamw_zeros(params, dev)
 
     if shape_name in ("full_graph_sm", "ogb_products", "molecule"):
         n_graphs = shape.get("batch", 1)
@@ -624,6 +826,12 @@ def build_gnn_cell(cfg, shape_name: str, shape: Dict[str, Any], layout=None) -> 
             return state(generator, dev, params) + _graph_inputs(
                 shape, N, E, d_in, cfg.n_classes, generator, dev, graph_pool)
 
+        def rank_args(generator, device, lay):
+            dev = resolve_device(device)
+            gspec = shd.divisible_rows_spec(n_graphs, lay, multi_pod) if graph_pool else None
+            return state(generator, dev, None) + _graph_rank_inputs(
+                shape, N, E, d_in, cfg.n_classes, generator, dev, graph_pool, rows, gspec, lay)
+
         flops = 3 * (2 * N * (d_in * d_h * 2) + 2 * N * d_h * d_h * 2 * (cfg.n_layers - 1)
                      + 2 * N * d_h * cfg.n_classes)
         return Cell(cfg.name, shape_name, "train",
@@ -633,7 +841,7 @@ def build_gnn_cell(cfg, shape_name: str, shape: Dict[str, Any], layout=None) -> 
                     # random placement (fwd + bwd gather/scatter)
                     model_coll_bytes=3.0 * E * (d_in + d_h) * 4.0,
                     arg_specs=(pspecs, opt_specs) + in_specs,
-                    arg_roles=("params", "opt_state") + roles)
+                    arg_roles=("params", "opt_state") + roles, rank_args=rank_args)
 
     if shape_name == "minibatch_lg":
         Bn = shape["batch_nodes"]
@@ -648,6 +856,11 @@ def build_gnn_cell(cfg, shape_name: str, shape: Dict[str, Any], layout=None) -> 
         def make_args(generator, device="cuda", params=None):
             dev = resolve_device(device)
             return state(generator, dev, params) + _block_inputs(cfg, sizes, generator, dev)
+
+        def rank_args(generator, device, lay):
+            dev = resolve_device(device)
+            return state(generator, dev, None) + _block_rank_inputs(cfg, sizes, generator,
+                                                                    dev, rows, lay)
 
         # layer 0 (d_in→d_h, self+neigh mats) over levels 0..L-1; deeper layers
         # (d_h→d_h) over shrinking level sets; classifier over the seeds
@@ -665,6 +878,7 @@ def build_gnn_cell(cfg, shape_name: str, shape: Dict[str, Any], layout=None) -> 
                     note="padded bipartite blocks (real sampler feeds these)",
                     arg_specs=(pspecs, opt_specs, [level] * len(sizes), [level] * len(fan),
                                rows),
-                    arg_roles=("params", "opt_state", "feats", "neigh", "labels"))
+                    arg_roles=("params", "opt_state", "feats", "neigh", "labels"),
+                    rank_args=rank_args)
 
     raise ValueError(shape_name)

@@ -109,6 +109,37 @@ def _ring_args(cfg: dist.RingConfig, n_pods: int, generator, device):
     return phi, psi, wl, dl, uid, z, alpha, TRAIN_DEFAULTS["beta"], 7
 
 
+def _ring_rank_args(cfg: dist.RingConfig, n_pods: int, layout, generator, device):
+    """One rank's views of ``_ring_args``' epoch arguments (a ring of one
+    model shard), drawn at their block shapes for a rank of a mirror world
+    (``launch.mesh.mirror_ranks``), whose ring shifts hand each rank its own
+    stack back: the rank samples sub-block ``me`` (its place on the ring) of
+    its own stack every round. So its Φ block counts that sub-block's
+    (word, topic) pairs, Ψ is the ring's size times the bincount of the
+    stack's z (every rank of the pod holds the same stack), and uid is the
+    rank's block of the global count; the epoch's decrements then never take
+    a count below zero."""
+    if cfg.model_shards != 1:
+        raise ValueError("rank_args draws a ring of one model shard")
+    dev = resolve_device(device)
+    M, K, rows, cap = cfg.n_rounds, cfg.n_topics, cfg.rows_per_shard, cfg.cap
+    lead = (1,) if n_pods > 1 else ()
+    me = shd.flat_ring_index(layout)
+    draw = lambda hi: torch.randint(0, hi, (M, cap), generator=generator, device=dev,
+                                    dtype=torch.int32)
+    wl, dl, z = draw(rows), draw(cfg.docs_per_shard), draw(K)
+    uid = torch.arange(M * cap, dtype=torch.int64, device=dev).reshape(M, cap) + me * M * cap
+    phi = torch.zeros((rows, K), dtype=torch.int32, device=dev)
+    phi.index_put_((wl[me].long(), z[me].long()), torch.ones((), dtype=torch.int32, device=dev),
+                   accumulate=True)
+    psi = torch.bincount(z.reshape(-1).long(), minlength=K).to(torch.int32) * shd.ring_size(layout)
+    alpha = torch.full((K,), TRAIN_DEFAULTS["alpha0"] / K, device=dev)
+    phi, psi = phi.view(lead + (1, rows, K)), psi.view(lead + (K,))
+    wl, dl, uid, z = (t.view(lead + (1, M, cap)) for t in (wl, dl, uid, z))
+    beta = torch.tensor(TRAIN_DEFAULTS["beta"], dtype=torch.float32, device=dev)
+    return phi, psi, wl, dl, uid, z, alpha, beta, 7
+
+
 def train_cell(cfg: dist.RingConfig, layout=None, n_pods: int = 1,
                shape: str = "train_segment") -> Cell:
     """The train cell of ring ``cfg`` for one rank of ``layout`` (None: a ring
@@ -137,6 +168,8 @@ def train_cell(cfg: dist.RingConfig, layout=None, n_pods: int = 1,
         arch="peacock-lda", shape=shape, step_kind="lda_train", fn=fn,
         make_args=lambda generator=None, device="cuda", params=None:
             _ring_args(cfg, n_pods, generator, device),
+        rank_args=lambda generator, device, lay: _ring_rank_args(cfg, n_pods, lay, generator,
+                                                                  device),
         model_flops=flops, model_coll_bytes=coll, donate=(0, 2, 3, 4, 5),
         note=f"M={M} ring, cap={cap}, segment={M * cfg.docs_per_shard} docs"
              + (", int8-Θ+col-excl" if optimized else "")
@@ -186,6 +219,39 @@ def _serve_args(vocab: int, n_topics: int, batch: int, query_len: int, generator
     return model.pvk, model.alpha, model.r_topic, model.r_value, queries
 
 
+def _serve_rank_args(vocab: int, n_topics: int, batch: int, query_len: int, layout,
+                     generator, device):
+    """One rank's views of ``_serve_args``' arguments for a rank of a mirror
+    world (``launch.mesh.mirror_ranks``): its block of P̂ and the R cache
+    built from ``query_len`` tokens a row (so every row has counts), each on
+    a topic drawn from the first ⌈K / ring⌉; P̂ normalised over the mirror
+    world's table (the block tiled ring times), so the ring's sum of the R
+    topics a step reads, ring · r, stays below K. α and the queries (the
+    batch's, −1 padded, words uniform over the vocabulary) are whole."""
+    dev = resolve_device(device)
+    ring = shd.ring_size(layout)
+    rows = shd.block_shape((shd.round_up(vocab, 512),), shd.ring_spec(), layout)[0]
+    topics = torch.randint(0, -(-n_topics // ring), (rows, query_len), generator=generator,
+                           device=dev)
+    phi = torch.zeros((rows, n_topics), dtype=torch.float32, device=dev)
+    phi.index_put_((torch.arange(rows, device=dev)[:, None].expand_as(topics), topics),
+                   torch.ones((), device=dev), accumulate=True)
+    pvk = phi.add_(TRAIN_DEFAULTS["beta"])
+    pvk /= pvk.sum(dim=0, keepdim=True) * ring
+    alpha = torch.full((n_topics,), TRAIN_DEFAULTS["alpha0"] / n_topics, device=dev)
+    prior = pvk * alpha[None, :]
+    r_topic = torch.argmax(prior, dim=1).to(torch.int32)
+    r_value = torch.amax(prior, dim=1)
+    del prior
+    if rows and int(r_topic.max()) * ring >= n_topics:
+        raise AssertionError("an R topic of the mirror world falls outside [0, K)")
+    lengths = torch.randint(1, query_len + 1, (batch, 1), generator=generator, device=dev)
+    words = torch.randint(0, vocab, (batch, query_len), generator=generator, device=dev,
+                          dtype=torch.int32)
+    slot = torch.arange(query_len, device=dev)[None, :] < lengths
+    return pvk, alpha, r_topic, r_value, torch.where(slot, words, -1)
+
+
 def serve_cell(vocab: int, n_topics: int, layout=None, batch: int = 1024,
                query_len: int = 8) -> Cell:
     """The RT-LDA serving cell (JAX's ``_serve_cell``: seed 17, 2 trials × 5
@@ -204,6 +270,8 @@ def serve_cell(vocab: int, n_topics: int, layout=None, batch: int = 1024,
         arch="peacock-lda", shape="serve_rt", step_kind="lda_serve", fn=serve,
         make_args=lambda generator=None, device="cuda", params=None:
             _serve_args(vocab, n_topics, B, Ld, generator, device),
+        rank_args=lambda generator, device, lay: _serve_rank_args(vocab, n_topics, B, Ld, lay,
+                                                                   generator, device),
         model_flops=2.0 * B * (5 * 2) * Ld * Ld * 8.0,
         model_coll_bytes=5 * 2 * B * Ld * Ld * 4.0,
         note="Eq.4 candidate-set hill climb, 2 trials × 5 iters",

@@ -61,12 +61,18 @@ class Cost:
     collective_log: List[Tuple[str, Tuple[int, ...], str, float]] = dataclasses.field(
         default_factory=list)      # each collective in order: (JAX primitive name,
                                    # payload shape, dtype, bytes)
+    folded_collectives: Dict[str, float] = dataclasses.field(default_factory=dict)
+    folded_collective_bytes: Dict[str, float] = dataclasses.field(default_factory=dict)
+                                   # the same, each charge times the active
+                                   # ``fold`` weights (a cut loop's whole trips)
 
 
 # the costs being counted, innermost last; kernel bodies hide their aten ops
-# from them while ``_hidden`` is above 0
+# from them while ``_hidden`` is above 0; ``_fold[-1]``: the weight of a
+# collective charged now (``fold``)
 _active: List[Cost] = []
 _hidden = [0]
+_fold = [1.0]
 
 _aten = torch.ops.aten
 _MM = {_aten.mm.default, _aten.addmm.default, _aten.bmm.default, _aten.baddbmm.default,
@@ -108,23 +114,31 @@ def _bytes(tree) -> float:
     return sum(tensor_bytes(x) for x in pytree.tree_leaves(tree) if isinstance(x, torch.Tensor))
 
 
+_VIEW: Dict[Any, bool] = {}
+
+
 def _is_view(func) -> bool:
-    """Whether ``func`` returns a view of an argument (it moves nothing)."""
-    v = getattr(func, "is_view", None)
+    """Whether ``func`` returns a view of an argument (it moves nothing);
+    read from its schema once an op."""
+    v = _VIEW.get(func)
     if v is None:
-        v = any(a.alias_info is not None and not a.alias_info.is_write
-                for a in func._schema.arguments)
-    return bool(v)
+        v = getattr(func, "is_view", None)
+        if v is None:
+            v = any(a.alias_info is not None and not a.alias_info.is_write
+                    for a in func._schema.arguments)
+        v = _VIEW[func] = bool(v)
+    return v
 
 
-def _moved_bytes(func, args, kwargs, out) -> float:
+def _moved_bytes(func, args, kwargs, out, in_out: float) -> float:
+    """What ``func`` moves; ``in_out``: its inputs' and outputs' bytes."""
     if _is_view(func):
         return 0.0
     if func in _GATHER:
         return _bytes((args[1:], kwargs)) + _bytes(out)
     if func in _SCATTER:
         return 2.0 * _bytes((args[1:], kwargs))
-    return _bytes((args, kwargs)) + _bytes(out)
+    return in_out
 
 
 class _Counter(TorchDispatchMode):
@@ -138,8 +152,9 @@ class _Counter(TorchDispatchMode):
         if not _hidden[0]:
             if func in _MM:
                 self.cost.flops += _mm_flops(func, args)
-            self.cost.bytes += _bytes((args, kwargs)) + _bytes(out)
-            self.cost.moved_bytes += _moved_bytes(func, args, kwargs, out)
+            in_out = _bytes((args, kwargs)) + _bytes(out)
+            self.cost.bytes += in_out
+            self.cost.moved_bytes += _moved_bytes(func, args, kwargs, out, in_out)
         return out
 
 
@@ -199,14 +214,33 @@ def kernel_call(name: str):
             cost.moved_bytes += float(nbytes)
 
 
+@contextlib.contextmanager
+def fold(weight: float):
+    """Inside the block each collective charged counts ``weight`` times (and
+    the enclosing folds' weights) in a Cost's ``folded_*`` fields: a step cut
+    to r of its loop's n trips folds the loop's collectives by n / r, as
+    JAX's dry run folds a while loop's trip count into the collectives of its
+    HLO (``collectives_hlo_folded``). Outside every fold the folded fields
+    equal the counted ones."""
+    _fold.append(_fold[-1] * float(weight))
+    try:
+        yield
+    finally:
+        _fold.pop()
+
+
 def charge_collective(kind: str, nbytes: float, shape: Sequence[int] = (),
                       dtype: Optional[Any] = None) -> None:
     """Record one collective of JAX primitive name ``kind`` moving
     ``nbytes`` of payload from this rank, a tensor of ``shape`` and
     ``dtype`` (the sharding audit reads them, ``analysis.shardcheck``)."""
+    w = _fold[-1]
     for cost in _active:
         cost.collectives[kind] = cost.collectives.get(kind, 0.0) + 1
         cost.collective_bytes[kind] = cost.collective_bytes.get(kind, 0.0) + float(nbytes)
+        cost.folded_collectives[kind] = cost.folded_collectives.get(kind, 0.0) + w
+        cost.folded_collective_bytes[kind] = (cost.folded_collective_bytes.get(kind, 0.0)
+                                              + w * float(nbytes))
         cost.collective_log.append((kind, tuple(int(d) for d in shape),
                                     str(dtype).replace("torch.", ""), float(nbytes)))
 

@@ -44,6 +44,20 @@ neither gloo nor NCCL reduces. Here each rank all-gathers the int8 payload
 and sums it locally in int16: the same values under the same 258-shard
 bound, and one byte per element per rank on the wire (a quarter of f32).
 
+A mirror layout (``launch.mesh.mirror_ranks``, ``backend="mirror"``) runs
+one rank of a world whose every rank holds this rank's values, in this
+process alone: each primitive returns what the real world returns when every
+rank of the group passes the same tensor (``all_reduce_``: n · t for a sum,
+t for a max; ``all_gather``: n copies; ``reduce_scatter``: n × the rank's
+block; ``Shift``: the tensors themselves), and never enters
+``torch.distributed`` or a card's workspaces. The functions built on them
+(``all_gather_v``, ``psum``, ``grad_psum``, ``gather_dim``,
+``elastic_aggregate``) follow; ``compressed_psum`` seeds each shard's
+rounding with its index, so there every shard carries this rank's payload,
+not its own. The groups of the
+production meshes are 2, 16, 256 or 512 ranks, so n · t is exact in f32 and
+bf16 wherever t · n stays finite.
+
 Each collective is reported to an active ``dist.analysis.count_cost`` under
 the name of its JAX primitive (``psum``, ``pmax``, ``all_gather``,
 ``reduce_scatter``, ``ppermute``) with its payload bytes, shape and dtype, groups of one rank included (JAX's
@@ -74,6 +88,9 @@ HOST_CHUNK = 1 << 26
 # bytes of one half of a rank's workspace for ranks that share a card
 CARD_CHUNK = 1 << 25
 CARD_TIMEOUT_S = 1800.0     # the longest a rank waits for its group at an exchange
+
+
+MIRROR = "mirror"         # the backend of ``launch.mesh.mirror_ranks``' layouts
 
 
 def group_index(layout: RankLayout, name: str) -> int:
@@ -229,6 +246,8 @@ def _reduce_(t: torch.Tensor, layout: RankLayout, name: str, op: str) -> torch.T
     group, ranks = layout.group(name)
     if len(ranks) == 1:
         return t
+    if layout.backend == MIRROR:
+        return t.mul_(len(ranks)) if op == "sum" else t
     cg = _card(t, layout, name)
     if cg is not None:
         return _card_reduce_(t, cg, op)
@@ -251,6 +270,8 @@ def all_gather(t: torch.Tensor, layout: RankLayout, name: str) -> torch.Tensor:
     analysis.charge_collective("all_gather", analysis.tensor_bytes(t), t.shape, t.dtype)
     if len(ranks) == 1:
         return t[None].clone()
+    if layout.backend == MIRROR:
+        return t[None].expand((len(ranks),) + tuple(t.shape)).contiguous()
     cg = _card(t, layout, name)
     if cg is not None:
         out = torch.empty((len(ranks),) + tuple(t.shape), dtype=t.dtype, device=t.device)
@@ -297,11 +318,13 @@ def reduce_scatter(t: torch.Tensor, layout: RankLayout, name: str) -> torch.Tens
     if n == 1:
         return t.clone()
     k = t.shape[0] // n
+    me = ranks.index(layout.rank)
+    if layout.backend == MIRROR:
+        return t[me * k:(me + 1) * k] * n
     if layout.backend == "nccl":
         out = torch.empty((k,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
         dist.reduce_scatter_tensor(out, t.contiguous(), group=group)
         return out
-    me = ranks.index(layout.rank)
     total = _reduce_(t.contiguous().clone(), layout, name, "sum")
     return total[me * k:(me + 1) * k].clone()
 
@@ -452,7 +475,7 @@ class Shift:
         for t in tensors:               # one transfer (a JAX ppermute) per tensor
             analysis.charge_collective("ppermute", analysis.tensor_bytes(t), t.shape, t.dtype)
         self._device = tensors[0].device
-        if len(ranks) == 1:
+        if len(ranks) == 1 or layout.backend == MIRROR:
             self._reqs, self._bufs = [], [t.clone() for t in tensors]
             return
         me = ranks.index(layout.rank)

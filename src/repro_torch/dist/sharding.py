@@ -41,7 +41,9 @@ class RankLayout:
     one (data, model) coordinate across pods; ``"dp"``: the (pod, data)
     ranks of one model index, JAX's ``dp_axes(multi_pod)``; ``"world"``) to
     ``(process group, its global ranks in group order)``; it is empty for a
-    layout built only to cut or assemble views."""
+    layout built only to cut or assemble views. ``backend`` is ``"gloo"``,
+    ``"nccl"`` or ``"mirror"`` (``launch.mesh.mirror_ranks``: no process
+    groups, every other rank holding this rank's values)."""
 
     pods: int
     data: int

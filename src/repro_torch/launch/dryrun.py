@@ -3,7 +3,7 @@ against the H100 (port of ``repro.launch.dryrun``).
 
 The JAX dry run lowers and compiles each cell on 512 fake host devices and
 reads XLA's memory analysis. The port runs one process per rank and has no
-compiler to ask, so each cell gets two records:
+compiler to ask, so each cell gets three records:
 
 * **the mesh record**, at JAX's production meshes (16×16 = 256 ranks, and
   2×16×16 = 512 with ``--multi-pod``; ``launch/mesh.py`` of the JAX
@@ -38,6 +38,19 @@ compiler to ask, so each cell gets two records:
   (cast to each cell's dtype). Where the cell has a ``one_rank_cut`` (an LM
   train step, 128 microbatches at one rank) the record runs the cut cell and
   says what it cuts under ``reduced``.
+* **the rank step** (``rank_step``), the counterpart of JAX's compile,
+  ``memory_analysis``, cost and HLO collective mix for one device of the
+  production mesh: rank 0's step of the cell built for that mesh, on this
+  device alone, the other ranks stood in by a mirror world
+  (``launch.mesh.mirror_ranks``; ``RankStep``), its views drawn at their
+  block shapes (``Cell.rank_args``); the same step fields as the one-rank
+  record, and ``collectives`` (JAX primitive → calls and payload bytes).
+  Where the cell has a ``rank_cut`` (an LM train step: 8 or 16
+  microbatches at a rank) the record runs the cut cell, says so under
+  ``reduced`` and folds the cut loop's collectives back to the whole step
+  (``collectives_folded``). The mesh record's collective term is then JAX's:
+  the larger of ``model_coll_bytes`` and those bytes times the chips
+  (``collective_bytes_traced``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch autoint --shape serve_p99
@@ -49,9 +62,10 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --shard-table [--json]
 
 ``--device`` is ``cuda`` by default and raises when there is no card;
-``meta`` records the mesh records alone (no step runs, nothing is drawn);
-``cpu`` runs the one-rank steps on the host, where no time or memory is
-measured (for small cells).
+``meta`` records the mesh records alone (no step runs, nothing is drawn;
+the one-rank and rank steps ``not_run``); ``cpu`` runs the one-rank and
+rank steps on the host, where no time or memory is measured (for small
+cells).
 """
 from __future__ import annotations
 
@@ -82,14 +96,17 @@ MESHES = {False: (1, 16, 16), True: (2, 16, 16)}
 TIMED_STEPS = 3              # a one-rank step's time is their median
 
 
-def timed_steps(family: str, step_kind: str) -> int:
-    """The timed steps of a cell's one-rank record after its warm-up: one
-    for an LM train cell, whose step takes seconds, so that a host stall of
-    milliseconds does not move it; none for an LM prefill cell, whose
-    warm-up step (seconds, a few large ops, under ``count_cost``) is the
-    timed one; ``TIMED_STEPS`` for every other cell."""
+def timed_steps(family: str, step_kind: str, rank: bool = False) -> int:
+    """The timed steps of a cell's one-rank or rank (``rank``) record after
+    its warm-up: one for an LM train cell and an LDA ring epoch, whose step
+    takes seconds, so that a host stall of milliseconds does not move it;
+    none for an LM prefill cell and a rank's LM train cell, whose warm-up
+    step (seconds, large ops, under ``count_cost``) is the timed one (the
+    dry run's time on the card); ``TIMED_STEPS`` for every other cell."""
     if family == "lm" and step_kind in ("train", "prefill"):
-        return 0 if step_kind == "prefill" else 1
+        return 0 if step_kind == "prefill" or rank else 1
+    if step_kind == "lda_train":
+        return 1
     return TIMED_STEPS
 
 def mesh_layout(multi_pod: bool) -> shd.RankLayout:
@@ -222,63 +239,168 @@ class OneRank:
         return args
 
     def _step(self, cell, args, family: str) -> dict:
-        """The warm-up step (under ``count_cost`` unless ``skip_cost``: the
-        flops and bytes of a step), then the timed steps."""
-        cuda = self.dev.type == "cuda"
-        sync = torch.cuda.synchronize if cuda else (lambda: None)
-        kernels.reset_launch_counts()
-        out: dict = {}
-        n = timed_steps(family, cell.step_kind)
-        if cuda:
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            if n == 0:
-                torch.cuda.reset_peak_memory_stats()
-                a.record()
-        if self.skip_cost:
-            cell.fn(*args)
-        else:
-            cost, _ = analysis.count_cost(cell.fn, *args)
-        sync()
-        if cuda:
-            times = []
-            if n == 0:                      # the warm-up step is the timed one
-                b.record()
-                b.synchronize()
-                times.append(float(a.elapsed_time(b)))
-            else:
-                torch.cuda.reset_peak_memory_stats()
-            for _ in range(n):
-                a.record()
-                cell.fn(*args)
-                b.record()
-                b.synchronize()
-                times.append(float(a.elapsed_time(b)))
-            live = int(torch.cuda.max_memory_allocated())
-            out.update(step_ms=sorted(times)[len(times) // 2], timed_steps=len(times),
-                       timed_on_counted_step=n == 0,
-                       live_bytes_per_device=live, fits_80gb_hbm=bool(live < HBM_BYTES))
-        else:
-            cell.fn(*args)
-            out.update(step_ms=None, live_bytes_per_device=None,
-                       fits_80gb_hbm=None, measured="not measured: no card")
-        if not self.skip_cost:
-            out["cost"] = {"flops": cost.flops, "bytes": cost.bytes,
-                           "moved_bytes": cost.moved_bytes,
-                           "kernels": cost.kernels, "collectives": cost.collectives,
-                           "collective_bytes": cost.collective_bytes}
-            out["useful_flops_ratio"] = (cell.model_flops / cost.flops) if cost.flops else None
-            terms = _terms(cost.flops, cost.moved_bytes, 0.0, 1)
-            out["roofline"] = terms
-            out["bottleneck"] = max(terms, key=terms.get)
-            if out.get("step_ms"):
-                out["roofline_share"] = max(terms.values()) / (out["step_ms"] / 1e3)
-        out["launches"] = kernels.launch_counts()
-        return out
+        return run_step(cell, args, family, self.dev, self.skip_cost)[0]
 
 
-def run_cell(spec, shape: str, multi_pod: bool, one_rank=None) -> dict:
+def run_step(cell, args, family: str, dev, skip_cost: bool = False,
+             rank: bool = False) -> dict:
+    """The warm-up step of ``cell`` on ``args`` (under ``count_cost`` unless
+    ``skip_cost``: the flops and bytes of a step), then the timed steps on
+    the card (``timed_steps``): (the record's step fields, the warm-up's
+    ``Cost`` or None)."""
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    kernels.reset_launch_counts()
+    out: dict = {}
+    cost = None
+    n = timed_steps(family, cell.step_kind, rank)
+    if cuda:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if n == 0:
+            torch.cuda.reset_peak_memory_stats()
+            a.record()
+    if skip_cost:
+        cell.fn(*args)
+    else:
+        cost, _ = analysis.count_cost(cell.fn, *args)
+    sync()
+    if cuda:
+        times = []
+        if n == 0:                      # the warm-up step is the timed one
+            b.record()
+            b.synchronize()
+            times.append(float(a.elapsed_time(b)))
+        else:
+            torch.cuda.reset_peak_memory_stats()
+        for _ in range(n):
+            a.record()
+            cell.fn(*args)
+            b.record()
+            b.synchronize()
+            times.append(float(a.elapsed_time(b)))
+        live = int(torch.cuda.max_memory_allocated())
+        out.update(step_ms=sorted(times)[len(times) // 2], timed_steps=len(times),
+                   timed_on_counted_step=n == 0,
+                   live_bytes_per_device=live, fits_80gb_hbm=bool(live < HBM_BYTES))
+    else:
+        cell.fn(*args)
+        out.update(step_ms=None, live_bytes_per_device=None,
+                   fits_80gb_hbm=None, measured="not measured: no card")
+    if not skip_cost:
+        out["cost"] = {"flops": cost.flops, "bytes": cost.bytes,
+                       "moved_bytes": cost.moved_bytes,
+                       "kernels": cost.kernels, "collectives": cost.collectives,
+                       "collective_bytes": cost.collective_bytes}
+        out["useful_flops_ratio"] = (cell.model_flops / cost.flops) if cost.flops else None
+        terms = _terms(cost.flops, cost.moved_bytes, 0.0, 1)
+        out["roofline"] = terms
+        out["bottleneck"] = max(terms, key=terms.get)
+        if out.get("step_ms"):
+            out["roofline_share"] = max(terms.values()) / (out["step_ms"] / 1e3)
+    out["launches"] = kernels.launch_counts()
+    return out, cost
+
+
+class NotRun:
+    """A rank step left out of a dry run: its record says why."""
+
+    def __init__(self, reason: str):
+        self.reason = reason
+
+    def record(self, spec, shape: str, multi_pod: bool) -> dict:
+        return {"status": "not_run", "reason": self.reason}
+
+
+def by_primitive(calls: dict, nbytes: dict) -> dict:
+    """JAX primitive → {"calls", "bytes"} of one step's collectives."""
+    return {k: {"calls": calls[k], "bytes": nbytes[k]} for k in sorted(calls)}
+
+
+class RankStep:
+    """The rank steps of a dry run's mesh records on ``device``: rank 0 of
+    the cell built for the production mesh, run on this device alone with
+    the other ranks stood in by a mirror world (``launch.mesh.mirror_ranks``:
+    every rank holds rank 0's values, so each collective returns what the
+    real world returns when every rank passes the same tensor, and charges
+    what it charges there). The arguments are the rank's views drawn at
+    their block shapes (``Cell.rank_args``). The counterpart of JAX's
+    compile, ``memory_analysis``, cost and HLO collective mix for one
+    device of the mesh: ``step_ms``, ``live_bytes_per_device``,
+    ``fits_80gb_hbm``, the counted ``cost``, the ``collectives`` by JAX
+    primitive (calls and payload bytes of the step as run, and
+    ``collectives_folded`` to the whole step where ``rank_cut`` runs fewer
+    trips of its loop, said under ``reduced``) and the kernels' launches."""
+
+    def __init__(self, device, skip_cost: bool = False, seed: int = 0):
+        self.dev = resolve_device(device)
+        self.skip_cost = skip_cost
+        self.seed = seed
+        self.card = card_line() if self.dev.type == "cuda" else None
+
+    def record(self, spec, shape: str, multi_pod: bool) -> dict:
+        from repro_torch.launch import mesh
+
+        rec: dict = {"device": str(self.dev), "rank": 0}
+        if self.card:
+            rec["card"] = self.card
+        if self.dev.type == "meta":
+            rec.update(status="not_run", reason="--device meta: no step runs")
+            return rec
+        args, t0 = None, time.perf_counter()
+        base = torch.cuda.memory_allocated(self.dev) if self.dev.type == "cuda" else 0
+        try:
+            layout = mesh.mirror_ranks(*MESHES[multi_pod], rank=0, device=self.dev)
+            cell = spec.cell(shape, layout)
+            if cell.rank_cut is not None:
+                cell = cell.rank_cut()
+                rec["reduced"] = cell.reduced
+            g = torch.Generator(device=self.dev).manual_seed(self.seed)
+            args = cell.rank_args(g, self.dev, layout)
+            out, cost = run_step(cell, args, spec.family, self.dev, self.skip_cost, rank=True)
+            if base and out.get("live_bytes_per_device") is not None:
+                out["live_bytes_per_device"] -= base   # what stayed allocated before the draw
+                out["fits_80gb_hbm"] = bool(out["live_bytes_per_device"] < HBM_BYTES)
+            rec.update(out)
+            if cost is not None:
+                rec["collectives"] = by_primitive(cost.collectives, cost.collective_bytes)
+                rec["collectives_folded"] = by_primitive(cost.folded_collectives,
+                                                         cost.folded_collective_bytes)
+                rec["collective_bytes"] = sum(cost.folded_collective_bytes.values())
+            rec["status"] = "ok"
+        except torch.cuda.OutOfMemoryError as e:
+            rec.update(status="fail", fits_80gb_hbm=False,
+                       error=f"OutOfMemoryError: {str(e).splitlines()[0]}")
+        except Exception as e:  # noqa: BLE001 — a failed step is a recorded bug
+            rec.update(status="fail", error=f"{type(e).__name__}: {e}",
+                       traceback=traceback.format_exc()[-2000:])
+        finally:
+            del args
+            gc.collect()
+            if self.dev.type == "cuda":
+                torch.cuda.empty_cache()
+            rec["wall_s"] = time.perf_counter() - t0
+        return rec
+
+
+def rank_selected(which: str, arch: str, shape: str, mesh: str) -> bool:
+    """Whether ``--rank-steps which`` runs the rank step of ``arch``'s cell
+    ``shape`` at ``mesh``: a comma list of ``all``, ``none``, meshes
+    (``16x16``), arch ids, ``arch/shape`` and ``arch@mesh`` or
+    ``arch/shape@mesh``; an item with a leading ``-`` leaves its cells out."""
+    items = {w.strip() for w in which.split(",")}
+    names = {mesh, arch, f"{arch}@{mesh}", f"{arch}/{shape}", f"{arch}/{shape}@{mesh}"}
+    if names & {w[1:] for w in items if w.startswith("-")}:
+        return False
+    return "all" in items or bool(items & names)
+
+
+def run_cell(spec, shape: str, multi_pod: bool, one_rank=None, rank_step=None) -> dict:
     """The mesh record of ``spec``'s cell ``shape`` at the production mesh,
-    with ``one_rank``'s record of the same cell under ``"one_rank"``."""
+    with ``one_rank``'s record of the same cell under ``"one_rank"`` and
+    ``rank_step``'s (a ``RankStep``) under ``"rank_step"``. Where the rank
+    step counted its collectives, the roofline's collective term is JAX's:
+    the larger of ``model_coll_bytes`` and the rank's (folded) bytes times
+    the chips (``collective_bytes_traced``)."""
     layout = mesh_layout(multi_pod)
     chips = layout.world_size
     rec: dict = {"arch": spec.arch_id, "shape": shape, "mesh": mesh_name(multi_pod),
@@ -315,6 +437,25 @@ def run_cell(spec, shape: str, multi_pod: bool, one_rank=None) -> dict:
         return rec
     if one_rank is not None:
         rec["one_rank"] = one_rank.record(spec, shape)
+    if rank_step is not None:
+        with_rank_step(rec, spec, rank_step)
+    return rec
+
+
+def with_rank_step(rec: dict, spec, rank_step) -> dict:
+    """``rec`` (an ok mesh record of ``spec``'s cell) with ``rank_step``'s
+    record of the cell under ``"rank_step"`` and, where it counted the
+    collectives, JAX's collective term in the roofline."""
+    if rec.get("status") != "ok":
+        return rec
+    rs = rec["rank_step"] = rank_step.record(spec, rec["shape"], rec["mesh"] == mesh_name(True))
+    if rs.get("collective_bytes") is not None:
+        chips, terms = rec["chips"], rec["roofline"]
+        traced = rs["collective_bytes"] * chips
+        rec["collective_bytes_traced"] = traced
+        terms["collective_s"] = max(rec["model_coll_bytes"], traced) / (
+            chips * NVLINK_BYTES_PER_S)
+        rec["bottleneck"] = max(terms, key=terms.get)
     return rec
 
 
@@ -370,6 +511,17 @@ def _summary(rec: dict) -> str:
         return f"{head} FAIL: {rec['error']}"
     line = (f"{head} OK args/rank={rec['bytes_per_device']['arguments'] / 1e9:.3f}GB "
             f"bottleneck={rec['bottleneck']}")
+    rs = rec.get("rank_step")
+    if rs is not None:
+        line += f" | rank step: {rs['status']}"
+        if rs.get("step_ms") is not None:
+            coll = ", ".join(f"{k} {v['bytes'] / 1e6:.1f} MB"
+                             for k, v in rs.get("collectives_folded", {}).items())
+            line += (f" step={rs['step_ms']:.3f}ms live={rs['live_bytes_per_device'] / 1e9:.2f}GB"
+                     f" collectives {coll or 'none'} (model_coll_bytes / chips "
+                     f"{rec['model_coll_bytes'] / rec['chips'] / 1e6:.1f} MB)")
+        elif rs.get("reason") or rs.get("error"):
+            line += f" ({rs.get('reason') or rs.get('error')})"
     one = rec.get("one_rank")
     if one is not None:
         line += f" | one rank: {one['status']}"
@@ -397,7 +549,12 @@ def main(argv=None) -> int:
                     help="16x16 and 2x16x16 (the default of --all without --multi-pod)")
     ap.add_argument("--out", default=None, help="append JSONL records here")
     ap.add_argument("--skip-cost", action="store_true",
-                    help="run the one-rank steps without count_cost's step")
+                    help="run the one-rank and rank steps without count_cost's step")
+    ap.add_argument("--rank-steps", default="all",
+                    help="which mesh records run their rank step: all (default), none, "
+                         "or a comma list of meshes (16x16), arch ids, arch/shape and "
+                         "arch@mesh or arch/shape@mesh, a leading - leaving its cells out; "
+                         "the others record it not_run")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default), cpu (small cells) or meta (no step runs)")
     ap.add_argument("--shard-table", action="store_true",
@@ -439,6 +596,7 @@ def main(argv=None) -> int:
             ap.error(f"unknown arch '{args.arch}'; known: {sorted(all_ids())}")
         ids = [args.arch]
     one_rank = OneRank(args.device, skip_cost=args.skip_cost)
+    rank_step = RankStep(args.device, skip_cost=args.skip_cost)
     if one_rank.card and not args.json:
         print(f"# card: {one_rank.card}", flush=True)
     t0 = time.perf_counter()
@@ -446,7 +604,11 @@ def main(argv=None) -> int:
         spec = specs[arch]
         shapes = [args.shape] if args.shape else list(spec.shapes)
         recs = [run_cell(spec, s, mp, one_rank) for s in shapes for mp in meshes]
-        one_rank.release(arch)
+        one_rank.release(arch)             # before the rank steps: their peak is their own
+        for rec in recs:
+            with_rank_step(rec, spec, rank_step if rank_selected(args.rank_steps, arch,
+                                                                 rec["shape"], rec["mesh"])
+                           else NotRun(f"--rank-steps {args.rank_steps}"))
         for rec in recs:
             line = json.dumps(rec)
             print(line, flush=True)

@@ -7,7 +7,9 @@ mesh coordinate. ``init_ranks`` joins this process to the world (torchrun's
 process groups once and returns a frozen :class:`RankLayout`. ``spawn``
 starts a whole world on this host with ``torch.multiprocessing`` — what the
 tests, ``chip_smoke.py`` and ``python -m repro_torch.launch.train`` use when
-no launcher started the ranks.
+no launcher started the ranks. ``mirror_ranks`` builds one rank of a world
+of mirrors in this process alone (no world is joined): the dry run's rank
+step.
 
 The backend and the device are the caller's choice, never guessed: NCCL with
 one rank per card, or gloo (also when several ranks share one card through
@@ -27,6 +29,7 @@ from typing import Any, Callable, List, Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch import resolve_device
 from repro_torch.dist.sharding import RankLayout
 
 
@@ -56,28 +59,34 @@ def check_world(world_size: int, device: str, backend: str, ranks_per_device: in
         raise ValueError("NCCL needs CUDA devices; the CPU runs gloo")
 
 
-def _groups(pods: int, data: int, model: int) -> dict:
-    """Every rank creates every group, in one order (torch.distributed's
-    rule); groups of one rank are not created (their collectives are the
-    identity). ``"dp"`` is the data-parallel group of JAX's
-    ``dp_axes(multi_pod)``: the (pod, data) ranks of one model index, the
-    batch's split; with one pod it is the ``"data"`` group itself."""
+def group_spans(pods: int, data: int, model: int) -> dict:
+    """Group name → the rank lists of its groups, each in group order, over
+    a (pods, data, model) world. ``"dp"`` is the data-parallel group of
+    JAX's ``dp_axes(multi_pod)``: the (pod, data) ranks of one model index,
+    the batch's split; with one pod it is the ``"data"`` group itself."""
     rank = lambda p, d, m: (p * data + d) * model + m
+    return {"world": [list(range(pods * data * model))],
+            "ring": [[rank(p, d, m) for d in range(data) for m in range(model)]
+                     for p in range(pods)],
+            "data": [[rank(p, d, m) for d in range(data)]
+                     for p in range(pods) for m in range(model)],
+            "model": [[rank(p, d, m) for m in range(model)]
+                      for p in range(pods) for d in range(data)],
+            "pod": [[rank(p, d, m) for p in range(pods)]
+                    for d in range(data) for m in range(model)],
+            "dp": [[rank(p, d, m) for p in range(pods) for d in range(data)]
+                   for m in range(model)]}
+
+
+def _groups(pods: int, data: int, model: int) -> dict:
+    """Every rank creates every group of ``group_spans``, in one order
+    (torch.distributed's rule); groups of one rank are not created (their
+    collectives are the identity), and with one pod ``"dp"`` is the
+    ``"data"`` group."""
     world = pods * data * model
-    spans = {"world": [list(range(world))],
-             "ring": [[rank(p, d, m) for d in range(data) for m in range(model)]
-                      for p in range(pods)],
-             "data": [[rank(p, d, m) for d in range(data)]
-                      for p in range(pods) for m in range(model)],
-             "model": [[rank(p, d, m) for m in range(model)]
-                       for p in range(pods) for d in range(data)],
-             "pod": [[rank(p, d, m) for p in range(pods)]
-                     for d in range(data) for m in range(model)],
-             "dp": [[rank(p, d, m) for p in range(pods) for d in range(data)]
-                    for m in range(model)]}
     me = dist.get_rank()
     out, data_groups = {}, {}
-    for name, lists in spans.items():
+    for name, lists in group_spans(pods, data, model).items():
         for ranks in lists:
             if name == "world":
                 group = dist.group.WORLD if world > 1 else None
@@ -90,6 +99,26 @@ def _groups(pods: int, data: int, model: int) -> dict:
             if me in ranks:
                 out[name] = (group, ranks)
     return out
+
+
+def mirror_ranks(pods: int = 1, data: int = 1, model: int = 1, rank: int = 0,
+                 device: str = "cuda") -> RankLayout:
+    """Rank ``rank`` of a (pods, data, model) world of mirrors, in this
+    process alone: every other rank is taken to hold this rank's values, so
+    each collective of ``repro_torch.dist.collectives`` returns what a real
+    world gives when every rank of the group passes the same tensor (a sum
+    n · t, a max t, a gather n copies, a reduce-scatter n × the rank's
+    block, a ring shift the tensors themselves) and charges what it charges
+    there. The groups are ``init_ranks``' rank lists with no process group
+    (``backend="mirror"``); nothing joins a world. The dry run's mesh record
+    runs a rank's step at the production meshes on one card this way."""
+    world = pods * data * model
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a world of {world}")
+    groups = {name: (None, next(r for r in lists if rank in r))
+              for name, lists in group_spans(pods, data, model).items()}
+    return RankLayout(pods=pods, data=data, model=model, rank=rank, backend="mirror",
+                      device=str(resolve_device(device)), groups=groups)
 
 
 def init_ranks(pods: int = 1, data: int = 1, model: int = 1, backend: str = "gloo",

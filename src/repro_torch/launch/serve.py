@@ -289,6 +289,7 @@ def main(argv=None):
         "p50_ms": float(np.quantile(lat, 0.5)) if len(lat) else 0.0,
         "p99_ms": float(np.quantile(lat, 0.99)) if len(lat) else 0.0,
         "mean_ms": float(lat.mean()) if len(lat) else 0.0,
+        "max_ms": float(lat.max()) if len(lat) else 0.0,
         "deadline_ms": args.deadline_ms,
         "buckets": list(buckets),
         "truncated": n_trunc,
@@ -331,6 +332,7 @@ def main(argv=None):
             "retries": fstats.retries,
             "failed": fstats.failed,
             "breakers": [b["state"] for b in fstats.breakers],
+            "breaker_trips": [b["trips"] for b in fstats.breakers],
         })
         print(f"offered {args.qps:,.0f} QPS → achieved "
               f"{record['achieved_qps']:,.0f} QPS over {wall:.1f}s | "

@@ -4,7 +4,10 @@ Runs on dicts of tensors (nested dicts too), in the JAX version's order of
 f32 operations. The state is a plain ``AdamWState`` (or a dict with the
 same keys, kept in that form), not a ``torch.optim.Optimizer``, so JAX's
 state converts one to one (``repro_torch.convert.adamw_state_from_numpy``).
-``update`` is functional: it returns new parameters and a new state.
+``update`` is functional: it returns new parameters and a new state; with
+``inplace=True`` it writes them into the given parameters and moments (the
+same bits), for a step whose caller donates them, as JAX's ``donate_argnums``
+lets XLA reuse their buffers.
 
 Across ranks (``update``'s ``layout`` and ``specs``: the leaves are the
 rank's blocks of sharded parameters, as ``sharding.local_view`` cuts them)
@@ -55,9 +58,12 @@ class AdamW:
                           m=_map(torch.zeros_like, params),
                           v=_map(torch.zeros_like, params))
 
-    def update(self, grads, state, params, layout=None, specs=None):
+    def update(self, grads, state, params, layout=None, specs=None, inplace: bool = False):
         """``layout`` and ``specs`` (the leaves' layout specs, a tree of the
-        grads' structure): the rank's blocks, clipped by the global norm."""
+        grads' structure): the rank's blocks, clipped by the global norm.
+        ``inplace``: the new parameters and moments are written into
+        ``params`` and ``state``'s m and v, which are returned (a leaf's
+        temporaries are the only other copies)."""
         as_dict = isinstance(state, dict)
         if as_dict:
             state = AdamWState(state["step"], state["m"], state["v"])
@@ -85,7 +91,23 @@ class AdamW:
             vhat = v / c2
             return p - lr * (mhat / (torch.sqrt(vhat) + self.eps) + self.weight_decay * p), m, v
 
-        out = _map(leaf, params, grads, state.m, state.v)
+        def leaf_(p, g, mm, vv):
+            # ``leaf``'s operations in its order, each result written into
+            # the buffer it replaces: the same bits
+            if scale is not None:
+                g = g * scale
+            mm.mul_(b1).add_((1 - b1) * g)
+            t = (1 - b2) * g
+            vv.mul_(b2).add_(t.mul_(g))
+            del t
+            w = torch.div(vv, c2).sqrt_().add_(self.eps)
+            u = torch.div(mm, c1).div_(w)
+            del w
+            u.add_(self.weight_decay * p)
+            p.sub_(u.mul_(lr))
+            return p, mm, vv
+
+        out = _map(leaf_ if inplace else leaf, params, grads, state.m, state.v)
         new_params, m, v = (_map(lambda t, i=i: t[i], out) for i in range(3))
         new_state = {"step": step, "m": m, "v": v} if as_dict else AdamWState(
             step=step, m=m, v=v)

@@ -374,6 +374,8 @@ def views(arg, spec, layout):
         return {k: views(arg[k], spec[k], layout) for k in arg}
     if isinstance(arg, (list, tuple)):
         return [views(a, s, layout) for a, s in zip(arg, spec)]
+    if not isinstance(arg, torch.Tensor):          # a Python scalar (LDA's beta, seed)
+        return arg
     return shd.local_view(arg, spec, layout).clone()
 
 
@@ -596,3 +598,144 @@ def tla_tree(cfg, leaf):
     from repro_torch.models import transformer
 
     return transformer.tree_map(leaf, transformer.param_shapes(cfg))
+
+
+# ------------------------------------------------------------ mirror worlds ---
+
+MIRROR_GROUPS = ("world", "ring", "data", "model", "pod", "dp")
+
+
+def mirror_tensors(seed=0):
+    """The tensors every rank passes in ``mirror_primitives``: int32, int64,
+    f32 and bf16 [8, 6] (bf16 small integers: gloo adds a group's bf16
+    tensors one at a time in bf16, whose partial sums round unless the
+    values are integers)."""
+    g = torch.Generator().manual_seed(seed)
+    return {"int32": torch.randint(-50, 50, (8, 6), generator=g, dtype=torch.int32),
+            "int64": torch.randint(-50, 50, (8, 6), generator=g, dtype=torch.int64),
+            "float32": torch.randn((8, 6), generator=g),
+            "bfloat16": torch.randint(-8, 8, (8, 6), generator=g).to(torch.bfloat16)}
+
+
+def mirror_primitives(layout, seed=0):
+    """Every collective of ``dist.collectives`` over each group of ``layout``,
+    every rank passing the same tensors (``mirror_tensors``): the primitives
+    (``all_reduce_`` sum and max, ``all_gather``, ``reduce_scatter``,
+    ``Shift``) and the functions built on them but ``compressed_psum``,
+    whose rounding each shard seeds with its own index (a mirror world
+    carries this rank's payload for every shard); label → result as numpy."""
+    from repro_torch.dist import collectives as coll
+
+    ts, out = mirror_tensors(seed), {}
+    for name in MIRROR_GROUPS:
+        for dt, t in ts.items():
+            out[f"{name}/sum/{dt}"] = coll.all_reduce_(t.clone(), layout, name)
+            out[f"{name}/all_gather/{dt}"] = coll.all_gather(t, layout, name)
+            out[f"{name}/reduce_scatter/{dt}"] = coll.reduce_scatter(t, layout, name)
+            out[f"{name}/psum/{dt}"] = coll.psum(t.clone(), layout, name)
+            out[f"{name}/gather_dim1/{dt}"] = coll.gather_dim(t, layout, name, 1)
+        for dt in ("int32", "float32"):
+            out[f"{name}/max/{dt}"] = coll.all_reduce_(ts[dt].clone(), layout, name, "max")
+            out[f"{name}/pmax/{dt}"] = coll.pmax(ts[dt], layout, name)
+        out[f"{name}/shift"] = coll.shift(layout, name, [ts["int32"], ts["int64"],
+                                                         ts["float32"]])
+        out[f"{name}/all_gather_v"] = coll.all_gather_v(ts["float32"][:3], layout, name)
+        state = {"a": ts["int32"].clone(), "b": ts["float32"].clone()}
+        ref = {"a": ts["int32"] // 2, "b": ts["float32"] * 0.5}
+        merged, n_live = coll.elastic_aggregate(state, ref, 1, layout, name)
+        out[f"{name}/elastic"] = (merged, torch.tensor(n_live))
+        x = ts["float32"].clone().requires_grad_(True)
+        (gx,) = torch.autograd.grad((coll.grad_psum(x, layout, name) * 2).sum(), [x])
+        out[f"{name}/grad_psum_backward"] = gx
+        (gx,) = torch.autograd.grad(coll.all_gather_rows(x, layout, name).square().sum(), [x])
+        out[f"{name}/all_gather_rows_backward"] = gx
+    return to_numpy(out)
+
+
+def mirror_groups(layout):
+    """The global rank lists of the layout's groups."""
+    return {name: list(layout.group(name)[1]) for name in MIRROR_GROUPS}
+
+
+def mirror_cells(layout, names):
+    """The small cells ``names`` (``MIRROR_CELLS``) built for ``layout``; each
+    run once on its rank's views under ``count_cost``, from the global
+    arguments of ``make_args`` (seed 0) where ``layout`` is a real world,
+    or from ``rank_args`` (seed 0) where it is a mirror world. Returns name →
+    (the ordered collective log, the outputs' shapes and dtypes)."""
+    from repro_torch.dist import analysis
+
+    out = {}
+    for name in names:
+        cell = mirror_cell(name, layout)
+        g = torch.Generator().manual_seed(0)
+        if layout.backend == "mirror":
+            args = cell.rank_args(g, "cpu", layout)
+        else:
+            args = [views(a, s, layout) for a, s in zip(cell.make_args(g, "cpu"),
+                                                         cell.arg_specs)]
+        cost, res = analysis.count_cost(cell.fn, *args)
+        out[name] = ([list(e) for e in cost.collective_log], shapes_of(res))
+    return out
+
+
+def shapes_of(tree):
+    """(shape, dtype) at every tensor leaf of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: shapes_of(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [shapes_of(x) for x in tree]
+    if isinstance(tree, torch.Tensor):
+        return [list(tree.shape), str(tree.dtype)]
+    return type(tree).__name__
+
+
+# the small cell of each family that the mirror tests run
+MIRROR_CELLS = ("recsys_train", "recsys_serve", "gnn_full", "gnn_sampled", "lm_train",
+                "lm_prefill", "moe_train", "moe_decode", "lda_train", "lda_train_opt",
+                "lda_serve")
+GNN_TINY = {"full_graph_sm": dict(n_nodes=40, n_edges=150, d_feat=16, n_classes=4,
+                                  kind="full"),
+            "minibatch_lg": dict(batch_nodes=8, kind="sampled")}
+
+
+def mirror_ring_config(layout, optimized=False):
+    """A small dense ring (K = 16, V = 300, 20 docs a shard, cap 8 in
+    packages of 4; or cap 8 in one package, int8 Θ and column exclusion)
+    of ``layout``'s flattened ring."""
+    from repro_torch.core import distributed as dist
+
+    M = layout.data * layout.model
+    return dist.RingConfig(n_topics=16, vocab_size=300, rows_per_shard=-(-300 // M),
+                           docs_per_shard=20, cap=8, package_len=8 if optimized else 4,
+                           n_rounds=M, theta_dtype=torch.int8 if optimized else torch.int32,
+                           column_exclusion=optimized, small_theta=optimized)
+
+
+def mirror_cell(name, layout):
+    """The small cell ``name`` of ``MIRROR_CELLS`` for ``layout``."""
+    from repro_torch.configs import peacock_lda
+
+    if name == "recsys_train":
+        return small_cell(("recsys", "dlrm-mlperf", "train_batch"), layout)
+    if name == "recsys_serve":
+        return small_cell(("recsys", "autoint", "serve_p99"), layout)
+    if name.startswith("gnn"):
+        shape = "full_graph_sm" if name == "gnn_full" else "minibatch_lg"
+        return small_cell(("gnn", shape, GNN_TINY[shape]), layout)
+    if name in ("lm_train", "lm_prefill", "moe_train", "moe_decode"):
+        variant = {"lm": "dense", "moe": "expert"}[name.split("_")[0]]
+        variant = "ffn" if name == "moe_decode" else variant
+        return lm_cell(variant, name.split("_")[1] + "_t", layout)
+    if name.startswith("lda_train"):
+        cfg = mirror_ring_config(layout, optimized=name.endswith("opt"))
+        return peacock_lda.train_cell(cfg, layout, n_pods=layout.pods)
+    return peacock_lda.serve_cell(512, 60, layout, batch=4, query_len=8)
+
+
+def mirror_world_body(layout, names):
+    """A real world's rank: its groups' rank lists, the primitives with
+    every rank passing the same tensors, and the small cells' collective
+    logs and output shapes."""
+    return {"groups": mirror_groups(layout), "primitives": mirror_primitives(layout),
+            "cells": mirror_cells(layout, names)}

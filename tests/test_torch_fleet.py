@@ -151,6 +151,52 @@ def test_admission_control(scenario):
     same(*both(scenario))
 
 
+def sc_breakers_trip_while_shedding(S):
+    """A shedding fleet whose replicas answer at 4× the 50 ms deadline
+    (each response a blowout, over blowout_factor 3 × the deadline): both
+    breakers trip open while the fleet sheds, read half open once their
+    backoff ends, and the first recovery probe closes one of them; the
+    other is still half open when the trace ends, the fleet still
+    shedding. No request fails and none is retried."""
+    clock = FakeClock()
+    fleet = _fleet(S, clock, cache_mb=0.0, deadline_budget_ms=50.0, probe_every=4)
+    rng = np.random.default_rng(6)
+    futs = [fleet.submit(_q(rng), deadline_ms=50.0) for _ in range(32)]
+    clock.advance_ms(200.0)
+    fleet.flush_all()
+    served = [f.result(timeout=10) for f in futs]
+    tripped = fleet.stats()
+    assert tripped.shedding and tripped.p99_est_ms == 200.0
+    assert [(b["state"], b["trips"]) for b in tripped.breakers] == [("open", 1)] * 2
+    clock.advance_ms(100.0)
+    shed = [fleet.submit(_q(rng), deadline_ms=50.0).result() for _ in range(4)]
+    assert all(r.reason == "p99-slack" for r in shed)
+    clock.advance_ms(300.0)                  # past each breaker's jittered backoff
+    expired = fleet.stats()
+    assert [b["state"] for b in expired.breakers] == ["half_open"] * 2
+    later = []
+    for _ in range(6):
+        fut = fleet.submit(_q(rng), deadline_ms=50.0)
+        fleet.flush_all()
+        later.append(fut.result(timeout=10))
+    end = fleet.stats()
+    assert end.shedding and end.probes == 1
+    assert [b["state"] for b in end.breakers] == ["closed", "half_open"]
+    assert end.failed == 0 and end.retries == 0
+    fleet.close()
+    return served, tripped, shed, expired, later, end
+
+
+def test_shedding_fleet_breakers_trip_on_blowouts():
+    """JAX's breaker semantics (``serving/health.py``): a response slower
+    than blowout_factor × its deadline counts as a failure and three in a
+    row trip the breaker, shedding or not; so a shedding fleet can end a
+    run with a breaker half open, as the port's fleet did on the card with
+    its p99 at 216.9–259.5 ms against a 50 ms deadline. The port's fleet
+    walks the same states on the same trace."""
+    same(*both(sc_breakers_trip_while_shedding))
+
+
 # ------------------------------------------------------------------- cache
 
 def sc_cache_hit(S):

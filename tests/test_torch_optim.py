@@ -136,3 +136,32 @@ def test_adamw_init_and_global_norm(jax_optim):
     assert isinstance(st, tadamw.AdamWState) and st.step.dtype == torch.int32
     assert int(st.step) == 0 and float(st.m["y"]["z"].abs().sum()) == 0.0
     assert st.v["x"]["a/w"].shape == (7, 5)
+
+
+@pytest.mark.parametrize("clip,lr,wd,as_dict,gscale", CASES)
+def test_adamw_in_place_gives_the_functional_bits(clip, lr, wd, as_dict, gscale):
+    """``update(..., inplace=True)`` (a step that donates its parameters and
+    state) writes the functional update's bits into the given tensors, over
+    10 steps."""
+    rng = np.random.default_rng(9)
+    params = {k: torch.from_numpy(v) for k, v in _tree(rng).items()}
+    grads = [{k: torch.from_numpy(v) for k, v in _tree(rng, gscale).items()}
+             for _ in range(10)]
+    lr_kw = dict(peak_lr=1e-2, warmup_steps=3, stable_steps=3, decay_steps=3)
+    opt = tadamw.AdamW(lr=functools.partial(tsched.wsd, **lr_kw) if lr == "wsd" else 3e-3,
+                       weight_decay=wd, clip_norm=clip)
+    fp, fs = params, opt.init(params)
+    ip = {k: v.clone() for k, v in params.items()}
+    st = opt.init(ip)
+    ist = {"step": st.step, "m": st.m, "v": st.v} if as_dict else st
+    for g in grads:
+        fp, fs = opt.update(g, fs, fp)
+        bufs = (dict(ip), dict(ist["m"] if as_dict else ist.m))
+        ip, ist = opt.update(g, ist, ip, inplace=True)
+        assert all(ip[k] is bufs[0][k] for k in SHAPES)
+        assert all((ist["m"] if as_dict else ist.m)[k] is bufs[1][k] for k in SHAPES)
+    got = ist if as_dict else ist._asdict()
+    assert int(got["step"]) == 10
+    for k in SHAPES:
+        assert torch.equal(ip[k], fp[k]), k
+        assert torch.equal(got["m"][k], fs.m[k]) and torch.equal(got["v"][k], fs.v[k]), k

@@ -522,9 +522,10 @@ def test_launch_serve_main_on_cpu(mode, capsys):
     assert t["truncated"] == 0 and t["swap_mid"]
     assert sum(t["versions_after_swap"].values()) > 0
     assert set(t["versions_after_swap"]) == {"1"}
+    assert t["max_ms"] >= t["p99_ms"]
     if mode:
         assert t["failed"] == 0 and t["retries"] == 0
-        assert t["breakers"] == ["closed", "closed"]
+        assert t["breakers"] == ["closed", "closed"] and t["breaker_trips"] == [0, 0]
     assert "achieved" in capsys.readouterr().out
 
 
